@@ -1,0 +1,69 @@
+"""Bidirectional, cache-less multi-head attention.
+
+Counterpart of ``ops/attention.py``: the reference implementation (the
+numerics oracle) and the dispatcher.  Shapes follow the GQA convention
+q [B, S, H, Dh], k/v [B, S, KV, Dh]; ``mask`` [B, S] with 1 = real token.
+
+Dispatch: ``causal`` always takes the reference; otherwise ``impl="auto"``
+takes the flash kernel on a CUDA tensor at every shape and the reference on
+the CPU.  ``impl="flash"`` forces the flash path (its plain version on CPU).
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+
+from ct_diffusionmodelbench_tpu_torch.ops.flash_attention import flash_attention
+
+NEG_INF = -1e30
+
+
+def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
+    return x if n_rep == 1 else x.repeat_interleave(n_rep, dim=2)
+
+
+def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        mask: Optional[torch.Tensor] = None,
+                        causal: bool = False) -> torch.Tensor:
+    """Softmax attention in f32, output in q.dtype."""
+    n_rep = q.shape[2] // k.shape[2]
+    k = _repeat_kv(k, n_rep)
+    v = _repeat_kv(v, n_rep)
+    scale = q.shape[-1] ** -0.5
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+    if mask is not None:
+        bias = torch.where(mask[:, None, None, :].bool(), 0.0, NEG_INF)
+        logits = logits + bias
+    if causal:
+        s = q.shape[1]
+        tri = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
+        logits = torch.where(tri[None, None], logits, NEG_INF)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
+    return out.to(q.dtype)
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+              mask: Optional[torch.Tensor] = None, impl: str = "auto",
+              causal: bool = False,
+              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """``rope=(cos, sin)``: q/k arrive unrotated; the flash path rotates
+    inside the kernel, the reference path rotates first."""
+    if causal:
+        impl = "reference"
+    elif impl == "auto":
+        impl = "flash" if q.is_cuda else "reference"
+    if impl == "flash":
+        return flash_attention(q, k, v, mask=mask, rope=rope)
+    if impl == "reference":
+        if rope is not None:
+            # Imported here: models/__init__ imports the transformer, which
+            # imports this module.
+            from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope
+
+            q = apply_rope(q, rope[0], rope[1])
+            k = apply_rope(k, rope[0], rope[1])
+        return attention_reference(q, k, v, mask=mask, causal=causal)
+    raise ValueError(f"unknown attention impl {impl!r}")

@@ -1,0 +1,191 @@
+"""LLaDA block-diffusion sampler (exact path).
+
+Counterpart of ``sampling/llada.py``:
+
+    x = [prompt ‖ mask_id × gen_length]
+    for each semi-autoregressive block:
+        counts = evenly-distributed transfer schedule over the block's masks
+        for each step in the block:
+            forward (LM head sliced to the block; CFG batch-doubling)
+            avoid_eos: logits[..., eos] = -inf
+            gumbel-noise argmax → x0
+            confidence = softmax prob of x0 ('low_confidence') or uniform
+            unmask exactly counts[row, step] top-confidence positions
+
+The step index is known on the host, so the reference's block-start
+``lax.cond`` is a plain ``if`` and the loop is a Python loop; nothing in the
+loop reads a device value on the host.  Randomness (T > 0, ``random``
+remasking) comes from an explicit ``torch.Generator``.  The block-cache and
+threshold-parallel modes belong to a later slice and raise
+``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+import inspect
+from dataclasses import dataclass
+from typing import Callable, Optional
+
+import torch
+
+from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
+from ct_diffusionmodelbench_tpu_torch.ops.sampling_ops import (
+    gumbel_rescore, rank_topk_mask, token_confidence)
+from ct_diffusionmodelbench_tpu_torch.sampling.schedule import get_num_transfer_tokens
+
+NEG_INF = float("-inf")
+
+
+@dataclass(frozen=True)
+class LLaDASamplerConfig:
+    steps: int = 128
+    gen_length: int = 128
+    block_length: int = 32
+    temperature: float = 0.0
+    cfg_scale: float = 0.0
+    remasking: str = "low_confidence"   # low_confidence | random
+    mask_id: int = 156895
+    avoid_eos: bool = False
+    eos_token_id: Optional[int] = None
+    confidence_dtype: str = "float32"   # "bfloat16" rounds the confidence
+                                        # like a bf16 reference run
+    block_cache: bool = False
+    parallel_threshold: Optional[float] = None
+
+    def __post_init__(self):
+        if self.gen_length % self.block_length != 0:
+            raise ValueError("gen_length must be divisible by block_length")
+        if self.block_cache or self.parallel_threshold is not None:
+            raise NotImplementedError(
+                "block_cache and parallel_threshold decoding are not ported "
+                "yet; use the exact sampler")
+        if self.steps % self.num_blocks != 0:
+            raise ValueError("steps must be divisible by num_blocks")
+        if self.remasking not in ("low_confidence", "random"):
+            raise NotImplementedError(self.remasking)
+
+    @property
+    def num_blocks(self) -> int:
+        return self.gen_length // self.block_length
+
+    @property
+    def steps_per_block(self) -> int:
+        return self.steps // self.num_blocks
+
+
+def _supports_logit_slice(forward_fn) -> bool:
+    try:
+        return "logit_start" in inspect.signature(forward_fn).parameters
+    except (TypeError, ValueError):
+        return False
+
+
+def _denoise_loop(forward_fn, sc: LLaDASamplerConfig, x: torch.Tensor,
+                  prompt_len: int, attn_mask: Optional[torch.Tensor],
+                  generator: Optional[torch.Generator],
+                  supports_slice: Optional[bool] = None) -> torch.Tensor:
+    """x: [B, P+G] token ids, updated in place block by block."""
+    bl = sc.block_length
+    spb = sc.steps_per_block
+    prompt_index = x != sc.mask_id
+    sliced = (supports_slice if supports_slice is not None
+              else _supports_logit_slice(forward_fn))
+
+    def block_logits(block_start):
+        kw = dict(logit_start=block_start, logit_length=bl) if sliced else {}
+        if sc.cfg_scale > 0.0:
+            un_x = torch.where(prompt_index, sc.mask_id, x)
+            both = torch.cat([x, un_x], dim=0)
+            m = None if attn_mask is None else torch.cat([attn_mask, attn_mask], dim=0)
+            logits, _ = forward_fn(both, m, **kw)
+            cond, uncond = logits.chunk(2, dim=0)
+            logits = uncond + (sc.cfg_scale + 1.0) * (cond - uncond)
+        else:
+            logits, _ = forward_fn(x, attn_mask, **kw)
+        if not sliced:
+            logits = logits[:, block_start:block_start + bl]
+        if sc.avoid_eos and sc.eos_token_id is not None:
+            logits = logits.clone()
+            logits[..., sc.eos_token_id] = NEG_INF
+        return logits
+
+    def score(logits, x_blk):
+        mask_blk = x_blk == sc.mask_id
+        scores = gumbel_rescore(logits, sc.temperature, generator)
+        x0 = torch.argmax(scores, dim=-1).to(x_blk.dtype)
+        if sc.remasking == "low_confidence":
+            x0_p = token_confidence(logits, x0)
+            if sc.confidence_dtype == "bfloat16":
+                x0_p = x0_p.to(torch.bfloat16).float()
+        else:
+            x0_p = torch.rand(x_blk.shape, generator=generator,
+                              device=x_blk.device, dtype=torch.float32)
+        x0 = torch.where(mask_blk, x0, x_blk)
+        confidence = torch.where(mask_blk, x0_p, NEG_INF)
+        return x0, confidence
+
+    counts = None
+    for s in range(sc.steps):
+        block, i = divmod(s, spb)
+        block_start = prompt_len + block * bl
+        x_blk = x[:, block_start:block_start + bl]
+        if i == 0:
+            counts = get_num_transfer_tokens(x_blk == sc.mask_id, spb)
+        logits = block_logits(block_start)
+        x0, confidence = score(logits, x_blk)
+        transfer = rank_topk_mask(confidence, counts[:, i])
+        x[:, block_start:block_start + bl] = torch.where(transfer, x0, x_blk)
+    return x
+
+
+def make_llada_sampler(forward_fn: Callable, sampler_config: LLaDASamplerConfig,
+                       prompt_len: int) -> Callable:
+    """``sample(params, prompt_ids, attn_mask=None, generator=None) ->
+    [B, P+G]`` for a fixed (prompt_len, config).  ``forward_fn(params,
+    input_ids, attn_mask, ...)`` is a ``make_forward_fn`` result."""
+    sc = sampler_config
+    supports_slice = _supports_logit_slice(forward_fn)
+
+    @torch.inference_mode()
+    def sample(params, prompt_ids, attn_mask=None, generator=None):
+        B = prompt_ids.shape[0]
+        gen = torch.full((B, sc.gen_length), sc.mask_id, dtype=prompt_ids.dtype,
+                         device=prompt_ids.device)
+        x = torch.cat([prompt_ids, gen], dim=1)
+        full_mask = None
+        if attn_mask is not None:
+            ones = torch.ones((B, sc.gen_length), dtype=attn_mask.dtype,
+                              device=attn_mask.device)
+            full_mask = torch.cat([attn_mask, ones], dim=1)
+        fwd = lambda ids, m, **kw: forward_fn(params, ids, m, **kw)  # noqa: E731
+        return _denoise_loop(fwd, sc, x, prompt_len, full_mask, generator,
+                             supports_slice=supports_slice)
+
+    return sample
+
+
+def llada_generate(forward_fn: Callable, params, prompt_ids: torch.Tensor, *,
+                   steps: int = 128, gen_length: int = 128,
+                   block_length: int = 32, temperature: float = 0.0,
+                   cfg_scale: float = 0.0, remasking: str = "low_confidence",
+                   mask_id: int = 156895, avoid_eos: bool = False,
+                   eos_token_id: Optional[int] = None,
+                   confidence_dtype: str = "float32", block_cache: bool = False,
+                   parallel_threshold: Optional[float] = None,
+                   attn_mask: Optional[torch.Tensor] = None,
+                   generator: Optional[torch.Generator] = None,
+                   device: DeviceLike = None) -> torch.Tensor:
+    """Counterpart of the reference ``llada_generate``: returns
+    [B, prompt_len + gen_length] token ids on ``device``."""
+    dev = resolve_device(device)
+    sc = LLaDASamplerConfig(
+        steps=steps, gen_length=gen_length, block_length=block_length,
+        temperature=temperature, cfg_scale=cfg_scale, remasking=remasking,
+        mask_id=mask_id, avoid_eos=avoid_eos, eos_token_id=eos_token_id,
+        confidence_dtype=confidence_dtype, block_cache=block_cache,
+        parallel_threshold=parallel_threshold)
+    prompt_ids = prompt_ids.to(dev)
+    if attn_mask is not None:
+        attn_mask = attn_mask.to(dev)
+    sampler = make_llada_sampler(forward_fn, sc, int(prompt_ids.shape[1]))
+    return sampler(params, prompt_ids, attn_mask=attn_mask, generator=generator)
