@@ -17,17 +17,30 @@ Phases, in order:
    run; no mask id may remain; a repeated forward must give identical logits.
 4. reduced depth: a 2-layer forward at full width with the kernels against
    the same forward on the kernels' plain versions.
+5. training kernels: the flash forward with lse and the two backward kernels
+   at the training shape (B 1, S 2048, H = KV = 32, Dh 128, RoPE) against
+   their plain versions, timed beside them and beside SDPA's forward and
+   backward; also a GQA case (H 16, KV 4) and a padded-mask case.
+6. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
+   5 optimizer steps by ``Trainer`` (seq 2048, micro-batch 1, grad-accum 4,
+   remat, CE chunk 512, AdamW) on seeded token rows; s/step over steps 2-5,
+   tokens/s, train MFU, peak memory, save seconds; launch counts per step.
+7. training gradients: a 2-layer full-width loss and every parameter's
+   gradient with the kernels against the same on their plain versions.
 
-Prints the ``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}``
-line.  Exits non-zero, printing no result, without a card or if any phase
-fails.
+The MoE decode's weights are freed before phase 5.  Prints the
+``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
+Exits non-zero, printing no result, without a card or if any phase fails.
 """
 
 from __future__ import annotations
 
+import gc
 import json
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -58,6 +71,30 @@ FLASH_TOL = dict(rtol=2 ** -6, atol=4e-3)
 # error.  So the plain run takes the kernel run's expert choice in every
 # layer, and the tolerance holds at every position.
 LOGITS_RTOL_OF_MAX = 2 ** -5
+
+SERVING_KERNELS = ("grouped_gateup", "grouped_down", "flash_attention_fwd")
+BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+
+# Training shape: llada-8b at full width, 8 of its 32 layers; seq 2048,
+# micro-batch 1, grad-accum 4, prompt 64; 5 optimizer steps of 20 rows.
+TRAIN_LAYERS, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_PROMPT, TRAIN_STEPS = 8, 2048, 4, 64, 5
+# Kernel against plain version at the training shape.  The forward output
+# keeps FLASH_TOL.  lse is f32 from scores that can differ by one bf16 ulp
+# of a rotated q/k element (the kernel may fuse the rotation's multiply-add
+# where PyTorch rounds twice): a few 1e-4 at most, checked at 2e-3.  The
+# backward's f32 outputs sum products of bf16-rounded P and dS whose f32
+# sources differ in their last bits; a flipped rounding moves one term by
+# one bf16 ulp (2**-8 relative), so each element stays within 2**-6 of
+# itself plus 2**-8 of the tensor's largest magnitude.
+LSE_ATOL = 2e-3
+BWD_RTOL, BWD_ATOL_OF_MAX = 2 ** -6, 2 ** -8
+# Two-layer gradients, kernels against plain: one-ulp differences inside the
+# attention backward (and the bf16 attention output they feed) reach every
+# gradient through a dozen bf16 roundings per layer; expected relative L2
+# error per leaf about 2**-8, limit four bf16 ulps (2**-5).  The loss is one
+# f32 sum over the masked tokens: 2**-7 relative.
+GRAD_REL_L2 = 2 ** -5
+LOSS_RTOL = 2 ** -7
 
 
 def card_line() -> str:
@@ -205,7 +242,7 @@ def kernel_phase(cfg, params, dev):
     kv_len = fa.kv_tile_len(SEQ)
     k_ms = time_ms(lambda: fa.FLASH_KERNEL(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), a_out.data_ptr(), BATCH, SEQ, kv_len, H, KV, Dh,
+        sin.data_ptr(), a_out.data_ptr(), None, BATCH, SEQ, kv_len, H, KV, Dh,
         Dh ** -0.5, stream), 50)
     p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, mask=mask, rope=(cos, sin)), 10)
     qr = apply_rope(q, cos, sin).transpose(1, 2)
@@ -258,9 +295,11 @@ def slice_phase(cfg, params, dev):
     print(f"  peak memory: {peak / 2**30:.3f} GiB", flush=True)
     print(f"  launches: {json.dumps(launches)}", flush=True)
     want = cfg.num_layers * STEPS
-    bad = {n: c for n, c in launches.items() if c != want}
+    bad = {n: c for n, c in launches.items()
+           if c != (want if n in SERVING_KERNELS else 0)}
     if bad:
-        raise AssertionError(f"expected {want} launches of each kernel, got {bad}")
+        raise AssertionError(f"expected {want} launches of each serving kernel "
+                             f"and none of the backward kernels, got {bad}")
     left = int((out[:, PROMPT:] == cfg.mask_token_id).sum())
     print(f"  mask ids left: {left}", flush=True)
     if left:
@@ -351,20 +390,275 @@ def depth_phase(cfg, params, ids, dev):
     return float(err_p.max())
 
 
+def attention_case(dev, b, s, h, kv, dh, seed, pad=0):
+    """Seeded bf16 q, k, v, dO; a mask with ``pad`` left-padding keys in the
+    last row (or none); RoPE tables at llada-8b's theta."""
+    from ct_diffusionmodelbench_tpu_torch.models.layers import rope_angles
+    from ct_diffusionmodelbench_tpu_torch.models.transformer import token_positions
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    q, do = (torch.randn((b, s, h, dh), generator=gen, device=dev,
+                         dtype=torch.bfloat16) for _ in range(2))
+    k, v = (torch.randn((b, s, kv, dh), generator=gen, device=dev,
+                        dtype=torch.bfloat16) for _ in range(2))
+    mask = None
+    if pad:
+        mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+        mask[-1, :pad] = 0
+    rope = rope_angles(token_positions(mask, b, s, dev), dh, 500000.0)
+    return q, k, v, do, mask, rope
+
+
+def compare_bwd(name, got, want):
+    return max(compare(f"{name} {label}", g, w, BWD_RTOL,
+                       BWD_ATOL_OF_MAX * float(w.abs().max()))
+               for label, g, w in zip(("dq", "dk", "dv"), got, want))
+
+
+def train_kernel_phase(dev):
+    """The flash forward with lse and the two backward kernels against their
+    plain versions; timed at the training shape."""
+    from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
+
+    S, Dh = TRAIN_SEQ, 128
+    cases = [("GQA H 16, KV 4", 1, 16, 4, 0), ("padded mask", 2, 32, 32, 300),
+             ("training shape", 1, 32, 32, 0)]
+    for label, b, h, kv, pad in cases:
+        q, k, v, do, mask, rope = attention_case(dev, b, S, h, kv, Dh, 10 + b + h, pad)
+        out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope, with_lse=True)
+        out_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask, rope=rope,
+                                                with_lse=True)
+        torch.cuda.synchronize()
+        err_fwd = max(compare(f"{label} fwd out", out, out_p, **FLASH_TOL),
+                      compare(f"{label} fwd lse", lse, lse_p, 0.0, LSE_ATOL))
+        qr, kr = apply_rope(q, *rope), apply_rope(k, *rope)
+        bias = fa.mask_bias(mask, b, S, dev)
+        got = fab.flash_attention_bwd(qr, kr, v, bias, out, do, lse)
+        want = fab.flash_attention_bwd_plain(qr, kr, v, bias, out, do, lse)
+        torch.cuda.synchronize()
+        err_bwd = compare_bwd(label, got, want)
+        del out_p, lse_p, got, want
+
+    # Times at the training shape (the last case): B 1, S 2048, H = KV = 32.
+    B, H, KV = 1, 32, 32
+    cos, sin = rope
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    scale = Dh ** -0.5
+    o_buf, l_buf = torch.empty_like(out), torch.empty_like(lse)
+    fwd_ms = time_ms(lambda: fa.FLASH_KERNEL(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), cos.data_ptr(),
+        sin.data_ptr(), o_buf.data_ptr(), l_buf.data_ptr(), B, S,
+        fa.kv_tile_len(S), H, KV, Dh, scale, stream), 20)
+    fwd_plain_ms = time_ms(lambda: fa.flash_attention_plain(
+        q, k, v, rope=rope, with_lse=True), 3, warmup=1)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = qr.transpose(1, 2), kr.transpose(1, 2), v.transpose(1, 2)
+    fwd_lib_ms = time_ms(lambda: sdpa(qt, kt, vt), 20)
+    fwd_bound = bound_ms(4.0 * B * H * S * S * Dh,
+                         nbytes(q, k, v, out, lse, bias, cos, sin))
+
+    dsum = fab.row_dot(out, do)
+    dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=dev)
+                  for t in (q, k, v))
+    common = (qr.data_ptr(), kr.data_ptr(), v.data_ptr(), bias.data_ptr(),
+              do.data_ptr(), lse.data_ptr(), dsum.data_ptr())
+    dq_ms = time_ms(lambda: fab.DQ_KERNEL(
+        *common, dq.data_ptr(), B, S, H, KV, Dh, scale, stream), 20)
+    dkv_ms = time_ms(lambda: fab.DKV_KERNEL(
+        *common, dk.data_ptr(), dv.data_ptr(), B, S, H, KV, Dh, scale, stream), 20)
+    bwd_plain_ms = time_ms(lambda: fab.flash_attention_bwd_plain(
+        qr, kr, v, bias, out, do, lse), 3, warmup=1)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
+    s_out = sdpa(qg, kg, vg)
+    dot = do.transpose(1, 2)
+    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
+        s_out, (qg, kg, vg), dot, retain_graph=True), 20)
+    ins = nbytes(qr, kr, v, do, lse, dsum, bias)
+    dq_bound = bound_ms(6.0 * B * H * S * S * Dh, ins + nbytes(dq))
+    dkv_bound = bound_ms(8.0 * B * H * S * S * Dh, ins + nbytes(dk, dv))
+    print(f"  training shape B {B}, S {S}, H {H}, KV {KV}, Dh {Dh}: "
+          f"fwd+lse kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, SDPA fwd "
+          f"{fwd_lib_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}); "
+          f"dq kernel {dq_ms:.4f} ms, bound {dq_bound[0]:.4f} ms ({dq_bound[1]}); "
+          f"dkv kernel {dkv_ms:.4f} ms, bound {dkv_bound[0]:.4f} ms ({dkv_bound[1]}); "
+          f"dq + dkv {dq_ms + dkv_ms:.4f} ms against SDPA backward "
+          f"{sdpa_bwd_ms:.4f} ms; plain backward (dq, dk, dv in one call) "
+          f"{bwd_plain_ms:.4f} ms", flush=True)
+    src = "ct_diffusionmodelbench_tpu_torch/csrc/flash_attention_bwd.cu"
+    ref = "ct_diffusionmodelbench_tpu/ops/flash_attention_bwd.py"
+    results = [
+        dict(name="flash_attention_bwd_dq", route="cuda", source=src,
+             replaces=f"{ref}:93", max_abs_err=err_bwd, ms=dq_ms, kernel_ms=dq_ms,
+             plain_ms=bwd_plain_ms, bound_ms=dq_bound[0], bound_by=dq_bound[1],
+             library_ms=None, sdpa_backward_ms=sdpa_bwd_ms),
+        dict(name="flash_attention_bwd_dkv", route="cuda", source=src,
+             replaces=f"{ref}:93", max_abs_err=err_bwd, ms=dkv_ms, kernel_ms=dkv_ms,
+             plain_ms=bwd_plain_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
+             library_ms=None, sdpa_backward_ms=sdpa_bwd_ms),
+    ]
+    fwd_train = dict(shape=f"B {B}, S {S}, H {H}, KV {KV}, Dh {Dh}, RoPE, lse",
+                     max_abs_err=err_fwd, ms=fwd_ms, plain_ms=fwd_plain_ms,
+                     bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
+                     library_ms=fwd_lib_ms)
+    return results, fwd_train
+
+
+def train_slice_phase(dev):
+    """8-layer full-width llada-8b trained 5 steps through ``Trainer``."""
+    import numpy as np
+
+    from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = get_config("llada-8b").replace(num_layers=TRAIN_LAYERS)
+    t0 = time.perf_counter()
+    params = init_params(cfg, seed=0)
+    torch.cuda.synchronize()
+    n_params = cfg.param_count()
+    print(f"  init {TRAIN_LAYERS}-layer llada-8b: {n_params / 1e9:.3f} G params, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    rng = np.random.default_rng(3)
+    rows = [{"input_ids": r.tolist(), "prompt_lengths": TRAIN_PROMPT}
+            for r in rng.integers(10, 100000, (TRAIN_STEPS * TRAIN_ACCUM, TRAIN_SEQ))]
+    out_dir = tempfile.mkdtemp(prefix="ctdb-train-")
+    try:
+        tcfg = TrainConfig(output_dir=out_dir, num_epochs=1, batch_size=1,
+                           grad_accum=TRAIN_ACCUM, max_length=TRAIN_SEQ, remat=True,
+                           ce_chunk=512, variable_length=False, logging_steps=1,
+                           seed=0)
+        torch.cuda.reset_peak_memory_stats()
+        trainer = Trainer(cfg, params, tcfg, rows)
+        reset_launch_counts()
+        trainer.train()
+        launches = {name: k.launches for name, k in KERNELS.items()}
+        peak = torch.cuda.max_memory_allocated()
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    tokens = TRAIN_ACCUM * TRAIN_SEQ
+    secs = sum(trainer.step_times[1:]) / (len(trainer.step_times) - 1)
+    mfu = 6.0 * n_params * tokens / secs / PEAK_BF16_FLOPS
+    logs = [e for e in trainer.training_logs if "grad_norm" in e]
+    print(f"  steps: {len(trainer.step_times)}, s/step (steps 2-{TRAIN_STEPS}) "
+          f"{secs:.4f}, each {[round(t, 4) for t in trainer.step_times]}; "
+          f"{tokens / secs:.2f} tokens/s; train MFU {mfu:.4f} (6·P·tokens / s / "
+          f"989 TFLOP/s, P {n_params}); peak memory {peak / 2**30:.3f} GiB; save "
+          f"{trainer.save_times[-1]:.2f} s", flush=True)
+    print("  loss / grad_norm per step: " + ", ".join(
+        f"{e['loss']:.5f} / {e['grad_norm']:.5f}" for e in logs), flush=True)
+    print(f"  launches: {json.dumps(launches)}", flush=True)
+    if len(logs) != TRAIN_STEPS or not all(
+            np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"]) and e["grad_norm"] > 0
+            for e in logs):
+        raise AssertionError("non-finite loss or grad_norm, or a zero gradient")
+    per_step = TRAIN_LAYERS * TRAIN_ACCUM
+    want = {n: 0 for n in KERNELS}
+    want.update({"flash_attention_fwd": 2 * per_step * TRAIN_STEPS,
+                 "flash_attention_bwd_dq": per_step * TRAIN_STEPS,
+                 "flash_attention_bwd_dkv": per_step * TRAIN_STEPS})
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    params = trainer.params
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(cfg=cfg, params=params, launches=launches, seconds_per_step=secs,
+                tokens_per_s=tokens / secs, mfu=mfu, peak_gib=peak / 2**30)
+
+
+def train_depth_phase(cfg, params, dev):
+    """2-layer full-width loss and gradients: kernels against plain."""
+    from functools import partial
+
+    from ct_diffusionmodelbench_tpu_torch.models.transformer import forward, lm_head_logits
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.train.diffusion_loss import diffusion_sft_loss
+    from ct_diffusionmodelbench_tpu_torch.train.optim import flatten_params, unflatten_params
+
+    cfg2 = cfg.replace(num_layers=2)
+    p2 = dict(params, blocks={k: v[:2] for k, v in params["blocks"].items()})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(5)
+    ids = torch.randint(10, 100000, (1, TRAIN_SEQ), generator=gen, device=dev)
+    plens = torch.full((1,), TRAIN_PROMPT, device=dev)
+    noise = (torch.rand((1,), generator=gen, device=dev),
+             torch.rand((1, TRAIN_SEQ), generator=gen, device=dev))
+
+    def fwd(p, x, m=None, *, return_hidden=False):
+        return forward(cfg2, p, x, attn_mask=m, return_hidden=return_hidden, remat=True)
+
+    def loss_and_grads():
+        leaves = {k: t.detach().requires_grad_(True)
+                  for k, t in flatten_params(p2).items()}
+        with torch.enable_grad():
+            loss, _ = diffusion_sft_loss(
+                fwd, unflatten_params(leaves), ids, plens, cfg2.mask_token_id,
+                noise, aux_coef=0.0, head_fn=lm_head_logits, ce_chunk=512)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.item(), dict(zip(leaves, grads))
+
+    reset_launch_counts()
+    loss_k, grads_k = loss_and_grads()
+    launches = {n: KERNELS[n].launches for n in ("flash_attention_fwd",) + BWD_KERNELS}
+    # The plain run swaps the forward and backward at the names the autograd
+    # wrapper calls them by.
+    seams = [(fa, "flash_attention_fwd"), (fab, "flash_attention_bwd")]
+    saved = [getattr(mod, name) for mod, name in seams]
+    plain = [partial(fa.flash_attention_plain, with_lse=True),
+             fab.flash_attention_bwd_plain]
+    try:
+        for (mod, name), fn in zip(seams, plain):
+            setattr(mod, name, fn)
+        loss_p, grads_p = loss_and_grads()
+    finally:
+        for (mod, name), fn in zip(seams, saved):
+            setattr(mod, name, fn)
+    print(f"  launches with kernels: {json.dumps(launches)}", flush=True)
+    print(f"  loss: kernels {loss_k:.6f}, plain {loss_p:.6f}", flush=True)
+    worst, zero = 0.0, []
+    for name, gk in grads_k.items():
+        gk, gp = gk.float(), grads_p[name].float()
+        nk, np_ = float(gk.norm()), float(gp.norm())
+        rel = float((gk - gp).norm()) / max(np_, 1e-30)
+        cos = float((gk * gp).sum()) / max(nk * np_, 1e-30)
+        worst = max(worst, rel)
+        if nk == 0.0:
+            zero.append(name)
+        print(f"  grad {name}: norm {nk:.4e} (plain {np_:.4e}), rel L2 err "
+              f"{rel:.3e}, cosine {cos:.6f}", flush=True)
+    print(f"  largest rel L2 err {worst:.3e} (limit {GRAD_REL_L2:.3e})", flush=True)
+    if launches != {"flash_attention_fwd": 4, "flash_attention_bwd_dq": 2,
+                    "flash_attention_bwd_dkv": 2}:
+        raise AssertionError(f"2-layer gradient run launched {launches}")
+    if zero:
+        raise AssertionError(f"zero gradient with the kernels: {zero}")
+    if worst > GRAD_REL_L2 or abs(loss_k - loss_p) > LOSS_RTOL * abs(loss_p):
+        raise AssertionError("2-layer gradients with kernels disagree with plain")
+    return worst
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
     from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
-    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention, grouped_gemm_cuda
+    from ct_diffusionmodelbench_tpu_torch.ops import (
+        flash_attention, flash_attention_bwd, grouped_gemm_cuda)
     from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, build_all
 
     dev = torch.device("cuda", 0)
     print(card_line(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    libs = [grouped_gemm_cuda.LIBRARY, flash_attention.LIBRARY]
+    libs = [grouped_gemm_cuda.LIBRARY, flash_attention.LIBRARY,
+            flash_attention_bwd.LIBRARY]
     build_s = build_all(libs)
     print(f"kernel build: {build_s:.2f} s", flush=True)
     for lib in libs:
@@ -390,10 +684,27 @@ def main() -> int:
     depth_phase(cfg, params, sl["out"], dev)
     for r in results:
         r["launches"] = sl["launches"][r["name"]]
+    del params, sl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("training kernels:", flush=True)
+    train_results, fwd_train = train_kernel_phase(dev)
+    print("training slice:", flush=True)
+    tr = train_slice_phase(dev)
+    print("training gradients:", flush=True)
+    train_depth_phase(tr["cfg"], tr["params"], dev)
+    for r in train_results:
+        r["launches"] = tr["launches"][r["name"]]
+    fwd_train["launches"] = tr["launches"]["flash_attention_fwd"]
+    next(r for r in results if r["name"] == "flash_attention_fwd")[
+        "training_shape"] = fwd_train
+    results += train_results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
-            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    print(json.dumps({"kernels": [{k: r[k] for k in keys} for r in results]}),
-          flush=True)
+            "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "sdpa_backward_ms", "training_shape")
+    print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
+                                  for r in results]}), flush=True)
     missing = set(KERNELS) - {r["name"] for r in results}
     if missing:
         raise AssertionError(f"kernels not checked: {sorted(missing)}")

@@ -1,14 +1,16 @@
 // Bidirectional (non-causal) flash-attention forward with fused RoPE and GQA.
 //
 // Replaces (TPU): ct_diffusionmodelbench_tpu/ops/flash_attention.py
-//   flash_attention -> _run_forward -> _flash_kernel (no lse output: the
-//   log-sum-exp only feeds the backward, which belongs to the training path).
+//   flash_attention -> _run_forward -> _flash_kernel, with the optional
+//   log-sum-exp output (with_lse) that the backward reads.
 //
 // What it computes, per batch b, query head h (kv head h // rep):
 //   q, k rotated by rotate-half RoPE in f32 from cos/sin [B, S, Dh/2], cast
 //   to bf16; s = (q k^T) * scale + bias, bias = 0 for a real key and -1e30
 //   for a padding key; online softmax with f32 running max and sum; P cast
-//   to bf16 for P V, accumulated in f32; out = acc / max(l, 1e-30) in bf16.
+//   to bf16 for P V, accumulated in f32; out = acc / max(l, 1e-30) in bf16;
+//   with a non-null lse pointer also lse = m + log(max(l, 1e-30)) in f32,
+//   [B, H, S] (a null pointer writes nothing extra: the serving path).
 // Layout: heads in the last dim of the flat [B, S, H*Dh] / [B, S, KV*Dh]
 // projection outputs, so no transpose is ever materialized.
 // The reference pads the keys to its tile (kv_len >= S); keys at S..kv_len
@@ -106,8 +108,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
                  const float* __restrict__ cosb, const float* __restrict__ sinb,
-                 bf16* __restrict__ out, int S, int kv_len, int H, int KV,
-                 float scale) {
+                 bf16* __restrict__ out, float* __restrict__ lse, int S,
+                 int kv_len, int H, int KV, float scale) {
   using L = Smem<DH>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q);
@@ -242,13 +244,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
     bf16* ob = out + (static_cast<size_t>(b) * S + i) * q_stride + h * DH;
     for (int d = lane; d < DH; d += 32)
       ob[d] = __float2bfloat16(Os[r * L::LDO + d] / denom);
+    if (lse != nullptr && lane == 0)
+      lse[(static_cast<size_t>(b) * H + h) * S + i] = row_m[rr] + logf(denom);
   }
 }
 
 template <int DH>
 int launch(const void* q, const void* k, const void* v, const float* bias,
-           const float* cosb, const float* sinb, void* out, int B, int S,
-           int kv_len, int H, int KV, float scale, cudaStream_t stream) {
+           const float* cosb, const float* sinb, void* out, float* lse, int B,
+           int S, int kv_len, int H, int KV, float scale, cudaStream_t stream) {
   constexpr int bytes = Smem<DH>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -257,7 +261,7 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
   flash_fwd_kernel<DH><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bias, cosb, sinb, static_cast<bf16*>(out),
-      S, kv_len, H, KV, scale);
+      lse, S, kv_len, H, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -266,23 +270,28 @@ int launch(const void* q, const void* k, const void* v, const float* bias,
 extern "C" {
 
 // q [B, S, H*Dh], k/v [B, S, KV*Dh] bf16; bias [B, S] f32; cos/sin
-// [B, S, Dh/2] f32 or both null (no RoPE); out [B, S, H*Dh] bf16.
-// kv_len >= S: keys S..kv_len-1 count as zero keys with bias -1e30.
+// [B, S, Dh/2] f32 or both null (no RoPE); out [B, S, H*Dh] bf16; lse
+// [B, H, S] f32 or null.  kv_len >= S: keys S..kv_len-1 count as zero keys
+// with bias -1e30.
 int ctdb_flash_attention_fwd(const void* q, const void* k, const void* v,
                              const float* bias, const float* cosb,
-                             const float* sinb, void* out, int B, int S,
-                             int kv_len, int H, int KV, int head_dim,
+                             const float* sinb, void* out, float* lse, int B,
+                             int S, int kv_len, int H, int KV, int head_dim,
                              float scale, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
-      return launch<16>(q, k, v, bias, cosb, sinb, out, B, S, kv_len, H, KV, scale, st);
+      return launch<16>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
+                        scale, st);
     case 32:
-      return launch<32>(q, k, v, bias, cosb, sinb, out, B, S, kv_len, H, KV, scale, st);
+      return launch<32>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
+                        scale, st);
     case 64:
-      return launch<64>(q, k, v, bias, cosb, sinb, out, B, S, kv_len, H, KV, scale, st);
+      return launch<64>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
+                        scale, st);
     case 128:
-      return launch<128>(q, k, v, bias, cosb, sinb, out, B, S, kv_len, H, KV, scale, st);
+      return launch<128>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
+                        scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -5,10 +5,16 @@ RMSNorm, RoPE, GQA bidirectional cache-less attention and a SwiGLU FFN that
 is dense or mixture-of-experts per config.
 
 Parameters keep the reference's layer-stacked layout: ``params["blocks"][k]``
-is ``[L, ...]`` and the forward is a Python loop over the layer id.
-``w[li]`` is a zero-copy view; the MoE expert stacks ``[L, E, D, Fm]`` go
-to the grouped kernels whole, with the layer id, as the TPU kernels took a
-scalar-prefetched layer id.
+is ``[L, ...]`` and the forward is a Python loop over the layer id.  Each
+stack is split once per forward (``torch.unbind``: zero-copy views whose
+backward stacks the per-layer gradients once, where a slice per layer
+would allocate a full-stack zero gradient for every layer); the MoE expert
+stacks ``[L, E, D, Fm]`` go to the grouped kernels whole, with the layer
+id, as the TPU kernels took a scalar-prefetched layer id.
+
+``forward(..., remat=True)`` recomputes each block in the backward
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), for the
+trainer; :func:`make_forward_fn` is the inference entry point.
 """
 
 from __future__ import annotations
@@ -17,6 +23,8 @@ import math
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
@@ -172,26 +180,37 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             logit_start: Optional[int] = None,
             logit_length: Optional[int] = None,
-            return_hidden: bool = False):
+            return_hidden: bool = False, remat: "bool | str" = False):
     """input_ids [B, S] → (logits [B, S or logit_length, V] f32, aux_loss).
 
     ``logit_start``/``logit_length`` (host ints): LM head only for
     positions [start, start + length), as the block sampler asks.
     ``return_hidden``: final-norm hidden states instead of logits (shift
-    applied)."""
+    applied).  ``remat=True``: each block is recomputed in the backward
+    (``torch.utils.checkpoint``, non-reentrant)."""
+    if remat == "dots":
+        raise NotImplementedError(
+            "remat='dots' (save matmul outputs only) is not ported; use "
+            "remat=True or False")
     B, S = input_ids.shape
     embed = params["embed"]
     # The reference gathers with mode="clip": out-of-range ids clamp.
-    x = embed[input_ids.clamp(0, embed.shape[0] - 1)]
+    x = F.embedding(input_ids.clamp(0, embed.shape[0] - 1), embed)
     positions = token_positions(attn_mask, B, S, x.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
     blocks = params["blocks"]
     stacks = {k: blocks[k] for k in EXPERT_STACK_KEYS if k in blocks} or None
+    layers = {k: torch.unbind(v) for k, v in blocks.items()
+              if k not in EXPERT_STACK_KEYS}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(cfg.num_layers):
-        lp = {k: v[li] for k, v in blocks.items() if k not in EXPERT_STACK_KEYS}
-        x, aux_l = _block_forward(cfg, x, lp, cos, sin, attn_mask, stacks, li)
+        lp = {k: v[li] for k, v in layers.items()}
+        if remat:
+            x, aux_l = checkpoint(_block_forward, cfg, x, lp, cos, sin,
+                                  attn_mask, stacks, li, use_reentrant=False)
+        else:
+            x, aux_l = _block_forward(cfg, x, lp, cos, sin, attn_mask, stacks, li)
         aux = aux + aux_l
     aux = aux / max(cfg.num_layers, 1)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)

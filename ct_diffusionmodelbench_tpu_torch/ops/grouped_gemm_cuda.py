@@ -12,7 +12,9 @@ Kernels (``csrc/grouped_gemm.cu``): :func:`grouped_gateup` computes
 ``silu(x @ Wg[e]) * (x @ Wu[e])`` and :func:`grouped_down` ``h @ Wd[e]``,
 weights ``[E, K, N]`` or layer-stacked ``[L, E, K, N]`` with ``layer_index``.
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
-raises.
+raises.  The kernels have no backward yet: on the card the wrappers raise
+when grad is enabled and an input requires it, rather than return an output
+that silently drops the gradient.
 """
 
 from __future__ import annotations
@@ -108,6 +110,14 @@ def grouped_down_plain(h_padded, we_down, tile_expert, tile_m: int = TILE_M,
     return out.to(h_padded.dtype).reshape(h_padded.shape[0], wd.shape[-1])
 
 
+def _refuse_grad(name: str, *tensors) -> None:
+    """Raise if autograd would need a backward through a CUDA kernel here."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name} has no backward on the card yet (MoE training); call it "
+            "under torch.no_grad() or with inputs that do not require grad")
+
+
 def _check_kernel_args(x, ws, tile_expert, tile_m, layer_index):
     dev = x.device
     if dev.type != "cuda":
@@ -151,6 +161,7 @@ def grouped_gateup(x_padded, we_gate, we_up, tile_expert, tile_m: int = TILE_M,
     if x_padded.device.type == "cpu":
         return grouped_gateup_plain(x_padded, we_gate, we_up, tile_expert,
                                     tile_m, layer_index)
+    _refuse_grad("grouped_gateup", x_padded, we_gate, we_up)
     m_pad, d, f, e, layer = _check_kernel_args(
         x_padded, (we_gate, we_up), tile_expert, tile_m, layer_index)
     h = torch.empty((m_pad, f), dtype=x_padded.dtype, device=x_padded.device)
@@ -167,6 +178,7 @@ def grouped_down(h_padded, we_down, tile_expert, tile_m: int = TILE_M,
     if h_padded.device.type == "cpu":
         return grouped_down_plain(h_padded, we_down, tile_expert, tile_m,
                                   layer_index)
+    _refuse_grad("grouped_down", h_padded, we_down)
     m_pad, f, d, e, layer = _check_kernel_args(
         h_padded, (we_down,), tile_expert, tile_m, layer_index)
     out = torch.empty((m_pad, d), dtype=h_padded.dtype, device=h_padded.device)
@@ -205,6 +217,9 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
 
     Counterpart of ``grouped_expert_ffn_pallas``: counting layout, one row
     gather, the gate/up and down kernels, the weighted combine."""
+    if x.is_cuda:
+        _refuse_grad("grouped_expert_ffn_cuda", x, topk_probs, we_gate, we_up,
+                     we_down)
     n, _ = x.shape
     k = topk_idx.shape[1]
     e = we_gate.shape[-3]

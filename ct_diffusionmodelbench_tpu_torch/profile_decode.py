@@ -40,6 +40,29 @@ def _kernel_us(evt) -> float:
     return float(evt.self_device_time_total)
 
 
+def trace(run, activities):
+    """One call of ``run`` (which must end in a device sync) under
+    ``torch.profiler``: (events, [(kernel, device ms, calls)] by time,
+    device busy ms, window ms)."""
+    with profile(activities=activities) as prof:
+        t0 = time.perf_counter()
+        run()
+        window_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    dev = sorted(((e.key, _kernel_us(e) / 1e3, e.count) for e in events
+                  if _kernel_us(e) > 0), key=lambda r: -r[1])
+    busy_ms = sum(ms for _, ms, _ in dev)
+    if busy_ms <= 0:
+        raise RuntimeError("the profiler recorded no device time")
+    return events, dev, busy_ms, window_ms
+
+
+def card_line() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="JSON summary path")
@@ -61,30 +84,17 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     step_ms = (time.perf_counter() - t0) / STEPS * 1e3
 
-    def traced(activities):
-        with profile(activities=activities) as prof:
-            t0 = time.perf_counter()
-            llada_generate(fwd, params, prompt, **kw)
-            torch.cuda.synchronize()
-            window_ms = (time.perf_counter() - t0) * 1e3
-        events = prof.key_averages()
-        dev = sorted(((e.key, _kernel_us(e) / 1e3, e.count) for e in events
-                      if _kernel_us(e) > 0), key=lambda r: -r[1])
-        busy_ms = sum(ms for _, ms, _ in dev)
-        if busy_ms <= 0:
-            raise RuntimeError("the profiler recorded no device time")
-        return events, dev, busy_ms, window_ms
+    def run():
+        llada_generate(fwd, params, prompt, **kw)
+        torch.cuda.synchronize()
 
-    _, dev, busy_ms, window_ms = traced([ProfilerActivity.CUDA])
-    events, _, host_busy_ms, host_window_ms = traced(
-        [ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    _, dev, busy_ms, window_ms = trace(run, [ProfilerActivity.CUDA])
+    events, _, host_busy_ms, host_window_ms = trace(
+        run, [ProfilerActivity.CPU, ProfilerActivity.CUDA])
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events),
                   key=lambda r: -r[1])
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        check=True, capture_output=True, text=True, timeout=60).stdout.strip()
     summary = dict(
-        card=card, steps=STEPS, step_ms=step_ms,
+        card=card_line(), steps=STEPS, step_ms=step_ms,
         profiled_window_ms=window_ms, device_busy_ms=busy_ms,
         device_idle_share=1.0 - busy_ms / window_ms,
         host_traced_window_ms=host_window_ms,

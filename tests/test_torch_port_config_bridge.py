@@ -162,3 +162,14 @@ def test_entry_points_raise_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         llada_generate(fwd, params, torch.zeros((1, 4), dtype=torch.long),
                        steps=2, gen_length=4, block_length=4, mask_id=500)
+
+    from ct_diffusionmodelbench_tpu_torch.train.trainer import (
+        TrainConfig, Trainer, make_optimizer, make_train_step)
+
+    rows = [{"input_ids": [5] * 8, "prompt_lengths": 1}] * 4
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(cfg, params, TrainConfig(), rows)
+    opt, _ = make_optimizer(TrainConfig(), 10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_train_step(cfg, TrainConfig(), opt)
+    assert Trainer(cfg, params, TrainConfig(), rows, device="cpu").device.type == "cpu"
