@@ -17,20 +17,34 @@ Phases, in order:
    run; no mask id may remain; a repeated forward must give identical logits.
 4. reduced depth: a 2-layer forward at full width with the kernels against
    the same forward on the kernels' plain versions.
-5. training kernels: the flash forward with lse and the two backward kernels
+5. int8 kernels: ``ModelRunner.random_init("llada-moe-7b", quant="int8")``
+   (each weight quantized as it is built); the int8 gate/up and down
+   kernels on the layer-1 routing of a full-size int8 forward, with the
+   stacked [18, 64, ...] int8 experts, against their plain versions, timed
+   beside them and beside ``torch._grouped_mm`` on weights dequantized to
+   bf16 beforehand.
+6. int8 slice: ``ModelRunner.generate_ids`` at the bf16 slice's shape and
+   prompt; launch counts read around that run (the int8 pair and flash, not
+   the bf16 pair); no mask id may remain; a repeated forward must give
+   identical logits.
+7. int8 quantization check: at 2 layers of the full width, the int8 forward
+   against the bf16 forward on the dequantized weights (the same function),
+   and against itself on the int8 kernels' plain versions.
+8. training kernels: the flash forward with lse and the two backward kernels
    at the training shape (B 1, S 2048, H = KV = 32, Dh 128, RoPE) against
    their plain versions, timed beside them and beside SDPA's forward and
    backward; also a GQA case (H 16, KV 4) and a padded-mask case.
-6. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
+9. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
    5 optimizer steps by ``Trainer`` (seq 2048, micro-batch 1, grad-accum 4,
    remat, CE chunk 512, AdamW) on seeded token rows; s/step over steps 2-5,
    tokens/s, train MFU, peak memory, save seconds; launch counts per step.
-7. training gradients: a 2-layer full-width loss and every parameter's
+10. training gradients: a 2-layer full-width loss and every parameter's
    gradient with the kernels against the same on their plain versions.
 
-The MoE decode's weights are freed before phase 5.  Prints the
-``{"kernels": [...]}`` line and, last, the ``{"ok": true, ...}`` line.
-Exits non-zero, printing no result, without a card or if any phase fails.
+The bf16 MoE weights are freed before phase 5, the int8 ones before
+phase 8.  Prints the ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, ...}`` line.  Exits non-zero, printing no result, without a
+card or if any phase fails.
 """
 
 from __future__ import annotations
@@ -71,8 +85,12 @@ FLASH_TOL = dict(rtol=2 ** -6, atol=4e-3)
 # error.  So the plain run takes the kernel run's expert choice in every
 # layer, and the tolerance holds at every position.
 LOGITS_RTOL_OF_MAX = 2 ** -5
+# The int8 forward against the bf16 forward on dequantized weights holds to
+# the same tolerance: dequantizing rounds each q·s to bf16 (one bf16 ulp of
+# the weight), which moves the products no more than a kernel's ulp does.
 
 SERVING_KERNELS = ("grouped_gateup", "grouped_down", "flash_attention_fwd")
+INT8_SERVING_KERNELS = ("grouped_gateup_q", "grouped_down_q", "flash_attention_fwd")
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
 # Training shape: llada-8b at full width, 8 of its 32 layers; seq 2048,
@@ -316,19 +334,17 @@ def slice_phase(cfg, params, dev):
                 peak_gib=peak / 2**30, launches=launches, prompt=prompt, out=out)
 
 
-def depth_phase(cfg, params, ids, dev):
-    """2-layer full-width forward: kernels against their plain versions, the
-    plain run on the kernel run's expert choice."""
+def pinned_compare(label, cfg2, ids, dev, params_a, params_b, seams_b):
+    """Logits of a forward of ``params_a`` (``cfg2``, through the kernels)
+    against a forward of ``params_b`` with ``seams_b`` ((module, name, fn)
+    swapped in for that run), the second run given the first one's expert
+    choice in every layer.  Fails past ``LOGITS_RTOL_OF_MAX``."""
     from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn
     from ct_diffusionmodelbench_tpu_torch.models import moe
-    from ct_diffusionmodelbench_tpu_torch.ops import attention
-    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
-    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
 
-    cfg2 = cfg.replace(num_layers=2)  # the first two layers of the full stacks
     router_probs = moe.router_probs
-    chosen, flipped = [], []  # per layer: kernel run's top-k; tokens whose
-                              # own plain choice differs from it
+    chosen, flipped = [], []  # per layer: run a's top-k; tokens whose own
+                              # run-b choice differs from it
 
     def recording_router(x, w, top_k, norm_topk):
         out = router_probs(x, w, top_k, norm_topk)
@@ -345,40 +361,35 @@ def depth_phase(cfg, params, ids, dev):
             topk_probs = topk_probs / topk_probs.sum(dim=-1, keepdim=True)
         return topk_probs, idx, probs
 
-    # The plain run swaps each kernel's wrapper for its plain version at the
-    # one name the model calls it by, and the router for the pinned one.
-    seams = [(moe, "router_probs"), (attention, "flash_attention"),
-             (gg, "grouped_gateup"), (gg, "grouped_down")]
-    saved = [getattr(mod, name) for mod, name in seams]
-    plain = [pinned_router, fa.flash_attention_plain, gg.grouped_gateup_plain,
-             gg.grouped_down_plain]
+    seams = [(moe, "router_probs", pinned_router)] + list(seams_b)
+    saved = [getattr(mod, name) for mod, name, _ in seams]
     kw = dict(logit_start=PROMPT, logit_length=BLOCK)
     try:
         moe.router_probs = recording_router
-        lk, _ = make_forward_fn(cfg2)(params, ids, **kw)
-        for (mod, name), fn in zip(seams, plain):
+        la, _ = make_forward_fn(cfg2)(params_a, ids, **kw)
+        for mod, name, fn in seams:
             setattr(mod, name, fn)
-        lp, _ = make_forward_fn(cfg2)(params, ids, **kw)
+        lb, _ = make_forward_fn(cfg2)(params_b, ids, **kw)
     finally:
-        for (mod, name), fn in zip(seams, saved):
+        for (mod, name, _), fn in zip(seams, saved):
             setattr(mod, name, fn)
-    print("  tokens whose own expert choice differs, kernels vs plain "
-          "(pinned to the kernels' choice): "
+    print(f"  {label}: tokens whose own expert choice differs (pinned to the "
+          "first run's choice): "
           + ", ".join(f"layer {i} {int(f.sum())}/{f.numel()}"
                       for i, f in enumerate(flipped)), flush=True)
-    if not torch.isfinite(lk).all():
-        raise AssertionError("non-finite logits from the 2-layer forward")
-    err_p = (lk - lp).abs().amax(dim=-1).flatten()      # per position
-    scale = float(lp.abs().max())
+    if not torch.isfinite(la).all():
+        raise AssertionError(f"{label}: non-finite logits")
+    err_p = (la - lb).abs().amax(dim=-1).flatten()      # per position
+    scale = float(lb.abs().max())
     tol = LOGITS_RTOL_OF_MAX * scale
-    top2 = lp.topk(2, dim=-1).values.flatten(0, 1)
+    top2 = lb.topk(2, dim=-1).values.flatten(0, 1)
     gap = top2[:, 0] - top2[:, 1]
-    differ = (lk.argmax(-1) != lp.argmax(-1)).flatten()
-    # The argmax form of the tolerance: it may move only where the plain
-    # top-2 logits lie within 2 * tol of each other.
+    differ = (la.argmax(-1) != lb.argmax(-1)).flatten()
+    # The argmax form of the tolerance: it may move only where the second
+    # run's top-2 logits lie within 2 * tol of each other.
     clear_moves = int((differ & (gap > 2 * tol)).sum())
     q = torch.quantile(err_p.float(), torch.tensor([0.5, 0.9, 0.99], device=dev))
-    print(f"  2-layer logits, max |logit| {scale:.4e}, tolerance {tol:.4e}: "
+    print(f"  {label}: max |logit| {scale:.4e}, tolerance {tol:.4e}: "
           f"per-position max_abs_err median {float(q[0]):.4e}, p90 {float(q[1]):.4e}, "
           f"p99 {float(q[2]):.4e}, max {float(err_p.max()):.4e}; "
           f"{int((err_p > tol).sum())}/{err_p.numel()} positions past tolerance; "
@@ -386,8 +397,218 @@ def depth_phase(cfg, params, ids, dev):
           f"positions have a top-2 gap within 2 * tolerance; {clear_moves} "
           f"moved outside them)", flush=True)
     if float(err_p.max()) > tol or clear_moves:
-        raise AssertionError("2-layer forward with kernels disagrees with plain")
+        raise AssertionError(f"{label}: the two forwards disagree")
     return float(err_p.max())
+
+
+def depth_phase(cfg, params, ids, dev):
+    """2-layer full-width forward: kernels against their plain versions, the
+    plain run on the kernel run's expert choice."""
+    from ct_diffusionmodelbench_tpu_torch.ops import attention
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+
+    # The plain run swaps each kernel's wrapper for its plain version at the
+    # one name the model calls it by.
+    seams = [(attention, "flash_attention", fa.flash_attention_plain),
+             (gg, "grouped_gateup", gg.grouped_gateup_plain),
+             (gg, "grouped_down", gg.grouped_down_plain)]
+    cfg2 = cfg.replace(num_layers=2)  # the first two layers of the full stacks
+    return pinned_compare("2-layer logits, kernels vs plain", cfg2, ids, dev,
+                          params, params, seams)
+
+
+def tree_bytes(tree) -> int:
+    return sum(tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
+               for v in tree.values())
+
+
+def int8_kernel_phase(runner, dev):
+    """The int8 pair at the main path's shapes, on the layer-1 routing of a
+    full-size int8 forward, against their plain versions."""
+    from ct_diffusionmodelbench_tpu_torch.models import moe
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+    from ct_diffusionmodelbench_tpu_torch.ops.quant import dequantize_tensor
+
+    cfg, params = runner.cfg, runner.params
+    D, E, K, Fm = (cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok,
+                   cfg.moe_intermediate_size)
+    li = 1
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(4)
+    ids = torch.randint(10, 100000, (BATCH, SEQ), generator=gen, device=dev)
+    seen = []
+    router_probs = moe.router_probs
+
+    def recording_router(x, w, top_k, norm_topk):
+        out = router_probs(x, w, top_k, norm_topk)
+        seen.append((x, out[1]))
+        return out
+
+    try:
+        moe.router_probs = recording_router
+        runner.forward_fn(params, ids, logit_start=PROMPT, logit_length=BLOCK)
+    finally:
+        moe.router_probs = router_probs
+    x, topk_idx = seen[li]
+    del seen
+    blocks = params["blocks"]
+    qg, qu, qd = blocks["we_gate"], blocks["we_up"], blocks["we_down"]
+    dest, tile_expert, sizes, m_pad = gg.counting_layout(topk_idx, E, gg.TILE_M)
+    xs = gg.gather_rows(x, dest, K, m_pad)
+    m = x.shape[0] * K
+    used = int((sizes > 0).sum())
+    print(f"  routing of layer {li} in a full-size int8 forward: N {x.shape[0]}, "
+          f"M {m}, m_pad {m_pad}, experts used {used}/{E}, largest group "
+          f"{int(sizes.max())}, smallest {int(sizes.min())}", flush=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    pend = torch.cumsum(gg._round_up(sizes, gg.TILE_M), 0, dtype=torch.int32)
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    bf16 = xs.element_size()
+    src = "ct_diffusionmodelbench_tpu_torch/csrc/grouped_gemm_q.cu"
+    ref = "ct_diffusionmodelbench_tpu/ops/grouped_gemm_pallas.py"
+    results = []
+
+    def layer_deq(w):
+        return dequantize_tensor({"q": w["q"][li], "s": w["s"][li]}, torch.bfloat16)
+
+    # gate/up
+    h_k = gg.grouped_gateup_q(xs, qg, qu, tile_expert, gg.TILE_M, li)
+    h_p = gg.grouped_gateup_q_plain(xs, qg, qu, tile_expert, gg.TILE_M, li)
+    torch.cuda.synchronize()
+    err = compare("grouped_gateup_q", h_k, h_p, **GROUPED_TOL)
+    h_out = torch.empty_like(h_k)
+    k_ms = time_ms(lambda: gg.GATEUP_Q_KERNEL(
+        xs.data_ptr(), qg["q"].data_ptr(), qu["q"].data_ptr(), qg["s"].data_ptr(),
+        qu["s"].data_ptr(), h_out.data_ptr(), tile_expert.data_ptr(), m_pad, D, Fm,
+        E, li, gg.TILE_M, stream), 20)
+    p_ms = time_ms(lambda: gg.grouped_gateup_q_plain(
+        xs, qg, qu, tile_expert, gg.TILE_M, li), 3, warmup=1)
+    lib_ms = None
+    if grouped_mm is not None:
+        w_gu = torch.cat([layer_deq(qg), layer_deq(qu)], dim=-1)
+        lib_ms = time_ms(lambda: grouped_mm(xs, w_gu, offs=pend), 20)
+        del w_gu
+    # The m routed rows' bytes (padding rows copy token 0, weight 0), each
+    # used expert's two int8 matrices and their f32 scales once.
+    b_ms, b_by = bound_ms(4.0 * m * D * Fm,
+                          m * (D + Fm) * bf16 + nbytes(tile_expert)
+                          + used * 2 * (D * Fm + 4 * Fm))
+    results.append(dict(
+        name="grouped_gateup_q", route="cuda", source=src, replaces=f"{ref}:1172",
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms))
+
+    # down, on the plain gate/up output for both
+    o_k = gg.grouped_down_q(h_p, qd, tile_expert, gg.TILE_M, li)
+    o_p = gg.grouped_down_q_plain(h_p, qd, tile_expert, gg.TILE_M, li)
+    torch.cuda.synchronize()
+    err = compare("grouped_down_q", o_k, o_p, **GROUPED_TOL)
+    o_out = torch.empty_like(o_k)
+    k_ms = time_ms(lambda: gg.DOWN_Q_KERNEL(
+        h_p.data_ptr(), qd["q"].data_ptr(), qd["s"].data_ptr(), o_out.data_ptr(),
+        tile_expert.data_ptr(), m_pad, Fm, D, E, li, gg.TILE_M, stream), 20)
+    p_ms = time_ms(lambda: gg.grouped_down_q_plain(
+        h_p, qd, tile_expert, gg.TILE_M, li), 3, warmup=1)
+    lib_ms = None
+    if grouped_mm is not None:
+        wd_l = layer_deq(qd)
+        lib_ms = time_ms(lambda: grouped_mm(h_p, wd_l, offs=pend), 20)
+        del wd_l
+    b_ms, b_by = bound_ms(2.0 * m * Fm * D,
+                          m * (Fm + D) * bf16 + nbytes(tile_expert)
+                          + used * (Fm * D + 4 * D))
+    results.append(dict(
+        name="grouped_down_q", route="cuda", source=src, replaces=f"{ref}:1242",
+        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+        library_ms=lib_ms))
+    for r in results:
+        r["kernel_ms"] = r["ms"]
+        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+              f"library (torch._grouped_mm on weights dequantized to bf16 "
+              f"beforehand, not timed) {r['library_ms']}, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
+    return results
+
+
+def int8_slice_phase(runner, dev):
+    """Full-size int8 greedy decode through ``ModelRunner.generate_ids``."""
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+
+    cfg = runner.cfg
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)   # the bf16 slice's prompt
+    prompt = torch.randint(10, 100000, (BATCH, PROMPT), generator=gen,
+                           device=dev).cpu().numpy()
+    kw = dict(steps=STEPS, gen_length=GEN, block_length=BLOCK)
+    runner.generate_ids(prompt, **kw)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    out = runner.generate_ids(prompt, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    print(f"  generate_ids: {secs:.4f} s, {BATCH * GEN / secs:.2f} tok/s "
+          f"(B {BATCH}, prompt {PROMPT}, gen {GEN}, steps {STEPS}, block {BLOCK})",
+          flush=True)
+    print(f"  peak memory: {peak / 2**30:.3f} GiB", flush=True)
+    print(f"  launches: {json.dumps(launches)}", flush=True)
+    want = cfg.num_layers * STEPS
+    bad = {n: c for n, c in launches.items()
+           if c != (want if n in INT8_SERVING_KERNELS else 0)}
+    if bad:
+        raise AssertionError(f"expected {want} launches of each int8 serving "
+                             f"kernel and none of the others, got {bad}")
+    left = int((out[:, PROMPT:] == runner.mask_id).sum())
+    print(f"  mask ids left: {left}", flush=True)
+    if left:
+        raise AssertionError(f"{left} mask ids remain after decoding")
+    ids = torch.from_numpy(out).to(dev)
+    l1, _ = runner.forward_fn(runner.params, ids, logit_start=PROMPT, logit_length=BLOCK)
+    l2, _ = runner.forward_fn(runner.params, ids, logit_start=PROMPT, logit_length=BLOCK)
+    same = torch.equal(l1, l2)
+    print(f"  repeated forward bit-identical: {same}", flush=True)
+    if not same:
+        raise AssertionError("two forwards on the same input differ")
+    if not torch.isfinite(l1).all():
+        raise AssertionError("non-finite logits")
+    return dict(seconds=secs, tokens_per_s=BATCH * GEN / secs,
+                peak_gib=peak / 2**30, launches=launches, out=ids)
+
+
+def quant_phase(cfg, qparams, ids, dev):
+    """2 layers at full width: the int8 forward against the bf16 forward on
+    the dequantized weights (the same function), and the int8 kernels
+    against their plain versions; expert choice shared in both."""
+    from ct_diffusionmodelbench_tpu_torch.ops import attention
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+    from ct_diffusionmodelbench_tpu_torch.ops.quant import dequantize_tensor, is_quantized
+
+    def first2(v):
+        return {"q": v["q"][:2], "s": v["s"][:2]} if is_quantized(v) else v[:2]
+
+    dt = qparams["embed"].dtype   # the model dtype: bf16 on the card
+
+    def deq(v):
+        return dequantize_tensor(v, dt) if is_quantized(v) else v
+
+    cfg2 = cfg.replace(num_layers=2)
+    q2 = dict(qparams, blocks={k: first2(v) for k, v in qparams["blocks"].items()})
+    d2 = {k: deq(v) for k, v in q2.items() if k != "blocks"}
+    d2["blocks"] = {k: deq(v) for k, v in q2["blocks"].items()}
+    err_deq = pinned_compare("2-layer logits, int8 vs bf16 on the dequantized "
+                             "weights", cfg2, ids, dev, q2, d2, [])
+    del d2
+    seams = [(attention, "flash_attention", fa.flash_attention_plain),
+             (gg, "grouped_gateup_q", gg.grouped_gateup_q_plain),
+             (gg, "grouped_down_q", gg.grouped_down_q_plain)]
+    err_plain = pinned_compare("2-layer int8 logits, kernels vs plain", cfg2, ids,
+                               dev, q2, q2, seams)
+    return err_deq, err_plain
 
 
 def attention_case(dev, b, s, h, kv, dh, seed, pad=0):
@@ -648,6 +869,7 @@ def main() -> int:
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
 
+    from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
     from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
     from ct_diffusionmodelbench_tpu_torch.ops import (
         flash_attention, flash_attention_bwd, grouped_gemm_cuda)
@@ -657,8 +879,8 @@ def main() -> int:
     print(card_line(), flush=True)
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
-    libs = [grouped_gemm_cuda.LIBRARY, flash_attention.LIBRARY,
-            flash_attention_bwd.LIBRARY]
+    libs = [grouped_gemm_cuda.LIBRARY, grouped_gemm_cuda.LIBRARY_Q,
+            flash_attention.LIBRARY, flash_attention_bwd.LIBRARY]
     build_s = build_all(libs)
     print(f"kernel build: {build_s:.2f} s", flush=True)
     for lib in libs:
@@ -685,6 +907,26 @@ def main() -> int:
     for r in results:
         r["launches"] = sl["launches"][r["name"]]
     del params, sl
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    runner = ModelRunner.random_init("llada-moe-7b", seed=0, quant="int8")
+    torch.cuda.synchronize()
+    print(f"init int8 llada-moe-7b (ModelRunner.random_init, quant='int8'): "
+          f"{tree_bytes(runner.params) / 1e9:.3f} GB of weights, "
+          f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print("int8 kernels:", flush=True)
+    q_results = int8_kernel_phase(runner, dev)
+    print("int8 slice:", flush=True)
+    isl = int8_slice_phase(runner, dev)
+    print("int8 quantization check:", flush=True)
+    quant_phase(runner.cfg, runner.params, isl["out"], dev)
+    for r in q_results:
+        r["launches"] = isl["launches"][r["name"]]
+    results += q_results
+    del runner, isl
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -11,6 +11,7 @@ kernel has a plain PyTorch version in the same module: a CPU tensor takes the
 plain version, a CUDA tensor launches the kernel or raises.
 
 Entry points (``models.init_params``, ``models.make_forward_fn``,
-``sampling.llada_generate``) run on ``cuda`` unless ``device="cpu"`` is
-passed; with no card and no explicit device they raise.
+``sampling.llada_generate``, ``eval.ModelRunner``, ``train.trainer.Trainer``,
+``quantize_ckpt``) run on ``cuda`` unless ``device="cpu"`` is passed; with no
+card and no explicit device they raise.
 """

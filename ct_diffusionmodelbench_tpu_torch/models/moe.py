@@ -16,6 +16,7 @@ import torch.nn.functional as F
 
 from ct_diffusionmodelbench_tpu_torch.models.layers import swiglu
 from ct_diffusionmodelbench_tpu_torch.ops.grouped_gemm import grouped_expert_ffn
+from ct_diffusionmodelbench_tpu_torch.ops.quant import dequantize_tensor, is_quantized
 
 
 def router_probs(x: torch.Tensor, w_router: torch.Tensor, top_k: int,
@@ -65,18 +66,31 @@ def moe_block(x: torch.Tensor, params: dict, *, top_k: int, norm_topk: bool,
     """x [N, D] → ([N, D], aux_loss scalar).
 
     ``layer_index`` with 4-D ``we_*`` stacks keeps the full [L, E, D, Fm]
-    stacks intact: the kernels index the layer themselves."""
+    stacks intact: the kernels index the layer themselves.
+
+    Quantized experts (``ops/quant.py`` dicts): lane-aligned stacks (D and
+    Fm multiples of 128) go to the int8 grouped kernels; otherwise, or on
+    the dense path, this layer's experts are dequantized to x's dtype and
+    take the plain-weight path, as in the reference."""
     topk_probs, topk_idx, full_probs = router_probs(
         x, params["router"], top_k, norm_topk)
     if impl == "auto":
         impl = "grouped"
     we = [params["we_gate"], params["we_up"], params["we_down"]]
+    li = layer_index
+    if is_quantized(we[0]):
+        shp = we[0]["q"].shape
+        aligned = shp[-2] % 128 == 0 and shp[-1] % 128 == 0
+        if impl != "grouped" or not aligned:
+            if we[0]["q"].ndim == 4:
+                we = [{"q": w["q"][li], "s": w["s"][li]} for w in we]
+                li = None
+            we = [dequantize_tensor(w, x.dtype) for w in we]
     if impl == "grouped":
-        out = grouped_expert_ffn(x, topk_probs, topk_idx, *we,
-                                 layer_index=layer_index)
+        out = grouped_expert_ffn(x, topk_probs, topk_idx, *we, layer_index=li)
     elif impl == "dense":
         if we[0].ndim == 4:
-            we = [w[layer_index] for w in we]
+            we = [w[li] for w in we]
         out = _experts_dense(x, topk_probs, topk_idx, *we)
     else:
         raise ValueError(f"unknown MoE impl {impl!r}")

@@ -10,7 +10,9 @@ stack is split once per forward (``torch.unbind``: zero-copy views whose
 backward stacks the per-layer gradients once, where a slice per layer
 would allocate a full-stack zero gradient for every layer); the MoE expert
 stacks ``[L, E, D, Fm]`` go to the grouped kernels whole, with the layer
-id, as the TPU kernels took a scalar-prefetched layer id.
+id, as the TPU kernels took a scalar-prefetched layer id.  Quantized leaves
+(``ops/quant.py`` dicts) ride the same way: a stack's ``q`` and ``s`` are
+split together, the expert stacks stay whole.
 
 ``forward(..., remat=True)`` recomputes each block in the backward
 (``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), for the
@@ -20,7 +22,7 @@ trainer; :func:`make_forward_fn` is the inference entry point.
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
@@ -31,29 +33,34 @@ from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
 from ct_diffusionmodelbench_tpu_torch.models.layers import rms_norm, rope_angles, swiglu
 from ct_diffusionmodelbench_tpu_torch.models.moe import moe_block
 from ct_diffusionmodelbench_tpu_torch.ops.attention import attention
-from ct_diffusionmodelbench_tpu_torch.ops.quant import qdot
+from ct_diffusionmodelbench_tpu_torch.ops.quant import is_quantized, qdot
 
 EXPERT_STACK_KEYS = ("we_gate", "we_up", "we_down")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def init_params(cfg: ModelConfig, seed: int = 0,
-                device: DeviceLike = None) -> dict:
+def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
+                leaf_transform: Optional[Callable] = None) -> dict:
     """Random-init parameter dict (scaled normals), built on ``device`` in
     the model dtype from a seeded ``torch.Generator`` on that device.
 
     Each tensor is drawn directly in its dtype: no f32 staging of the
     2.1 G-element expert stacks.  The draws differ from the JAX init's (a
     different generator); parity tests bridge one set of weights instead
-    (io/bridge.py)."""
+    (io/bridge.py).
+
+    ``leaf_transform(name, tensor)`` is applied to each drawn weight as it
+    is built, before the next is drawn (``ops/quant.py`` quantizes there, so
+    a full-size int8 init never holds the whole bf16 tree)."""
     dev = resolve_device(device)
     dt = DTYPES[cfg.dtype]
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
+    xform = leaf_transform or (lambda name, t: t)
 
-    def dense(shape, fan_in):
+    def dense(shape, fan_in, name):
         t = torch.randn(shape, generator=gen, device=dev, dtype=dt)
-        return t.mul_(1.0 / math.sqrt(fan_in))
+        return xform(name, t.mul_(1.0 / math.sqrt(fan_in)))
 
     def ones(shape):
         return torch.ones(shape, dtype=dt, device=dev)
@@ -65,10 +72,10 @@ def init_params(cfg: ModelConfig, seed: int = 0,
     Hq, Hkv, Dh = cfg.q_size, cfg.kv_size, cfg.head_dim
     blocks = {
         "attn_norm": ones((L, D)),
-        "wq": dense((L, D, Hq), D),
-        "wk": dense((L, D, Hkv), D),
-        "wv": dense((L, D, Hkv), D),
-        "wo": dense((L, Hq, D), Hq),
+        "wq": dense((L, D, Hq), D, "wq"),
+        "wk": dense((L, D, Hkv), D, "wk"),
+        "wv": dense((L, D, Hkv), D, "wv"),
+        "wo": dense((L, Hq, D), Hq, "wo"),
         "ffn_norm": ones((L, D)),
     }
     if cfg.attention_bias:
@@ -80,27 +87,27 @@ def init_params(cfg: ModelConfig, seed: int = 0,
         blocks["k_norm"] = ones((L, Dh))
     if cfg.is_moe:
         E, Fm = cfg.num_experts, cfg.moe_intermediate_size
-        blocks["router"] = dense((L, D, E), D)
-        blocks["we_gate"] = dense((L, E, D, Fm), D)
-        blocks["we_up"] = dense((L, E, D, Fm), D)
-        blocks["we_down"] = dense((L, E, Fm, D), Fm)
+        blocks["router"] = dense((L, D, E), D, "router")
+        blocks["we_gate"] = dense((L, E, D, Fm), D, "we_gate")
+        blocks["we_up"] = dense((L, E, D, Fm), D, "we_up")
+        blocks["we_down"] = dense((L, E, Fm, D), Fm, "we_down")
         if cfg.num_shared_experts:
             Fs = Fm * cfg.num_shared_experts
-            blocks["ws_gate"] = dense((L, D, Fs), D)
-            blocks["ws_up"] = dense((L, D, Fs), D)
-            blocks["ws_down"] = dense((L, Fs, D), Fs)
+            blocks["ws_gate"] = dense((L, D, Fs), D, "ws_gate")
+            blocks["ws_up"] = dense((L, D, Fs), D, "ws_up")
+            blocks["ws_down"] = dense((L, Fs, D), Fs, "ws_down")
     else:
         Fd = cfg.intermediate_size
-        blocks["w_gate"] = dense((L, D, Fd), D)
-        blocks["w_up"] = dense((L, D, Fd), D)
-        blocks["w_down"] = dense((L, Fd, D), Fd)
+        blocks["w_gate"] = dense((L, D, Fd), D, "w_gate")
+        blocks["w_up"] = dense((L, D, Fd), D, "w_up")
+        blocks["w_down"] = dense((L, Fd, D), Fd, "w_down")
     params = {
-        "embed": dense((V, D), D),
+        "embed": dense((V, D), D, "embed"),
         "blocks": blocks,
         "final_norm": ones((D,)),
     }
     if not cfg.tie_embeddings:
-        params["lm_head"] = dense((D, V), D)
+        params["lm_head"] = dense((D, V), D, "lm_head")
     return params
 
 
@@ -122,14 +129,32 @@ def lm_head_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
     return qdot(x, head)
 
 
+def _project(x: torch.Tensor, w) -> torch.Tensor:
+    """``x @ w`` in x's dtype: a bf16 product for plain weights, the f32
+    ``qdot`` rounded once for quantized ones (as the reference's
+    ``qdot(...).astype``)."""
+    if is_quantized(w):
+        return qdot(x, w).to(x.dtype)
+    return torch.matmul(x, w)
+
+
+def _unbind(leaf):
+    """A layer stack → per-layer views; a quantized stack → per-layer
+    ``{"q", "s"}`` dicts."""
+    if is_quantized(leaf):
+        return [{"q": q, "s": s} for q, s in
+                zip(torch.unbind(leaf["q"]), torch.unbind(leaf["s"]))]
+    return torch.unbind(leaf)
+
+
 def _attn_project(cfg: ModelConfig, h: torch.Tensor, lp: dict):
     """QKV projection: [B, S, D] → q [B, S, H, Dh], k/v [B, S, KV, Dh],
     biased and qk-normed per config, unrotated."""
     B, S, _ = h.shape
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    q = torch.matmul(h, lp["wq"])
-    k = torch.matmul(h, lp["wk"])
-    v = torch.matmul(h, lp["wv"])
+    q = _project(h, lp["wq"])
+    k = _project(h, lp["wk"])
+    v = _project(h, lp["wv"])
     if cfg.attention_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -170,7 +195,7 @@ def _block_forward(cfg: ModelConfig, x, lp, cos, sin, mask, moe_stacks=None,
     q, k, v = _attn_project(cfg, h, lp)
     attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
                          causal=cfg.causal, rope=(cos, sin))
-    o = torch.matmul(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim), lp["wo"])
+    o = _project(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim), lp["wo"])
     x = x + o
     ffn_out, aux = _ffn_block(cfg, x, lp, moe_stacks, layer_index)
     return x + ffn_out, aux
@@ -201,7 +226,7 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
 
     blocks = params["blocks"]
     stacks = {k: blocks[k] for k in EXPERT_STACK_KEYS if k in blocks} or None
-    layers = {k: torch.unbind(v) for k, v in blocks.items()
+    layers = {k: _unbind(v) for k, v in blocks.items()
               if k not in EXPERT_STACK_KEYS}
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for li in range(cfg.num_layers):

@@ -1,16 +1,21 @@
-"""Grouped expert GEMMs for the MoE FFN: routing layout, the two CUDA
-kernels, their plain versions, and the weighted combine.
+"""Grouped expert GEMMs for the MoE FFN: routing layout, the CUDA kernels
+for bf16 and int8 weights, their plain versions, and the weighted combine.
 
-Counterpart of ``ops/grouped_gemm_pallas.py`` (host glue and the gate/up and
-down kernels; the fused megakernel and the int8 kernels belong to later
-slices).  The padded layout is the reference's, row for row: ``tile_m`` 64
-(128 for M ≥ 65536), ``m_pad = round_up(M, tile_m) + E·tile_m``, every
-``tile_m``-row tile owned by one expert (``tile_expert``), padding rows
-duplicating token 0 with combine weight 0.
+Counterpart of ``ops/grouped_gemm_pallas.py`` (host glue, the gate/up and
+down kernels and their int8 weight-only forms; the fused megakernel belongs
+to a later slice).  The padded layout is the reference's, row for row:
+``tile_m`` 64 (128 for M ≥ 65536), ``m_pad = round_up(M, tile_m) +
+E·tile_m``, every ``tile_m``-row tile owned by one expert
+(``tile_expert``), padding rows duplicating token 0 with combine weight 0.
 
 Kernels (``csrc/grouped_gemm.cu``): :func:`grouped_gateup` computes
 ``silu(x @ Wg[e]) * (x @ Wu[e])`` and :func:`grouped_down` ``h @ Wd[e]``,
 weights ``[E, K, N]`` or layer-stacked ``[L, E, K, N]`` with ``layer_index``.
+Their int8 forms (``csrc/grouped_gemm_q.cu``), :func:`grouped_gateup_q` and
+:func:`grouped_down_q`, take quantized ``{"q": int8 [(L,) E, K, N], "s": f32
+[(L,) E, N]}`` weights and compute ``silu((x @ q_g) * s_g) * ((x @ q_u) *
+s_u)`` and ``(h @ q_d) * s_d``: the scale on the f32 product, as
+``ops/quant.py::qdot``.
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.  The kernels have no backward yet: on the card the wrappers raise
 when grad is enabled and an input requires it, rather than return an output
@@ -26,6 +31,7 @@ import torch.nn.functional as F
 
 from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import (
     INT, PTR, Kernel, Library)
+from ct_diffusionmodelbench_tpu_torch.ops.quant import is_quantized
 
 TILE_M = 64
 KERNEL_ROWS = 64  # rows per CUDA block; tile_m must be a multiple
@@ -35,6 +41,11 @@ GATEUP_KERNEL = Kernel("grouped_gateup", LIBRARY, "ctdb_grouped_gateup",
                        [PTR] * 5 + [INT] * 6 + [PTR])
 DOWN_KERNEL = Kernel("grouped_down", LIBRARY, "ctdb_grouped_down",
                      [PTR] * 4 + [INT] * 6 + [PTR])
+LIBRARY_Q = Library("grouped_gemm_q.cu")
+GATEUP_Q_KERNEL = Kernel("grouped_gateup_q", LIBRARY_Q, "ctdb_grouped_gateup_q",
+                         [PTR] * 7 + [INT] * 6 + [PTR])
+DOWN_Q_KERNEL = Kernel("grouped_down_q", LIBRARY_Q, "ctdb_grouped_down_q",
+                       [PTR] * 5 + [INT] * 6 + [PTR])
 
 
 def _round_up(x, m):
@@ -118,7 +129,8 @@ def _refuse_grad(name: str, *tensors) -> None:
             "under torch.no_grad() or with inputs that do not require grad")
 
 
-def _check_kernel_args(x, ws, tile_expert, tile_m, layer_index):
+def _check_kernel_args(x, ws, tile_expert, tile_m, layer_index,
+                       w_dtype=torch.bfloat16):
     dev = x.device
     if dev.type != "cuda":
         raise ValueError(f"grouped kernels need CUDA tensors, got {dev}")
@@ -127,17 +139,22 @@ def _check_kernel_args(x, ws, tile_expert, tile_m, layer_index):
     if w.ndim not in (3, 4):
         raise ValueError(f"expert weights must be [E,K,N] or [L,E,K,N], got {tuple(w.shape)}")
     e, wk, n = w.shape[-3:]
-    for name, t in [("x", x)] + [(f"w{i}", wi) for i, wi in enumerate(ws)]:
-        if t.device != dev or t.dtype != torch.bfloat16 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous bf16 tensor on {dev}")
+    for name, t, dt in [("x", x, torch.bfloat16)] + [
+            (f"w{i}", wi, w_dtype) for i, wi in enumerate(ws)]:
+        if t.device != dev or t.dtype != dt or not t.is_contiguous():
+            kind = "bf16" if dt == torch.bfloat16 else "int8"
+            raise ValueError(f"{name} must be a contiguous {kind} tensor on {dev}")
         if t.data_ptr() % 16:
             raise ValueError(f"{name} must be 16-byte aligned")
     if any(wi.shape != w.shape for wi in ws):
         raise ValueError("gate and up weights differ in shape")
     if wk != k:
         raise ValueError(f"x has K={k}, weights K={wk}")
-    if k % 8 or n % 8:
-        raise ValueError(f"K and N must be multiples of 8, got {k}, {n}")
+    # One 16-byte cp.async carries 8 bf16 or 16 int8 values of a row.
+    n_align = 16 // w.element_size()
+    if k % 8 or n % n_align:
+        raise ValueError(f"K and N must be multiples of 8 and {n_align}, "
+                         f"got {k}, {n}")
     if tile_m % KERNEL_ROWS or m_pad % tile_m:
         raise ValueError(f"tile_m {tile_m} must be a multiple of {KERNEL_ROWS} "
                          f"dividing m_pad {m_pad}")
@@ -188,6 +205,96 @@ def grouped_down(h_padded, we_down, tile_expert, tile_m: int = TILE_M,
     return out
 
 
+# ---------------------------------------------------------------------------
+# int8 weight-only pair
+# ---------------------------------------------------------------------------
+
+def _layer_q(w: dict, layer_index: Optional[int]):
+    """(q [E, K, N], s [E, N]) of one layer of a quantized expert stack."""
+    if w["q"].ndim == 4:
+        if layer_index is None:
+            raise ValueError("stacked [L, E, K, N] weights need layer_index")
+        return w["q"][layer_index], w["s"][layer_index]
+    return w["q"], w["s"]
+
+
+def _tiles_times_experts_q(x_padded, w, tile_expert, tile_m, layer_index):
+    """f32 product of every row tile with its expert's int8 weights, the
+    expert's per-column scale applied to the product."""
+    q, s = _layer_q(w, layer_index)
+    acc = _tiles_times_experts(x_padded, q, tile_expert, tile_m)
+    return acc * s.float()[tile_expert.long()][:, None, :]
+
+
+def grouped_gateup_q_plain(x_padded, we_gate: dict, we_up: dict, tile_expert,
+                           tile_m: int = TILE_M,
+                           layer_index: Optional[int] = None) -> torch.Tensor:
+    """The int8 gate/up kernel's function in PyTorch: per-tile f32 products
+    with ``q`` (exact in any float type), scaled before the SiLU."""
+    gate = _tiles_times_experts_q(x_padded, we_gate, tile_expert, tile_m, layer_index)
+    up = _tiles_times_experts_q(x_padded, we_up, tile_expert, tile_m, layer_index)
+    h = (F.silu(gate) * up).to(x_padded.dtype)
+    return h.reshape(x_padded.shape[0], we_gate["q"].shape[-1])
+
+
+def grouped_down_q_plain(h_padded, we_down: dict, tile_expert,
+                         tile_m: int = TILE_M,
+                         layer_index: Optional[int] = None) -> torch.Tensor:
+    """The int8 down kernel's function in PyTorch: scaled before the cast."""
+    out = _tiles_times_experts_q(h_padded, we_down, tile_expert, tile_m, layer_index)
+    return out.to(h_padded.dtype).reshape(h_padded.shape[0], we_down["q"].shape[-1])
+
+
+def _check_scales(ws, n):
+    for i, w in enumerate(ws):
+        q, s = w["q"], w["s"]
+        if (s.device != q.device or s.dtype != torch.float32
+                or not s.is_contiguous() or tuple(s.shape) != q.shape[:-2] + (n,)):
+            raise ValueError(f"s{i} must be contiguous f32 {q.shape[:-2] + (n,)} "
+                             f"on {q.device}, got {s.dtype} {tuple(s.shape)}")
+
+
+def grouped_gateup_q(x_padded, we_gate: dict, we_up: dict, tile_expert,
+                     tile_m: int = TILE_M,
+                     layer_index: Optional[int] = None) -> torch.Tensor:
+    """h [M_pad, F] = silu((x @ q_g[e]) * s_g[e]) * ((x @ q_u[e]) * s_u[e])
+    per row tile."""
+    if x_padded.device.type == "cpu":
+        return grouped_gateup_q_plain(x_padded, we_gate, we_up, tile_expert,
+                                      tile_m, layer_index)
+    _refuse_grad("grouped_gateup_q", x_padded)
+    m_pad, d, f, e, layer = _check_kernel_args(
+        x_padded, (we_gate["q"], we_up["q"]), tile_expert, tile_m, layer_index,
+        w_dtype=torch.int8)
+    _check_scales((we_gate, we_up), f)
+    h = torch.empty((m_pad, f), dtype=x_padded.dtype, device=x_padded.device)
+    stream = torch.cuda.current_stream(x_padded.device).cuda_stream
+    GATEUP_Q_KERNEL(x_padded.data_ptr(), we_gate["q"].data_ptr(),
+                    we_up["q"].data_ptr(), we_gate["s"].data_ptr(),
+                    we_up["s"].data_ptr(), h.data_ptr(), tile_expert.data_ptr(),
+                    m_pad, d, f, e, layer, tile_m, stream)
+    return h
+
+
+def grouped_down_q(h_padded, we_down: dict, tile_expert, tile_m: int = TILE_M,
+                   layer_index: Optional[int] = None) -> torch.Tensor:
+    """out [M_pad, D] = (h @ q_d[e]) * s_d[e] per row tile."""
+    if h_padded.device.type == "cpu":
+        return grouped_down_q_plain(h_padded, we_down, tile_expert, tile_m,
+                                    layer_index)
+    _refuse_grad("grouped_down_q", h_padded)
+    m_pad, f, d, e, layer = _check_kernel_args(
+        h_padded, (we_down["q"],), tile_expert, tile_m, layer_index,
+        w_dtype=torch.int8)
+    _check_scales((we_down,), d)
+    out = torch.empty((m_pad, d), dtype=h_padded.dtype, device=h_padded.device)
+    stream = torch.cuda.current_stream(h_padded.device).cuda_stream
+    DOWN_Q_KERNEL(h_padded.data_ptr(), we_down["q"].data_ptr(),
+                  we_down["s"].data_ptr(), out.data_ptr(), tile_expert.data_ptr(),
+                  m_pad, f, d, e, layer, tile_m, stream)
+    return out
+
+
 def gather_rows(x: torch.Tensor, dest: torch.Tensor, k: int, m_pad: int):
     """x_padded [m_pad, D]: row ``dest[slot]`` holds token ``slot // k``;
     padding rows hold token 0 (their outputs get combine weight 0)."""
@@ -216,17 +323,27 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
     """Full expert FFN on the padded layout: x [N, D] → [N, D].
 
     Counterpart of ``grouped_expert_ffn_pallas``: counting layout, one row
-    gather, the gate/up and down kernels, the weighted combine."""
+    gather, the gate/up and down kernels (their int8 forms for quantized
+    ``{"q", "s"}`` weights, which need D and F to be multiples of 128, as
+    the reference's), the weighted combine."""
+    quantized = is_quantized(we_gate)
     if x.is_cuda:
-        _refuse_grad("grouped_expert_ffn_cuda", x, topk_probs, we_gate, we_up,
-                     we_down)
-    n, _ = x.shape
+        plain = [] if quantized else [we_gate, we_up, we_down]
+        _refuse_grad("grouped_expert_ffn_cuda", x, topk_probs, *plain)
+    n, d = x.shape
     k = topk_idx.shape[1]
-    e = we_gate.shape[-3]
+    wg = we_gate["q"] if quantized else we_gate
+    e, fm = wg.shape[-3], wg.shape[-1]
+    if quantized and (d % 128 or fm % 128):
+        raise ValueError(f"int8 grouped FFN needs D, F % 128 == 0, got {d}, {fm}")
     if tile_m == TILE_M and n * k >= 65536:
         tile_m = 128
     dest, tile_expert, _, m_pad = counting_layout(topk_idx, e, tile_m)
     xs = gather_rows(x, dest, k, m_pad)
-    h = grouped_gateup(xs, we_gate, we_up, tile_expert, tile_m, layer_index)
-    out_padded = grouped_down(h, we_down, tile_expert, tile_m, layer_index)
+    if quantized:
+        h = grouped_gateup_q(xs, we_gate, we_up, tile_expert, tile_m, layer_index)
+        out_padded = grouped_down_q(h, we_down, tile_expert, tile_m, layer_index)
+    else:
+        h = grouped_gateup(xs, we_gate, we_up, tile_expert, tile_m, layer_index)
+        out_padded = grouped_down(h, we_down, tile_expert, tile_m, layer_index)
     return combine(out_padded, dest, topk_probs, n, k, x.dtype)

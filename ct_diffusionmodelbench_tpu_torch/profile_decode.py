@@ -1,6 +1,6 @@
 """Where a denoise step's time goes on the card.
 
-    python -m ct_diffusionmodelbench_tpu_torch.profile_decode [--out FILE]
+    python -m ct_diffusionmodelbench_tpu_torch.profile_decode [--quant int8] [--out FILE]
 
 Runs the main path's step shape (``llada-moe-7b``, random weights, batch 8,
 prompt 64, gen 256, block 32, greedy) for 8 steps (one per block: each step
@@ -10,7 +10,8 @@ time, once under ``torch.profiler`` tracing the device only, for the device
 time by kernel and the idle share of that same window, and once tracing host
 and device, for the host time by operator (the host tracer's own cost idles
 the card, so that window's idle share is reported beside the other, not in
-its place).  Writes the same as JSON to ``--out``.
+its place).  ``--quant int8`` quantizes each weight as it is built (the
+int8 serving cell).  Writes the same as JSON to ``--out``.
 """
 
 from __future__ import annotations
@@ -25,6 +26,7 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params, make_forward_fn
+from ct_diffusionmodelbench_tpu_torch.ops.quant import quantized_leaf_transform
 from ct_diffusionmodelbench_tpu_torch.sampling import llada_generate
 
 BATCH, PROMPT, GEN, BLOCK = 8, 64, 256, 32
@@ -66,10 +68,12 @@ def card_line() -> str:
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--out", type=Path, default=None, help="JSON summary path")
+    ap.add_argument("--quant", choices=["int8"], default=None)
     args = ap.parse_args(argv)
 
     cfg = get_config("llada-moe-7b")
-    params = init_params(cfg, seed=0)
+    params = init_params(cfg, seed=0, leaf_transform=(
+        quantized_leaf_transform if args.quant else None))
     fwd = make_forward_fn(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(2)
@@ -94,7 +98,7 @@ def main(argv=None) -> int:
     host = sorted(((e.key, e.self_cpu_time_total / 1e3, e.count) for e in events),
                   key=lambda r: -r[1])
     summary = dict(
-        card=card_line(), steps=STEPS, step_ms=step_ms,
+        card=card_line(), quant=args.quant, steps=STEPS, step_ms=step_ms,
         profiled_window_ms=window_ms, device_busy_ms=busy_ms,
         device_idle_share=1.0 - busy_ms / window_ms,
         host_traced_window_ms=host_window_ms,

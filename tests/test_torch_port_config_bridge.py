@@ -25,6 +25,12 @@ REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ct_diffusionmodelbench_tpu_torch"
 
 
+# The int8 serving slice's modules, named so that the import checks below
+# provably cover them.
+NEW_IN_INT8_SLICE = ("eval.runner", "io.checkpoint", "io.tokenizer",
+                     "ops.quant", "quantize_ckpt")
+
+
 def _is_forbidden(module: str) -> bool:
     # Beware the prefix: ct_diffusionmodelbench_tpu_torch starts with the
     # JAX package's name, so match the exact name or the dotted prefix.
@@ -95,13 +101,16 @@ def test_port_imports_no_jax_at_runtime():
         "print(sorted(bad))\n"
         "n = sum(1 for m in sys.modules\n"
         "        if m.startswith('ct_diffusionmodelbench_tpu_torch.'))\n"
+        "print(sorted(m for m in sys.modules if m.startswith(p.__name__)))\n"
         "print(n)\n")
     res = subprocess.run([sys.executable, "-c", code], cwd=REPO,
                          capture_output=True, text=True, timeout=300)
     assert res.returncode == 0, res.stderr
-    bad, n = res.stdout.strip().splitlines()[-2:]
+    bad, names, n = res.stdout.strip().splitlines()[-3:]
     assert bad == "[]"
     assert int(n) >= 15  # every module was really imported
+    for mod in NEW_IN_INT8_SLICE:
+        assert f"'ct_diffusionmodelbench_tpu_torch.{mod}'" in names, mod
 
 
 def test_each_port_module_imports_first():
@@ -144,6 +153,8 @@ def test_port_sources_import_no_jax():
                 continue
             found += [(f.name, n) for n in names if _is_forbidden(n)]
     assert len(files) >= 15
+    for mod in NEW_IN_INT8_SLICE:
+        assert PORT / (mod.replace(".", "/") + ".py") in files, mod
     assert found == []
 
 

@@ -8,7 +8,9 @@ machine with a card and no JAX, run them with
 
 Tolerances: kernel and plain version take the same bf16 inputs, accumulate
 in f32 and round once to bf16, so they differ by at most one bf16 ulp
-(2**-7 relative) plus an absolute floor; flash attention also rounds P to
+(2**-7 relative) plus an absolute floor (the int8 pair likewise: int8
+weights are exact in bf16, and both versions scale the f32 product before
+the one rounding); flash attention also rounds P to
 bf16 against differently tiled running maxima (two ulps).  The forward's
 lse is f32 from scores that may differ by one bf16 ulp of a rotated q/k
 element (the kernel may fuse the rotation's multiply-add): 2e-3 absolute.
@@ -29,6 +31,7 @@ from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
 from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
 from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
 from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+from ct_diffusionmodelbench_tpu_torch.ops.quant import quantize_tensor, quantized_leaf_transform
 from ct_diffusionmodelbench_tpu_torch.sampling import llada_generate
 from ct_diffusionmodelbench_tpu_torch.train.trainer import (
     TrainConfig, make_optimizer, make_train_step)
@@ -73,6 +76,88 @@ def test_grouped_kernels_match_plain(cuda_device, d, f, layers):
     o = gg.grouped_down(h, wd, te, gg.TILE_M, li)
     torch.testing.assert_close(
         o, gg.grouped_down_plain(h, wd, te, gg.TILE_M, li), **GROUPED_TOL)
+
+
+def _int8_experts(g, dev, lead, e, k_dim, n_dim):
+    w = torch.randn(lead + (e, k_dim, n_dim), generator=g, device=dev) / k_dim ** 0.5
+    return quantize_tensor(w)
+
+
+@pytest.mark.parametrize("d,f,layers,e,skew", [
+    (128, 128, None, 8, False),     # flat
+    (256, 384, 3, 8, False),        # layer-stacked, several column tiles
+    (64, 48, 2, 16, True),          # ragged: most experts empty, N % 16 only
+])
+def test_int8_grouped_kernels_match_plain(cuda_device, d, f, layers, e, skew):
+    dev, k = cuda_device, 2
+    x, idx, g = _routing(dev, 100, d, e, k, d + f + e)
+    if skew:
+        idx = torch.where(idx < e // 2, idx % 3, idx)   # experts 3 .. e/2-1 empty
+    lead = () if layers is None else (layers,)
+    qg, qu = (_int8_experts(g, dev, lead, e, d, f) for _ in range(2))
+    qd = _int8_experts(g, dev, lead, e, f, d)
+    li = None if layers is None else layers - 1
+    dest, te, sizes, m_pad = gg.counting_layout(idx, e, gg.TILE_M)
+    if skew:
+        assert int((sizes == 0).sum()) >= e // 2 - 3
+    xs = gg.gather_rows(x, dest, k, m_pad)
+    reset_launch_counts()
+    h = gg.grouped_gateup_q(xs, qg, qu, te, gg.TILE_M, li)
+    torch.testing.assert_close(
+        h, gg.grouped_gateup_q_plain(xs, qg, qu, te, gg.TILE_M, li), **GROUPED_TOL)
+    o = gg.grouped_down_q(h, qd, te, gg.TILE_M, li)
+    torch.testing.assert_close(
+        o, gg.grouped_down_q_plain(h, qd, te, gg.TILE_M, li), **GROUPED_TOL)
+    assert KERNELS["grouped_gateup_q"].launches == 1
+    assert KERNELS["grouped_down_q"].launches == 1
+    assert KERNELS["grouped_gateup"].launches == 0
+
+
+def test_int8_ffn_and_tiny_model_against_plain(cuda_device, monkeypatch):
+    """The int8 expert FFN and an aligned tiny int8 model: kernels against
+    plain versions, and a greedy decode through the int8 pair only."""
+    dev = cuda_device
+    cfg = get_config("llada-moe-tiny", hidden_size=128, moe_intermediate_size=128,
+                     head_dim=32)                               # bf16
+    params = init_params(cfg, seed=6, device=dev, leaf_transform=quantized_leaf_transform)
+    ids = torch.randint(3, 400, (2, 40), device=dev)
+    lk, _ = make_forward_fn(cfg, device=dev)(params, ids)
+    with monkeypatch.context() as m:
+        m.setattr(attention, "flash_attention", fa.flash_attention_plain)
+        m.setattr(gg, "grouped_gateup_q", gg.grouped_gateup_q_plain)
+        m.setattr(gg, "grouped_down_q", gg.grouped_down_q_plain)
+        lp, _ = make_forward_fn(cfg, device=dev)(params, ids)
+    assert (lk - lp).abs().max() <= 2 ** -4 * lp.abs().max()
+    reset_launch_counts()
+    out = llada_generate(make_forward_fn(cfg, device=dev), params, ids[:, :8],
+                         steps=8, gen_length=16, block_length=8,
+                         mask_id=cfg.mask_token_id)
+    assert not (out[:, 8:] == cfg.mask_token_id).any()
+    launches = {n: kk.launches for n, kk in KERNELS.items()}
+    want = cfg.num_layers * 8
+    assert (launches["grouped_gateup_q"], launches["grouped_down_q"],
+            launches["flash_attention_fwd"]) == (want, want, want)
+    assert launches["grouped_gateup"] == launches["grouped_down"] == 0
+
+
+def test_int8_wrappers_refuse_grad_and_bad_scales(cuda_device):
+    dev = cuda_device
+    x = torch.zeros((64, 64), device=dev, dtype=torch.bfloat16, requires_grad=True)
+    w = quantize_tensor(torch.randn((2, 64, 64), device=dev))
+    te = torch.zeros(1, dtype=torch.int32, device=dev)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        gg.grouped_gateup_q(x, w, w, te)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        gg.grouped_down_q(x, w, te)
+    probs = torch.ones((4, 1), device=dev)
+    idx = torch.zeros((4, 1), dtype=torch.long, device=dev)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        gg.grouped_expert_ffn_cuda(x[:4], probs, idx, w, w, w)
+    with torch.no_grad():
+        assert gg.grouped_gateup_q(x, w, w, te).shape == (64, 64)
+        bad = {"q": w["q"], "s": w["s"].to(torch.bfloat16)}
+        with pytest.raises(ValueError, match="f32"):
+            gg.grouped_down_q(x, bad, te)
 
 
 def test_grouped_kernel_raises_on_f32(cuda_device):

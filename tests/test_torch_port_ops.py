@@ -293,8 +293,11 @@ def test_moe_block_matches_jax_grouped(monkeypatch, d, f, layers):
 
 
 def test_router_top_k_ties_take_lowest_index():
-    # identical router columns: every expert ties, top-k must be 0..k-1
-    x = torch.randn(5, 8)
+    # identical router columns: every expert ties, top-k must be 0..k-1.  An
+    # integer-valued x makes the tie exact: sums of small integers are exact
+    # in f32 in any order, so no BLAS column order can break it by an ulp.
+    x = torch.from_numpy(
+        np.random.default_rng(0).integers(-4, 5, (5, 8)).astype(np.float32))
     w = torch.ones(8, 6)
     _, idx, _ = tmoe.router_probs(x, w, 3, True)
     assert idx.tolist() == [[0, 1, 2]] * 5
