@@ -17,40 +17,62 @@ Phases, in order:
    run; no mask id may remain; a repeated forward must give identical logits.
 4. reduced depth: a 2-layer forward at full width with the kernels against
    the same forward on the kernels' plain versions.
-5. int8 kernels: ``ModelRunner.random_init("llada-moe-7b", quant="int8")``
+5. single-prompt kernels: layer 1's routing and attention inputs from a
+   full-size B = 1 forward at the chat prompt's shape; the fused expert FFN
+   (K3) on the stacked [18, 64, ...] weights and the direct flash attention
+   (K9, with and without lse, at llada-moe-7b's H 16 / KV 4 and at Dream's
+   H 28 / KV 4) against their plain versions, timed beside them, beside one
+   PyTorch call for the same function, beside their bounds and beside the
+   pair (K1 + K2) and K8 at the same inputs.
+6. chat slice: with ``CTDB_GROUPED_FUSED=1`` and ``CTDB_FLASH_DIRECT=1``,
+   ``cli/chat.py``'s ``build_parser`` → a ``ModelRunner`` on phase 3's
+   weights (those of ``--preset llada-moe-7b``) → ``run_chat`` at the chat
+   defaults (gen 128, steps 128, block 32, greedy, the Lean-only system
+   prompt); a warm-up, then a timed call with launch counts around it (K3
+   and K9 only); no mask id may remain; then one short ``cli/chat_base.py``
+   ``_respond`` (causal, 8 new tokens) on the same weights.
+7. chat depth check: a 2-layer full-width forward through K3 and K9 against
+   the same forward on their plain versions.
+8. int8 kernels: ``ModelRunner.random_init("llada-moe-7b", quant="int8")``
    (each weight quantized as it is built); the int8 gate/up and down
    kernels on the layer-1 routing of a full-size int8 forward, with the
    stacked [18, 64, ...] int8 experts, against their plain versions, timed
    beside them and beside ``torch._grouped_mm`` on weights dequantized to
    bf16 beforehand.
-6. int8 slice: ``ModelRunner.generate_ids`` at the bf16 slice's shape and
+9. int8 slice: ``ModelRunner.generate_ids`` at the bf16 slice's shape and
    prompt; launch counts read around that run (the int8 pair and flash, not
    the bf16 pair); no mask id may remain; a repeated forward must give
    identical logits.
-7. int8 quantization check: at 2 layers of the full width, the int8 forward
+10. int8 quantization check: at 2 layers of the full width, the int8 forward
    against the bf16 forward on the dequantized weights (the same function),
    and against itself on the int8 kernels' plain versions.
-8. training kernels: the flash forward with lse and the two backward kernels
+11. Dream slice: full-width, full-depth ``dream-7b`` (seeded random weights,
+   ``ModelRunner.random_init``) generating at B = 1, gen 128, steps 128,
+   greedy, ``alg="entropy"`` under ``CTDB_FLASH_DIRECT=1``: K9 launches,
+   no mask id left, a repeated forward identical, tokens/s, peak memory.
+12. training kernels: the flash forward with lse and the two backward kernels
    at the training shape (B 1, S 2048, H = KV = 32, Dh 128, RoPE) against
    their plain versions, timed beside them and beside SDPA's forward and
    backward; also a GQA case (H 16, KV 4) and a padded-mask case.
-9. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
+13. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
    5 optimizer steps by ``Trainer`` (seq 2048, micro-batch 1, grad-accum 4,
    remat, CE chunk 512, AdamW) on seeded token rows; s/step over steps 2-5,
    tokens/s, train MFU, peak memory, save seconds; launch counts per step.
-10. training gradients: a 2-layer full-width loss and every parameter's
+14. training gradients: a 2-layer full-width loss and every parameter's
    gradient with the kernels against the same on their plain versions.
 
-The bf16 MoE weights are freed before phase 5, the int8 ones before
-phase 8.  Prints the ``{"kernels": [...]}`` line and, last, the
+The bf16 MoE weights are freed before phase 8, the int8 ones before
+phase 11, Dream's before phase 12.  Prints the ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, ...}`` line.  Exits non-zero, printing no result, without a
 card or if any phase fails.
 """
 
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
+import os
 import shutil
 import subprocess
 import sys
@@ -88,6 +110,21 @@ LOGITS_RTOL_OF_MAX = 2 ** -5
 # The int8 forward against the bf16 forward on dequantized weights holds to
 # the same tolerance: dequantizing rounds each q·s to bf16 (one bf16 ulp of
 # the weight), which moves the products no more than a kernel's ulp does.
+
+# The fused expert FFN against its plain version: both round h to bf16 from
+# f32 sums taken in different orders, so now and then one h element differs
+# by one bf16 ulp (2**-8 relative) and moves out[row, j] by up to
+# 2**-8 * |h_i| * |Wd[i, j]| on top of out's own one-ulp rounding.  h never
+# leaves the kernel; out is held to GROUPED_TOL plus that term.
+H_FLIP = 2 ** -8
+
+# Single-prompt serving (the chat CLI's defaults): B 1, gen 128, steps 128,
+# block 32; the prompt is the chat template around the Lean-only system
+# message and CHAT_PROMPT, left-padded to the runner's 64-token bucket.
+CHAT_PROMPT = "Prove that for every natural number n, n + 0 = n."
+CHAT_GEN, CHAT_STEPS = 128, 128
+CHAT_BASE_TOKENS = 8
+SINGLE_PROMPT_KERNELS = ("grouped_ffn_fused", "flash_attention_direct")
 
 SERVING_KERNELS = ("grouped_gateup", "grouped_down", "flash_attention_fwd")
 INT8_SERVING_KERNELS = ("grouped_gateup_q", "grouped_down_q", "flash_attention_fwd")
@@ -416,6 +453,376 @@ def depth_phase(cfg, params, ids, dev):
     cfg2 = cfg.replace(num_layers=2)  # the first two layers of the full stacks
     return pinned_compare("2-layer logits, kernels vs plain", cfg2, ids, dev,
                           params, params, seams)
+
+
+def chat_runner(cfg, params, dev):
+    """The runner ``--preset llada-moe-7b`` builds (``ModelRunner.random_init``
+    at seed 0 draws these very weights), around phase 3's tensors."""
+    from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
+    from ct_diffusionmodelbench_tpu_torch.io.tokenizer import Tokenizer
+
+    tok = Tokenizer.byte_fallback(vocab_size=cfg.vocab_size,
+                                  eos_token_id=cfg.eos_token_id or 2)
+    return ModelRunner(cfg, params, tok, device=dev)
+
+
+def chat_args():
+    from ct_diffusionmodelbench_tpu_torch.cli import chat
+
+    return chat.build_parser().parse_args(
+        ["--preset", "llada-moe-7b", "--prompt", CHAT_PROMPT,
+         "--gen-length", str(CHAT_GEN), "--steps", str(CHAT_STEPS)])
+
+
+def chat_step_inputs(runner, args):
+    """The ids and mask of a chat denoise step: the template around the
+    prompt, left-padded to the runner's bucket, then ``gen`` mask ids."""
+    from ct_diffusionmodelbench_tpu_torch.cli.chat import build_system
+
+    messages = [{"role": "system", "content": build_system(not args.no_lean_only,
+                                                           args.system_message)},
+                {"role": "user", "content": args.prompt}]
+    text = runner.tokenizer.apply_chat_template(messages, add_generation_prompt=True)
+    ids = runner.tokenizer.encode(text, max_length=args.max_length)
+    b = runner.prompt_bucket
+    p = (len(ids) + b - 1) // b * b
+    x = torch.full((1, p + args.gen_length), runner.mask_id, dtype=torch.long)
+    x[0, :p - len(ids)] = runner.tokenizer.pad_token_id or 0
+    x[0, p - len(ids):p] = torch.tensor(ids)
+    mask = torch.ones_like(x, dtype=torch.int32)
+    mask[0, :p - len(ids)] = 0
+    return x.to(runner.device), mask.to(runner.device), p
+
+
+def capture_layer(fwd, params, ids, mask, li, **kw):
+    """Layer ``li``'s MoE input and expert choice and its attention inputs
+    in one forward."""
+    from ct_diffusionmodelbench_tpu_torch.models import moe
+    from ct_diffusionmodelbench_tpu_torch.ops import attention
+
+    routed, attended = [], []
+    router_probs, flash = moe.router_probs, attention.flash_attention
+
+    def recording_router(x, w, top_k, norm_topk):
+        out = router_probs(x, w, top_k, norm_topk)
+        routed.append((x, out[1]))
+        return out
+
+    def recording_flash(q, k, v, mask=None, rope=None):
+        attended.append((q, k, v, mask, rope))
+        return flash(q, k, v, mask=mask, rope=rope)
+
+    try:
+        moe.router_probs, attention.flash_attention = recording_router, recording_flash
+        fwd(params, ids, mask, **kw)
+    finally:
+        moe.router_probs, attention.flash_attention = router_probs, flash
+    return routed[li], attended[li]
+
+
+def direct_case(name, q, k, v, mask, rope, dev, stream):
+    """K9 with and without lse against its plain version; times of K9, K8,
+    the plain version and SDPA on the same inputs."""
+    from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+
+    b, s, h, dh = q.shape
+    kv = k.shape[2]
+    cos, sin = rope
+    out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope, with_lse=True)
+    out2 = fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope)
+    out_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask, rope=rope, with_lse=True)
+    torch.cuda.synchronize()
+    err = max(compare(f"flash_attention_direct {name} out", out, out_p, **GROUPED_TOL),
+              compare(f"flash_attention_direct {name} out, no lse", out2, out_p,
+                      **GROUPED_TOL),
+              compare(f"flash_attention_direct {name} lse", lse, lse_p, 0.0, LSE_ATOL))
+    bias = fa.mask_bias(mask, b, s, dev)
+    buf = torch.empty_like(out)
+    kv_len = fa.kv_tile_len(s)
+
+    def raw(kernel):
+        return lambda: kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+                              cos.data_ptr(), sin.data_ptr(), buf.data_ptr(), None, b,
+                              s, kv_len, h, kv, dh, dh ** -0.5, stream)
+
+    k_ms = time_ms(raw(fa.DIRECT_KERNEL), 50)
+    k8_ms = time_ms(raw(fa.FLASH_KERNEL), 50)
+    p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, mask=mask, rope=rope), 10)
+    qr = apply_rope(q, cos, sin).transpose(1, 2)
+    kr = apply_rope(k, cos, sin).transpose(1, 2)
+    vt = v.transpose(1, 2)
+    keep = mask.bool()[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    lib_ms = time_ms(lambda: sdpa(qr, kr, vt, attn_mask=keep, enable_gqa=True), 50)
+    b_ms, b_by = bound_ms(4.0 * b * h * s * s * dh, nbytes(q, k, v, out, bias, cos, sin))
+    print(f"  flash_attention_direct {name} (B {b}, S {s}, H {h}, KV {kv}, Dh {dh}): "
+          f"kernel {k_ms:.4f} ms, K8 {k8_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
+          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    return dict(shape=f"B {b}, S {s}, H {h}, KV {kv}, Dh {dh}, RoPE, left padding",
+                max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=lib_ms, k8_ms=k8_ms)
+
+
+def single_prompt_kernel_phase(cfg, params, dev):
+    """K3 and K9 at the chat path's shapes against their plain versions."""
+    from ct_diffusionmodelbench_tpu_torch.models.layers import rope_angles
+    from ct_diffusionmodelbench_tpu_torch.models.transformer import token_positions
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+
+    runner = chat_runner(cfg, params, dev)
+    ids, mask, p = chat_step_inputs(runner, chat_args())
+    li = 1
+    (x, topk_idx), (q, k, v, amask, rope) = capture_layer(
+        runner.forward_fn, params, ids, mask, li, logit_start=p, logit_length=BLOCK)
+    D, E, K, Fm = (cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok,
+                   cfg.moe_intermediate_size)
+    blocks = params["blocks"]
+    wg, wu, wd = blocks["we_gate"], blocks["we_up"], blocks["we_down"]
+    dest, tile_expert, sizes, m_pad = gg.counting_layout(topk_idx, E, gg.TILE_M)
+    xs = gg.gather_rows(x, dest, K, m_pad)
+    m = x.shape[0] * K
+    used = int((sizes > 0).sum())
+    print(f"  chat step: prompt {p} (bucketed), S {ids.shape[1]}, N {x.shape[0]}, "
+          f"M {m}, m_pad {m_pad}, experts used {used}/{E}, largest group "
+          f"{int(sizes.max())}, smallest {int(sizes.min())}", flush=True)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    results = []
+
+    # K3: the fused expert FFN on layer 1's routing, stacked weights
+    out_k = gg.grouped_ffn_fused(xs, wg, wu, wd, tile_expert, gg.TILE_M, li)
+    h_p = gg.grouped_gateup_plain(xs, wg, wu, tile_expert, gg.TILE_M, li)
+    out_p = gg.grouped_down_plain(h_p, wd, tile_expert, gg.TILE_M, li)
+    torch.cuda.synchronize()
+    flip = H_FLIP * float(h_p.abs().max()) * float(wd[li].abs().max())
+    atol = max(GROUPED_TOL["atol"], flip)
+    over = int(((out_k.float() - out_p.float()).abs()
+                > GROUPED_TOL["atol"] + GROUPED_TOL["rtol"] * out_p.float().abs()).sum())
+    print(f"  grouped_ffn_fused: {over}/{out_p.numel()} elements past one bf16 ulp "
+          f"(GROUPED_TOL); the flipped-h term adds atol {flip:.3e}", flush=True)
+    err = compare("grouped_ffn_fused", out_k, out_p, GROUPED_TOL["rtol"], atol)
+    buf = torch.empty_like(out_k)
+    h_buf = torch.empty_like(h_p)
+    k_ms = time_ms(lambda: gg.FUSED_KERNEL(
+        xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), buf.data_ptr(),
+        tile_expert.data_ptr(), m_pad, D, Fm, E, li, gg.TILE_M, stream), 20)
+
+    def pair():
+        gg.GATEUP_KERNEL(xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), h_buf.data_ptr(),
+                         tile_expert.data_ptr(), m_pad, D, Fm, E, li, gg.TILE_M, stream)
+        gg.DOWN_KERNEL(h_buf.data_ptr(), wd.data_ptr(), buf.data_ptr(),
+                       tile_expert.data_ptr(), m_pad, Fm, D, E, li, gg.TILE_M, stream)
+
+    pair_ms = time_ms(pair, 20)
+    p_ms = time_ms(lambda: gg.grouped_ffn_fused_plain(
+        xs, wg, wu, wd, tile_expert, gg.TILE_M, li), 3, warmup=1)
+    lib_ms = None
+    grouped_mm = getattr(torch, "_grouped_mm", None)
+    if grouped_mm is not None:
+        pend = torch.cumsum(gg._round_up(sizes, gg.TILE_M), 0, dtype=torch.int32)
+        w_gu = torch.cat([wg[li], wu[li]], dim=-1)
+        wd_l = wd[li]
+
+        def library():
+            gu = grouped_mm(xs, w_gu, offs=pend)
+            h = (torch.nn.functional.silu(gu[:, :Fm].float()) * gu[:, Fm:].float()
+                 ).to(xs.dtype)
+            return grouped_mm(h, wd_l, offs=pend)
+
+        lib_ms = time_ms(library, 20)
+        del w_gu
+    bf16 = xs.element_size()
+    # The m routed rows' x and out once (padding rows copy token 0 and carry
+    # combine weight 0), each used expert's three matrices once; h stays on
+    # chip.
+    b_ms, b_by = bound_ms(6.0 * m * D * Fm,
+                          2 * m * D * bf16 + nbytes(tile_expert) + used * 3 * D * Fm * bf16)
+    print(f"  grouped_ffn_fused: kernel {k_ms:.4f} ms, pair (K1 + K2) {pair_ms:.4f} ms, "
+          f"plain {p_ms:.4f} ms, library (torch._grouped_mm, silu * up, "
+          f"torch._grouped_mm) {lib_ms}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    results.append(dict(
+        name="grouped_ffn_fused", route="cuda",
+        source="ct_diffusionmodelbench_tpu_torch/csrc/grouped_ffn_fused.cu",
+        replaces="ct_diffusionmodelbench_tpu/ops/grouped_gemm_pallas.py:670",
+        max_abs_err=err, ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=lib_ms, pair_ms=pair_ms))
+    del out_k, out_p, h_p, buf, h_buf, xs
+
+    # K9: layer 1's attention inputs (H 16, KV 4), then Dream's geometry
+    chat = direct_case("chat", q, k, v, amask, rope, dev, stream)
+    s = q.shape[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    qd = torch.randn((1, s, 28, 128), generator=gen, device=dev, dtype=torch.bfloat16)
+    kd, vd = (torch.randn((1, s, 4, 128), generator=gen, device=dev,
+                          dtype=torch.bfloat16) for _ in range(2))
+    rope_d = rope_angles(token_positions(amask, 1, s, dev), 128, 1000000.0)
+    dream = direct_case("Dream geometry", qd, kd, vd, amask, rope_d, dev, stream)
+    results.append(dict(
+        name="flash_attention_direct", route="cuda",
+        source="ct_diffusionmodelbench_tpu_torch/csrc/flash_attention_direct.cu",
+        replaces="ct_diffusionmodelbench_tpu/ops/flash_attention.py:118",
+        max_abs_err=max(chat["max_abs_err"], dream["max_abs_err"]), ms=chat["ms"],
+        kernel_ms=chat["ms"], plain_ms=chat["plain_ms"], bound_ms=chat["bound_ms"],
+        bound_by=chat["bound_by"], library_ms=chat["library_ms"], k8_ms=chat["k8_ms"],
+        dream_geometry=dream))
+    return results, runner
+
+
+@contextlib.contextmanager
+def switches_on(*names):
+    """Set the environment switches ``names`` to "1" for a phase."""
+    saved = {n: os.environ.get(n) for n in names}
+    os.environ.update({n: "1" for n in names})
+    try:
+        yield
+    finally:
+        for n, v in saved.items():
+            if v is None:
+                os.environ.pop(n, None)
+            else:
+                os.environ[n] = v
+
+
+def chat_slice_phase(runner, dev):
+    """``run_chat`` at the chat defaults through K3 and K9, then one short
+    ``chat_base._respond``."""
+    from ct_diffusionmodelbench_tpu_torch.cli import chat, chat_base
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+
+    args = chat_args()
+    results = []
+    generate = runner.generate
+
+    def recording_generate(*a, **kw):
+        results.append(generate(*a, **kw))
+        return results[-1]
+
+    runner.generate = recording_generate
+    try:
+        chat.run_chat(runner, args.prompt, args)          # warm-up
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        res = chat.run_chat(runner, args.prompt, args)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        del runner.generate
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    out = results[-1].token_ids
+    s = len(out)
+    p = s - CHAT_GEN
+    m = s * runner.cfg.num_experts_per_tok
+    m_pad = (m + 63) // 64 * 64 + runner.cfg.num_experts * 64
+    print(f"  run_chat: {secs:.4f} s ({res['latency_sec']} s inside), "
+          f"{CHAT_GEN / secs:.2f} tok/s (B 1, prompt {p} bucketed, gen {CHAT_GEN}, "
+          f"steps {CHAT_STEPS}, block {args.block_length}; S {s}, M {m}, m_pad {m_pad})",
+          flush=True)
+    print(f"  launches: {json.dumps(launches)}", flush=True)
+    want = runner.cfg.num_layers * CHAT_STEPS
+    bad = {n: c for n, c in launches.items()
+           if c != (want if n in SINGLE_PROMPT_KERNELS else 0)}
+    if bad:
+        raise AssertionError(f"expected {want} launches of K3 and K9 and none of "
+                             f"the others, got {bad}")
+    left = int((out[p:] == runner.mask_id).sum())
+    print(f"  mask ids left: {left}; continuation {len(results[-1].continuation_ids)} "
+          f"tokens after EOS truncation", flush=True)
+    if left:
+        raise AssertionError(f"{left} mask ids remain after decoding")
+
+    base = chat_runner(runner.cfg, runner.params, dev)
+    chat_base.as_causal(base)
+    base_args = chat_base.build_parser().parse_args(
+        ["--max-new-tokens", str(CHAT_BASE_TOKENS), "--temperature", "0"])
+    messages = [{"role": "system", "content": chat.BASE_SYSTEM},
+                {"role": "user", "content": CHAT_PROMPT}]
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    reply = chat_base._respond(base, messages, base_args)
+    torch.cuda.synchronize()
+    base_secs = time.perf_counter() - t0
+    fused = KERNELS["grouped_ffn_fused"].launches
+    print(f"  chat_base._respond (causal, {CHAT_BASE_TOKENS} new tokens): "
+          f"{base_secs:.4f} s, {len(reply)} characters, K3 launches {fused}", flush=True)
+    if fused != runner.cfg.num_layers * CHAT_BASE_TOKENS:
+        raise AssertionError(f"the AR baseline launched K3 {fused} times")
+    return dict(seconds=secs, tokens_per_s=CHAT_GEN / secs, launches=launches,
+                ids=torch.from_numpy(out)[None].to(dev))
+
+
+def chat_depth_phase(cfg, params, ids, dev):
+    """2-layer full-width forward through K3 and K9 against the same forward
+    on their plain versions, the plain run on the kernel run's expert
+    choice."""
+    from ct_diffusionmodelbench_tpu_torch.ops import attention
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+
+    seams = [(attention, "flash_attention", fa.flash_attention_plain),
+             (gg, "grouped_ffn_fused", gg.grouped_ffn_fused_plain)]
+    return pinned_compare("2-layer logits through K3 and K9, kernels vs plain",
+                          cfg.replace(num_layers=2), ids, dev, params, params, seams)
+
+
+def dream_slice_phase(dev):
+    """Full-size dream-7b through ``ModelRunner.generate`` at B 1 with the
+    direct flash kernel."""
+    from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+
+    t0 = time.perf_counter()
+    runner = ModelRunner.random_init("dream-7b", seed=0)
+    torch.cuda.synchronize()
+    cfg = runner.cfg
+    print(f"  init dream-7b (ModelRunner.random_init): {cfg.param_count() / 1e9:.3f} G "
+          f"params, {tree_bytes(runner.params) / 1e9:.3f} GB of weights, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    from ct_diffusionmodelbench_tpu_torch.cli.chat import build_system
+
+    text = runner.tokenizer.apply_chat_template(
+        [{"role": "system", "content": build_system(True)},
+         {"role": "user", "content": CHAT_PROMPT}])             # the chat slice's
+    kw = dict(gen_length=CHAT_GEN, temperature=0.0, alg="entropy")
+    runner.generate(text, steps=8, **kw)                        # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    res = runner.generate(text, steps=CHAT_STEPS, **kw)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    out = res.token_ids
+    p = len(out) - CHAT_GEN
+    print(f"  generate: {secs:.4f} s, {CHAT_GEN / secs:.2f} tok/s (B 1, prompt {p} "
+          f"bucketed, gen {CHAT_GEN}, steps {CHAT_STEPS}, temperature 0, entropy, "
+          f"top_p 0.95)", flush=True)
+    print(f"  peak memory: {peak / 2**30:.3f} GiB", flush=True)
+    print(f"  launches: {json.dumps(launches)}", flush=True)
+    want = cfg.num_layers * CHAT_STEPS
+    bad = {n: c for n, c in launches.items()
+           if c != (want if n == "flash_attention_direct" else 0)}
+    if bad:
+        raise AssertionError(f"expected {want} launches of K9 and none of the "
+                             f"others, got {bad}")
+    left = int((out[p:] == runner.mask_id).sum())
+    print(f"  mask ids left: {left}", flush=True)
+    if left:
+        raise AssertionError(f"{left} mask ids remain after decoding")
+    ids = torch.from_numpy(out)[None].to(dev)
+    l1, _ = runner.forward_fn(runner.params, ids, logit_start=p, logit_length=CHAT_GEN)
+    l2, _ = runner.forward_fn(runner.params, ids, logit_start=p, logit_length=CHAT_GEN)
+    same = torch.equal(l1, l2)
+    print(f"  repeated forward bit-identical: {same}", flush=True)
+    if not same:
+        raise AssertionError("two forwards on the same input differ")
+    if not torch.isfinite(l1).all():
+        raise AssertionError("non-finite logits")
+    return dict(seconds=secs, tokens_per_s=CHAT_GEN / secs, peak_gib=peak / 2**30,
+                launches=launches)
 
 
 def tree_bytes(tree) -> int:
@@ -880,7 +1287,8 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)}", flush=True)
     libs = [grouped_gemm_cuda.LIBRARY, grouped_gemm_cuda.LIBRARY_Q,
-            flash_attention.LIBRARY, flash_attention_bwd.LIBRARY]
+            grouped_gemm_cuda.LIBRARY_FUSED, flash_attention.LIBRARY,
+            flash_attention.LIBRARY_DIRECT, flash_attention_bwd.LIBRARY]
     build_s = build_all(libs)
     print(f"kernel build: {build_s:.2f} s", flush=True)
     for lib in libs:
@@ -906,7 +1314,18 @@ def main() -> int:
     depth_phase(cfg, params, sl["out"], dev)
     for r in results:
         r["launches"] = sl["launches"][r["name"]]
-    del params, sl
+    del sl
+    with switches_on("CTDB_GROUPED_FUSED", "CTDB_FLASH_DIRECT"):
+        print("single-prompt kernels:", flush=True)
+        sp_results, runner = single_prompt_kernel_phase(cfg, params, dev)
+        print("chat slice:", flush=True)
+        chat = chat_slice_phase(runner, dev)
+        print("chat depth check:", flush=True)
+        chat_depth_phase(cfg, params, chat["ids"], dev)
+    for r in sp_results:
+        r["launches"] = chat["launches"][r["name"]]
+    results += sp_results
+    del params, runner, chat
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -930,6 +1349,15 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
 
+    with switches_on("CTDB_FLASH_DIRECT"):
+        print("Dream slice:", flush=True)
+        dream = dream_slice_phase(dev)
+    next(r for r in results if r["name"] == "flash_attention_direct")[
+        "dream_launches"] = dream["launches"]["flash_attention_direct"]
+    del dream
+    gc.collect()
+    torch.cuda.empty_cache()
+
     print("training kernels:", flush=True)
     train_results, fwd_train = train_kernel_phase(dev)
     print("training slice:", flush=True)
@@ -944,7 +1372,8 @@ def main() -> int:
     results += train_results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "sdpa_backward_ms", "training_shape")
+            "sdpa_backward_ms", "training_shape", "pair_ms", "k8_ms", "dream_geometry",
+            "dream_launches")
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in results]}), flush=True)
     missing = set(KERNELS) - {r["name"] for r in results}

@@ -1,9 +1,12 @@
 """ModelRunner: parameters + tokenizer + sampler behind one generate() call.
 
-Counterpart of ``eval/runner.py`` for the LLaDA families (``llada``,
-``llada-moe``): chat-free prompt ids in, the exact block-diffusion sampler
-(``sampling/llada.py``), token ids out; ``generate`` and ``generate_batch``
-add tokenization, prompt buckets with left padding and EOS truncation.
+Counterpart of ``eval/runner.py``.  Family dispatch: ``llada`` /
+``llada-moe`` take the exact block-diffusion sampler (``sampling/llada.py``),
+``dream`` / ``diffucoder`` the ``diffusion_generate`` equivalent
+(``sampling/dream.py``); prompt ids in, token ids out.  ``generate`` and
+``generate_batch`` add tokenization, prompt buckets with left padding, EOS
+truncation and the families' text split: at ``eos_token`` (dream) or at
+``<|dlm_pad|>`` (diffucoder).
 Built from an HF or int8 checkpoint directory (:meth:`ModelRunner.from_dir`),
 from random weights (:meth:`ModelRunner.random_init`), or around an
 in-memory (cfg, params, tokenizer).
@@ -12,9 +15,11 @@ in-memory (cfg, params, tokenizer).
 the int8 expert stacks run through the int8 grouped kernels.  Approximate
 (weight rounding), so opt-in.
 
-Not ported yet, and refused with ``NotImplementedError``: the Dream and
-DiffuCoder samplers, ``accel="block-cache"`` and ``parallel_threshold``
-decoding (ROADMAP Queue 1 #3-#4), and meshes (Queue 1 #7).
+Not ported yet, and refused with ``NotImplementedError``:
+``accel="block-cache"`` and ``parallel_threshold`` decoding of the LLaDA
+families (ROADMAP Queue 1 #4), and meshes (Queue 1 #7).  Dream/DiffuCoder
+refuse ``parallel_threshold`` as the reference does: they have no such
+decode.
 """
 
 from __future__ import annotations
@@ -36,9 +41,10 @@ from ct_diffusionmodelbench_tpu_torch.models.transformer import (
     init_params, make_forward_fn)
 from ct_diffusionmodelbench_tpu_torch.ops.quant import (
     is_quantized, place_params, quantized_leaf_transform)
-from ct_diffusionmodelbench_tpu_torch.sampling import llada_generate
+from ct_diffusionmodelbench_tpu_torch.sampling import dream_generate, llada_generate
 
 LLADA_FAMILIES = ("llada", "llada-moe")
+DREAM_FAMILIES = ("dream", "diffucoder")
 
 
 def infer_family(cfg: ModelConfig) -> str:
@@ -74,10 +80,8 @@ class ModelRunner:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.family = family or infer_family(cfg)
-        if self.family not in LLADA_FAMILIES:
-            raise NotImplementedError(
-                f"the {self.family} sampler is not ported yet (ROADMAP Queue 1 "
-                "#3); the port's runner serves the LLaDA families")
+        if self.family not in LLADA_FAMILIES + DREAM_FAMILIES:
+            raise ValueError(f"unknown sampler family {self.family!r}")
         if mesh is not None:
             raise NotImplementedError(
                 "meshes (TP/DP serving) are not ported yet (ROADMAP Queue 1 #7)")
@@ -101,6 +105,10 @@ class ModelRunner:
         self.eos_token_id = (tokenizer.eos_token_id
                              if tokenizer.eos_token_id is not None
                              else cfg.eos_token_id)
+        # Default confidence threshold for parallel decoding (None: the
+        # fixed schedule); a per-call parallel_threshold overrides it.  Set
+        # by --parallel-threshold on the serving CLIs.
+        self.parallel_threshold = None
 
     # -- constructors --------------------------------------------------
 
@@ -150,30 +158,19 @@ class ModelRunner:
 
     # -- generation ----------------------------------------------------
 
-    def _sample(self, prompt: torch.Tensor, attn_mask, *, gen_length, steps,
-                block_length, temperature, cfg_scale, remasking, avoid_eos,
-                parallel_threshold, seed) -> torch.Tensor:
-        if parallel_threshold is not None:
-            raise NotImplementedError(
-                "parallel_threshold decoding is not ported yet (ROADMAP "
-                "Queue 1 #4)")
-        gen = torch.Generator(device=self.device)
-        gen.manual_seed(seed)
-        return llada_generate(
-            self.forward_fn, self.params, prompt, steps=steps,
-            gen_length=gen_length, block_length=block_length,
-            temperature=temperature, cfg_scale=cfg_scale, remasking=remasking,
-            mask_id=self.mask_id, avoid_eos=avoid_eos,
-            eos_token_id=self.eos_token_id, attn_mask=attn_mask,
-            generator=gen, device=self.device)
-
     def generate_ids(self, prompt_ids, *, gen_length: int = 128,
                      steps: int = 128, block_length: int = 32,
                      temperature: float = 0.0, cfg_scale: float = 0.0,
                      remasking: str = "low_confidence", avoid_eos: bool = False,
+                     top_p: Optional[float] = 0.95, alg: str = "entropy",
+                     alg_temp: float = 0.0, exact: bool = False,
+                     batch_mean_counts: bool = False,
                      parallel_threshold: Optional[float] = None, seed: int = 0,
                      attn_mask=None) -> np.ndarray:
-        """prompt ids [P] or [B, P] → [B, P + gen_length] token ids."""
+        """prompt ids [P] or [B, P] → [B, P + gen_length] token ids.  The
+        LLaDA families read ``block_length``, ``cfg_scale``, ``remasking``
+        and ``avoid_eos``; Dream/DiffuCoder read ``top_p``, ``alg``,
+        ``alg_temp``, ``exact`` and ``batch_mean_counts``."""
         prompt = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.long)
         if prompt.ndim == 1:
             prompt = prompt[None]
@@ -181,11 +178,36 @@ class ModelRunner:
             attn_mask = torch.as_tensor(np.asarray(attn_mask))
             if attn_mask.ndim == 1:
                 attn_mask = attn_mask[None]
-        out = self._sample(
-            prompt, attn_mask, gen_length=gen_length, steps=steps,
-            block_length=block_length, temperature=temperature,
-            cfg_scale=cfg_scale, remasking=remasking, avoid_eos=avoid_eos,
-            parallel_threshold=parallel_threshold, seed=seed)
+        threshold = (parallel_threshold if parallel_threshold is not None
+                     else self.parallel_threshold)
+        gen = torch.Generator(device=self.device)
+        gen.manual_seed(seed)
+        if self.family in LLADA_FAMILIES:
+            if threshold is not None:
+                raise NotImplementedError(
+                    "parallel_threshold decoding is not ported yet (ROADMAP "
+                    "Queue 1 #4)")
+            out = llada_generate(
+                self.forward_fn, self.params, prompt, steps=steps,
+                gen_length=gen_length, block_length=block_length,
+                temperature=temperature, cfg_scale=cfg_scale,
+                remasking=remasking, mask_id=self.mask_id, avoid_eos=avoid_eos,
+                eos_token_id=self.eos_token_id, attn_mask=attn_mask,
+                generator=gen, device=self.device)
+        else:
+            if threshold is not None:
+                # As the reference: running Dream's fixed schedule while the
+                # caller asked for threshold decoding would mislabel a run.
+                raise NotImplementedError(
+                    "--parallel-threshold is a LLaDA-family decode "
+                    "(confidence-threshold parallel unmasking); the Dream/"
+                    "DiffuCoder sampler has no equivalent")
+            out, _ = dream_generate(
+                self.forward_fn, self.params, prompt, steps=steps,
+                max_new_tokens=gen_length, temperature=temperature,
+                top_p=top_p, alg=alg, alg_temp=alg_temp, mask_id=self.mask_id,
+                exact=exact, batch_mean_counts=batch_mean_counts,
+                attn_mask=attn_mask, generator=gen, device=self.device)
         return out.cpu().numpy()
 
     def _continuation(self, row: np.ndarray, p: int, truncate_at_eos: bool,
@@ -196,7 +218,12 @@ class ModelRunner:
             hits = np.nonzero(cont == self.eos_token_id)[0]
             if hits.size:
                 cont = cont[: int(hits[0])]
-        return cont, self.tokenizer.decode(cont, skip_special_tokens=skip_special_tokens)
+        text = self.tokenizer.decode(cont, skip_special_tokens=skip_special_tokens)
+        if self.family == "dream" and self.tokenizer.eos_token:
+            text = text.split(self.tokenizer.eos_token)[0]
+        elif self.family == "diffucoder":
+            text = text.split("<|dlm_pad|>")[0]
+        return cont, text
 
     def generate(self, prompt_text: str, *, max_length: int = 2048,
                  truncate_at_eos: bool = False, skip_special_tokens: bool = True,

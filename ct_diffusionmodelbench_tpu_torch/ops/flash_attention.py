@@ -1,11 +1,17 @@
 """Bidirectional flash attention: the CUDA kernel, its plain version and
 the autograd wrapper.
 
-Counterpart of ``ops/flash_attention.py::flash_attention``.  The kernel is
-``csrc/flash_attention.cu``; :func:`flash_attention_plain` computes the same
-function in PyTorch.  A CPU tensor takes the plain version, a CUDA tensor
-launches the kernel or raises.  With ``with_lse`` both also return the
-per-row log-sum-exp [B, H, S] f32 that the backward reads.
+Counterpart of ``ops/flash_attention.py::flash_attention``.  Two kernels
+compute the same function: ``csrc/flash_attention.cu`` (online softmax over
+64-key tiles, the reference's ``_flash_kernel``) and
+``csrc/flash_attention_direct.cu`` (one direct softmax over all keys, the
+reference's ``_flash_kernel_direct``), which a call takes when
+``CTDB_FLASH_DIRECT=1`` and its keys fit one kv tile (S <= 1024), as
+``_run_forward`` does; the switch is read per call.
+:func:`flash_attention_plain` computes the function in PyTorch.  A CPU
+tensor takes the plain version, a CUDA tensor launches a kernel or raises.
+With ``with_lse`` all three also return the per-row log-sum-exp [B, H, S]
+f32 that the backward reads.
 
 When grad is enabled and q, k or v requires it, :func:`flash_attention`
 goes through :class:`FlashAttention` (the reference's ``custom_vjp``): its
@@ -24,6 +30,7 @@ are padded to the reference's kv tile (``_tiles``) as zero keys with bias
 
 from __future__ import annotations
 
+import os
 from typing import Optional, Tuple
 
 import torch
@@ -38,6 +45,9 @@ HEAD_DIMS = (16, 32, 64, 128)
 LIBRARY = Library("flash_attention.cu")
 FLASH_KERNEL = Kernel("flash_attention_fwd", LIBRARY, "ctdb_flash_attention_fwd",
                       [PTR] * 8 + [INT] * 6 + [FLOAT, PTR])
+LIBRARY_DIRECT = Library("flash_attention_direct.cu")
+DIRECT_KERNEL = Kernel("flash_attention_direct", LIBRARY_DIRECT,
+                       "ctdb_flash_attention_direct", [PTR] * 8 + [INT] * 6 + [FLOAT, PTR])
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -50,6 +60,19 @@ def kv_tile_len(s: int) -> int:
     """Key length after the reference's padding (``_tiles``' sk_pad)."""
     tk = _round_up(s, 128) if s <= 2 * TILE_K else TILE_K
     return _round_up(s, tk)
+
+
+def direct_mode() -> bool:
+    """``CTDB_FLASH_DIRECT``: "1" takes the direct kernel on every call with
+    one kv tile; anything else, or unset, leaves it off (the reference's
+    ``_direct_mode``)."""
+    return os.environ.get("CTDB_FLASH_DIRECT", "auto").strip().lower() == "1"
+
+
+def single_kv_tile(s: int) -> bool:
+    """The keys of a length-``s`` call fit one kv tile (``_tiles``' sk_pad
+    == tk)."""
+    return s <= 2 * TILE_K
 
 
 def mask_bias(mask: Optional[torch.Tensor], b: int, s: int,
@@ -113,8 +136,9 @@ def check_operand(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor] = None, rope: Rope = None,
                          with_lse: bool = False):
-    """Launch ``csrc/flash_attention.cu`` (bf16 q/k/v on one card); lse is
-    written only ``with_lse``."""
+    """Launch ``csrc/flash_attention.cu``, or ``csrc/flash_attention_direct.cu``
+    under ``CTDB_FLASH_DIRECT=1`` when the keys fit one kv tile (bf16 q/k/v
+    on one card); lse is written only ``with_lse``."""
     b, s, h, dh = q.shape
     kv = k.shape[2]
     dev = q.device
@@ -138,11 +162,12 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
            if with_lse else None)
+    kernel = DIRECT_KERNEL if direct_mode() and single_kv_tile(s) else FLASH_KERNEL
     stream = torch.cuda.current_stream(dev).cuda_stream
-    FLASH_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-                 cos_ptr, sin_ptr, out.data_ptr(),
-                 None if lse is None else lse.data_ptr(), b, s, kv_tile_len(s),
-                 h, kv, dh, dh ** -0.5, stream)
+    kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+           cos_ptr, sin_ptr, out.data_ptr(),
+           None if lse is None else lse.data_ptr(), b, s, kv_tile_len(s),
+           h, kv, dh, dh ** -0.5, stream)
     return (out, lse) if with_lse else out
 
 

@@ -2,8 +2,8 @@
 for bf16 and int8 weights, their plain versions, and the weighted combine.
 
 Counterpart of ``ops/grouped_gemm_pallas.py`` (host glue, the gate/up and
-down kernels and their int8 weight-only forms; the fused megakernel belongs
-to a later slice).  The padded layout is the reference's, row for row:
+down kernels, their int8 weight-only forms and the fused megakernel).  The
+padded layout is the reference's, row for row:
 ``tile_m`` 64 (128 for M ≥ 65536), ``m_pad = round_up(M, tile_m) +
 E·tile_m``, every ``tile_m``-row tile owned by one expert
 (``tile_expert``), padding rows duplicating token 0 with combine weight 0.
@@ -16,6 +16,11 @@ Their int8 forms (``csrc/grouped_gemm_q.cu``), :func:`grouped_gateup_q` and
 [(L,) E, N]}`` weights and compute ``silu((x @ q_g) * s_g) * ((x @ q_u) *
 s_u)`` and ``(h @ q_d) * s_d``: the scale on the f32 product, as
 ``ops/quant.py::qdot``.
+:func:`grouped_ffn_fused` (``csrc/grouped_ffn_fused.cu``) computes the
+whole FFN, ``bf16(silu(x @ Wg[e]) * (x @ Wu[e])) @ Wd[e]``, in one kernel
+with h kept in shared memory; :func:`grouped_expert_ffn_cuda` takes it
+instead of the bf16 pair under ``CTDB_GROUPED_FUSED=1`` (read per call)
+when D and F are multiples of 128, as ``grouped_expert_ffn_pallas`` does.
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.  The kernels have no backward yet: on the card the wrappers raise
 when grad is enabled and an input requires it, rather than return an output
@@ -24,6 +29,7 @@ that silently drops the gradient.
 
 from __future__ import annotations
 
+import os
 from typing import Optional
 
 import torch
@@ -46,6 +52,18 @@ GATEUP_Q_KERNEL = Kernel("grouped_gateup_q", LIBRARY_Q, "ctdb_grouped_gateup_q",
                          [PTR] * 7 + [INT] * 6 + [PTR])
 DOWN_Q_KERNEL = Kernel("grouped_down_q", LIBRARY_Q, "ctdb_grouped_down_q",
                        [PTR] * 5 + [INT] * 6 + [PTR])
+LIBRARY_FUSED = Library("grouped_ffn_fused.cu")
+FUSED_KERNEL = Kernel("grouped_ffn_fused", LIBRARY_FUSED, "ctdb_grouped_ffn_fused",
+                      [PTR] * 6 + [INT] * 6 + [PTR])
+# Shared memory of one fused block, as csrc/grouped_ffn_fused.cu lays it out:
+# its cp.async ring (reused as the f32 staging tile), then the 64-row h tile
+# with rows of F + 8 bf16.  A block may have at most 227 KB.
+FUSED_RING_BYTES = 55296
+MAX_BLOCK_SMEM = 232448
+
+
+def fused_smem_bytes(f: int) -> int:
+    return FUSED_RING_BYTES + KERNEL_ROWS * (f + 8) * 2
 
 
 def _round_up(x, m):
@@ -206,6 +224,62 @@ def grouped_down(h_padded, we_down, tile_expert, tile_m: int = TILE_M,
 
 
 # ---------------------------------------------------------------------------
+# fused FFN (one kernel, h on chip)
+# ---------------------------------------------------------------------------
+
+def fused_mode() -> bool:
+    """``CTDB_GROUPED_FUSED``: "1" takes the fused kernel for aligned plain
+    weights; anything else, or unset, leaves the pair."""
+    return os.environ.get("CTDB_GROUPED_FUSED", "0") == "1"
+
+
+def grouped_ffn_fused_plain(x_padded, we_gate, we_up, we_down, tile_expert,
+                            tile_m: int = TILE_M,
+                            layer_index: Optional[int] = None) -> torch.Tensor:
+    """The fused kernel's function in PyTorch: the gate/up pair's plain
+    version (h rounded to x's dtype, the reference's ``.astype(x.dtype)``)
+    and then the down one's."""
+    h = grouped_gateup_plain(x_padded, we_gate, we_up, tile_expert, tile_m,
+                             layer_index)
+    return grouped_down_plain(h, we_down, tile_expert, tile_m, layer_index)
+
+
+def grouped_ffn_fused(x_padded, we_gate, we_up, we_down, tile_expert,
+                      tile_m: int = TILE_M,
+                      layer_index: Optional[int] = None) -> torch.Tensor:
+    """out [M_pad, D] = bf16(silu(x @ Wg[e]) * (x @ Wu[e])) @ Wd[e] per row
+    tile, in one kernel; D and F multiples of 128."""
+    if x_padded.device.type == "cpu":
+        return grouped_ffn_fused_plain(x_padded, we_gate, we_up, we_down,
+                                       tile_expert, tile_m, layer_index)
+    if is_quantized(we_gate):
+        raise ValueError("the fused FFN kernel takes bf16 weights; int8 experts "
+                         "go through grouped_gateup_q / grouped_down_q")
+    _refuse_grad("grouped_ffn_fused", x_padded, we_gate, we_up, we_down)
+    m_pad, d, f, e, layer = _check_kernel_args(
+        x_padded, (we_gate, we_up), tile_expert, tile_m, layer_index)
+    want = tuple(we_gate.shape[:-2]) + (f, d)
+    if (tuple(we_down.shape) != want or we_down.dtype != torch.bfloat16
+            or we_down.device != x_padded.device or not we_down.is_contiguous()
+            or we_down.data_ptr() % 16):
+        raise ValueError(f"down weights must be a contiguous, 16-byte aligned bf16 "
+                         f"{want} tensor on {x_padded.device}, got "
+                         f"{we_down.dtype} {tuple(we_down.shape)}")
+    if d % 128 or f % 128:
+        raise ValueError(f"fused FFN needs D, F % 128 == 0, got {d}, {f}")
+    if fused_smem_bytes(f) > MAX_BLOCK_SMEM:
+        raise ValueError(f"fused FFN: the 64-row h tile at F={f} needs "
+                         f"{fused_smem_bytes(f)} bytes of shared memory, more "
+                         f"than a block's {MAX_BLOCK_SMEM}")
+    out = torch.empty((m_pad, d), dtype=x_padded.dtype, device=x_padded.device)
+    stream = torch.cuda.current_stream(x_padded.device).cuda_stream
+    FUSED_KERNEL(x_padded.data_ptr(), we_gate.data_ptr(), we_up.data_ptr(),
+                 we_down.data_ptr(), out.data_ptr(), tile_expert.data_ptr(),
+                 m_pad, d, f, e, layer, tile_m, stream)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # int8 weight-only pair
 # ---------------------------------------------------------------------------
 
@@ -325,7 +399,8 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
     Counterpart of ``grouped_expert_ffn_pallas``: counting layout, one row
     gather, the gate/up and down kernels (their int8 forms for quantized
     ``{"q", "s"}`` weights, which need D and F to be multiples of 128, as
-    the reference's), the weighted combine."""
+    the reference's; the fused kernel instead under ``CTDB_GROUPED_FUSED=1``
+    for plain weights with D and F multiples of 128), the weighted combine."""
     quantized = is_quantized(we_gate)
     if x.is_cuda:
         plain = [] if quantized else [we_gate, we_up, we_down]
@@ -334,7 +409,8 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
     k = topk_idx.shape[1]
     wg = we_gate["q"] if quantized else we_gate
     e, fm = wg.shape[-3], wg.shape[-1]
-    if quantized and (d % 128 or fm % 128):
+    aligned = d % 128 == 0 and fm % 128 == 0
+    if quantized and not aligned:
         raise ValueError(f"int8 grouped FFN needs D, F % 128 == 0, got {d}, {fm}")
     if tile_m == TILE_M and n * k >= 65536:
         tile_m = 128
@@ -343,6 +419,9 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
     if quantized:
         h = grouped_gateup_q(xs, we_gate, we_up, tile_expert, tile_m, layer_index)
         out_padded = grouped_down_q(h, we_down, tile_expert, tile_m, layer_index)
+    elif aligned and fused_mode():
+        out_padded = grouped_ffn_fused(xs, we_gate, we_up, we_down, tile_expert,
+                                       tile_m, layer_index)
     else:
         h = grouped_gateup(xs, we_gate, we_up, tile_expert, tile_m, layer_index)
         out_padded = grouped_down(h, we_down, tile_expert, tile_m, layer_index)

@@ -10,6 +10,10 @@ import sys
 from datetime import datetime
 
 
-def log_timing(msg: str) -> None:
+def log(msg: str) -> None:
     print(f"[{datetime.now().strftime('%Y-%m-%d %H:%M:%S')}] {msg}")
     sys.stdout.flush()
+
+
+# The trainer calls this `log_timing`; keep both names.
+log_timing = log

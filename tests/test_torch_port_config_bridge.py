@@ -29,6 +29,9 @@ PORT = REPO / "ct_diffusionmodelbench_tpu_torch"
 # provably cover them.
 NEW_IN_INT8_SLICE = ("eval.runner", "io.checkpoint", "io.tokenizer",
                      "ops.quant", "quantize_ckpt")
+# ... and the single-prompt serving slice's.
+NEW_IN_SINGLE_PROMPT_SLICE = ("cli.chat", "cli.chat_base", "cli.common",
+                              "sampling.dream", "sampling.simple")
 
 
 def _is_forbidden(module: str) -> bool:
@@ -109,7 +112,7 @@ def test_port_imports_no_jax_at_runtime():
     bad, names, n = res.stdout.strip().splitlines()[-3:]
     assert bad == "[]"
     assert int(n) >= 15  # every module was really imported
-    for mod in NEW_IN_INT8_SLICE:
+    for mod in NEW_IN_INT8_SLICE + NEW_IN_SINGLE_PROMPT_SLICE:
         assert f"'ct_diffusionmodelbench_tpu_torch.{mod}'" in names, mod
 
 
@@ -153,7 +156,7 @@ def test_port_sources_import_no_jax():
                 continue
             found += [(f.name, n) for n in names if _is_forbidden(n)]
     assert len(files) >= 15
-    for mod in NEW_IN_INT8_SLICE:
+    for mod in NEW_IN_INT8_SLICE + NEW_IN_SINGLE_PROMPT_SLICE:
         assert PORT / (mod.replace(".", "/") + ".py") in files, mod
     assert found == []
 

@@ -303,3 +303,223 @@ def test_tiny_train_step_launches_kernels(cuda_device, remat):
     assert KERNELS["flash_attention_bwd_dq"].launches == cfg.num_layers * 2
     assert KERNELS["flash_attention_bwd_dkv"].launches == cfg.num_layers * 2
     assert torch.isfinite(m["loss"]) and float(m["grad_norm"]) > 0
+
+
+# ---------------------------------------------------------------------------
+# The single-prompt serving kernels: the fused expert FFN (K3) and the
+# direct-softmax flash attention (K9).  K9 takes the softmax against the same
+# max over all keys as the plain version, so it holds to the grouped kernels'
+# one-ulp tolerance, tighter than K8's two.  K3's h stays in shared memory:
+# kernel and plain version round it to bf16 from f32 sums taken in different
+# orders, so now and then one h element differs by one bf16 ulp (2**-8
+# relative), which moves out[row, j] by up to 2**-8 * |h_i| * |Wd[i, j]|
+# beyond out's own one-ulp rounding.  On inputs whose products and sums are
+# exact in f32 (small integers times a power of two) h is bit-equal in both,
+# and out holds to one ulp; on random inputs the tolerance adds that term.
+# ---------------------------------------------------------------------------
+
+def fused_tol(h_plain, wd):
+    """GROUPED_TOL plus one flipped bf16 ulp of the largest h element
+    through the largest down weight."""
+    flip = 2 ** -8 * float(h_plain.abs().max()) * float(wd.abs().max())
+    return dict(rtol=GROUPED_TOL["rtol"], atol=max(GROUPED_TOL["atol"], flip))
+
+
+def _fused_inputs(dev, d, f, layers, e, routing, seed, exact=False):
+    x, idx, g = _routing(dev, 120, d, e, 2, seed)
+    if routing == "skew":
+        idx = torch.where(idx < e // 2, idx % 3, idx)   # experts 3 .. e/2-1 empty
+    elif routing == "single":
+        idx = torch.full_like(idx[:, :1], e - 1)        # one expert, top-1
+    lead = () if layers is None else (layers,)
+    if exact:
+        # Integers in [-2, 2], weights times 2**-7: every product and partial
+        # sum of the gate/up products is a multiple of 2**-7 below 2**10,
+        # exact in f32 in any order.
+        def draw(shape, scale):
+            return (torch.randint(-2, 3, shape, generator=g, device=dev)
+                    * scale).to(torch.bfloat16)
+        x = draw(x.shape, 1.0)
+        wg, wu = draw(lead + (e, d, f), 2 ** -7), draw(lead + (e, d, f), 2 ** -7)
+        wd = draw(lead + (e, f, d), 2 ** -7)
+        return x, idx, wg, wu, wd
+    wg, wu = (torch.randn(lead + (e, d, f), generator=g, device=dev,
+                          dtype=torch.bfloat16) / d ** 0.5 for _ in range(2))
+    wd = torch.randn(lead + (e, f, d), generator=g, device=dev,
+                     dtype=torch.bfloat16) / f ** 0.5
+    return x, idx, wg, wu, wd
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("d,f,layers,e,routing", [
+    (128, 128, None, 8, "random"),     # flat
+    (256, 384, 3, 8, "random"),        # layer-stacked, several F and D passes
+    (128, 256, 2, 16, "skew"),         # most experts empty
+    (256, 128, None, 8, "single"),     # every row on one expert
+    (2048, 896, 2, 64, "random"),      # llada-moe-7b's D, F and E
+])
+def test_fused_ffn_kernel_matches_plain(cuda_device, d, f, layers, e, routing, exact):
+    dev = cuda_device
+    x, idx, wg, wu, wd = _fused_inputs(dev, d, f, layers, e, routing, d + f + e, exact)
+    li = None if layers is None else layers - 1
+    k = idx.shape[1]
+    dest, te, sizes, m_pad = gg.counting_layout(idx, e, gg.TILE_M)
+    if routing == "skew":
+        assert int((sizes == 0).sum()) >= e // 2 - 3
+    xs = gg.gather_rows(x, dest, k, m_pad)
+    reset_launch_counts()
+    got = gg.grouped_ffn_fused(xs, wg, wu, wd, te, gg.TILE_M, li)
+    h_p = gg.grouped_gateup_plain(xs, wg, wu, te, gg.TILE_M, li)
+    want = gg.grouped_down_plain(h_p, wd, te, gg.TILE_M, li)
+    assert torch.equal(want, gg.grouped_ffn_fused_plain(xs, wg, wu, wd, te, gg.TILE_M, li))
+    tol = GROUPED_TOL if exact else fused_tol(h_p, wd if li is None else wd[li])
+    torch.testing.assert_close(got, want, **tol)
+    assert KERNELS["grouped_ffn_fused"].launches == 1
+    assert torch.equal(got, gg.grouped_ffn_fused(xs, wg, wu, wd, te, gg.TILE_M, li))
+
+
+def test_fused_ffn_wrapper_refuses(cuda_device):
+    dev = cuda_device
+    te = torch.zeros(1, dtype=torch.int32, device=dev)
+
+    def experts(d, f, dtype=torch.bfloat16):
+        return (torch.zeros((2, d, f), device=dev, dtype=dtype),
+                torch.zeros((2, d, f), device=dev, dtype=dtype),
+                torch.zeros((2, f, d), device=dev, dtype=dtype))
+
+    x = torch.zeros((64, 128), device=dev, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="shared memory"):
+        gg.grouped_ffn_fused(x, *experts(128, 1408), te)     # h tile too large
+    with pytest.raises(ValueError, match="% 128"):
+        gg.grouped_ffn_fused(x, *experts(128, 192), te)
+    with pytest.raises(ValueError, match="% 128"):
+        gg.grouped_ffn_fused(torch.zeros((64, 64), device=dev, dtype=torch.bfloat16),
+                             *experts(64, 128), te)
+    q = [quantize_tensor(w.float()) for w in experts(128, 128)]
+    with pytest.raises(ValueError, match="int8"):
+        gg.grouped_ffn_fused(x, *q, te)
+    with pytest.raises(ValueError, match="bf16"):
+        gg.grouped_ffn_fused(x, *experts(128, 128, torch.float32), te)
+    xg = x.clone().requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="no backward"):
+        gg.grouped_ffn_fused(xg, *experts(128, 128), te)
+    with torch.no_grad():
+        assert gg.grouped_ffn_fused(xg, *experts(128, 128), te).shape == (64, 128)
+
+
+def test_fused_switch_selects_kernel(cuda_device, monkeypatch):
+    """CTDB_GROUPED_FUSED=1 sends aligned bf16 experts to K3 and nothing
+    else: unaligned ones and int8 ones keep their pair."""
+    dev = cuda_device
+    x, idx, wg, wu, wd = _fused_inputs(dev, 128, 128, 2, 8, "random", 3)
+    probs = torch.full(idx.shape, 0.5, device=dev)
+
+    def launches(xx, *ws):
+        reset_launch_counts()
+        out = gg.grouped_expert_ffn_cuda(xx, probs, idx, *ws, layer_index=1)
+        return out, {n: KERNELS[n].launches for n in (
+            "grouped_ffn_fused", "grouped_gateup", "grouped_down", "grouped_gateup_q")}
+
+    pair, n = launches(x, wg, wu, wd)
+    assert n == {"grouped_ffn_fused": 0, "grouped_gateup": 1, "grouped_down": 1,
+                 "grouped_gateup_q": 0}
+    monkeypatch.setenv("CTDB_GROUPED_FUSED", "1")
+    fused, n = launches(x, wg, wu, wd)
+    assert n == {"grouped_ffn_fused": 1, "grouped_gateup": 0, "grouped_down": 0,
+                 "grouped_gateup_q": 0}
+    dest, te, _, m_pad = gg.counting_layout(idx, 8)
+    h_p = gg.grouped_gateup_plain(gg.gather_rows(x, dest, 2, m_pad), wg, wu, te,
+                                  layer_index=1)
+    tol = fused_tol(h_p, wd[1])        # each side may flip an h element
+    torch.testing.assert_close(fused, pair, rtol=tol["rtol"], atol=2 * tol["atol"])
+    unaligned = [w.contiguous() for w in (wg[..., :64, :96], wu[..., :64, :96],
+                                          wd[..., :96, :64])]
+    _, n = launches(x[:, :64].contiguous(), *unaligned)
+    assert n["grouped_ffn_fused"] == 0 and n["grouped_gateup"] == 1
+    _, n = launches(x, *[quantize_tensor(w.float()) for w in (wg, wu, wd)])
+    assert n["grouped_ffn_fused"] == 0 and n["grouped_gateup_q"] == 1
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (16, 4), (28, 4)])   # rep 1, 4, 7
+@pytest.mark.parametrize("s", [24, 200, 320, 1024])
+def test_direct_flash_kernel_matches_plain(cuda_device, monkeypatch, h, kv, s):
+    monkeypatch.setenv("CTDB_FLASH_DIRECT", "1")
+    dev, dh = cuda_device, 128
+    q, k, v, _, mask = _attn_case(dev, 3, s, h, kv, dh, h + s)
+    cos, sin = rope_angles(token_positions(mask, 3, s, dev), dh, 10000.0)
+    for rope in (None, (cos, sin)):
+        reset_launch_counts()
+        out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope, with_lse=True)
+        out_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask, rope=rope,
+                                                with_lse=True)
+        torch.testing.assert_close(out, out_p, **GROUPED_TOL)
+        torch.testing.assert_close(lse, lse_p, **LSE_TOL)
+        # the fully masked row (batch 2) averages every padded key, as plain
+        torch.testing.assert_close(out[2], out_p[2], **GROUPED_TOL)
+        assert torch.equal(out, fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope))
+        assert KERNELS["flash_attention_direct"].launches == 2
+        assert KERNELS["flash_attention_fwd"].launches == 0
+
+
+@pytest.mark.parametrize("dh", [16, 32, 64])
+def test_direct_flash_kernel_head_dims(cuda_device, monkeypatch, dh):
+    monkeypatch.setenv("CTDB_FLASH_DIRECT", "1")
+    q, k, v, _, mask = _attn_case(cuda_device, 3, 130, 8, 2, dh, dh)
+    cos, sin = rope_angles(token_positions(mask, 3, 130, cuda_device), dh, 10000.0)
+    got = fa.flash_attention(q, k, v, mask=mask, rope=(cos, sin))
+    want = fa.flash_attention_plain(q, k, v, mask=mask, rope=(cos, sin))
+    torch.testing.assert_close(got, want, **GROUPED_TOL)
+
+
+def test_direct_switch_selects_kernel(cuda_device, monkeypatch):
+    """CTDB_FLASH_DIRECT=1 takes K9 for one kv tile (S <= 1024), K8 past it;
+    the autograd wrapper's forward goes through K9 too."""
+    dev = cuda_device
+
+    def counts(s, grad=False):
+        q, k, v, do, mask = _attn_case(dev, 3, s, 8, 2, 64, s)
+        reset_launch_counts()
+        if grad:
+            leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+            torch.autograd.grad(fa.flash_attention(*leaves, mask=mask), leaves, do)
+        else:
+            fa.flash_attention(q, k, v, mask=mask)
+        return (KERNELS["flash_attention_direct"].launches,
+                KERNELS["flash_attention_fwd"].launches)
+
+    assert counts(300) == (0, 1)
+    monkeypatch.setenv("CTDB_FLASH_DIRECT", "1")
+    assert counts(300) == (1, 0) and counts(1024) == (1, 0)
+    assert counts(1100) == (0, 1)
+    assert counts(300, grad=True) == (1, 0)
+    assert KERNELS["flash_attention_bwd_dq"].launches == 1
+    monkeypatch.setenv("CTDB_FLASH_DIRECT", "0")
+    assert counts(300) == (0, 1)
+
+
+def test_tiny_model_single_prompt_kernels(cuda_device, monkeypatch):
+    """An aligned tiny MoE model under both switches: kernels against plain
+    versions, and a B = 1 greedy decode through K3 and K9 only."""
+    dev = cuda_device
+    monkeypatch.setenv("CTDB_GROUPED_FUSED", "1")
+    monkeypatch.setenv("CTDB_FLASH_DIRECT", "1")
+    cfg = get_config("llada-moe-tiny", hidden_size=128, moe_intermediate_size=128,
+                     head_dim=32)                               # bf16
+    params = init_params(cfg, seed=7, device=dev)
+    ids = torch.randint(3, 400, (1, 40), device=dev)
+    lk, _ = make_forward_fn(cfg, device=dev)(params, ids)
+    with monkeypatch.context() as m:
+        m.setattr(attention, "flash_attention", fa.flash_attention_plain)
+        m.setattr(gg, "grouped_ffn_fused", gg.grouped_ffn_fused_plain)
+        lp, _ = make_forward_fn(cfg, device=dev)(params, ids)
+    assert (lk - lp).abs().max() <= 2 ** -4 * lp.abs().max()
+    reset_launch_counts()
+    out = llada_generate(make_forward_fn(cfg, device=dev), params, ids[:, :8],
+                         steps=8, gen_length=16, block_length=8,
+                         mask_id=cfg.mask_token_id)
+    assert not (out[:, 8:] == cfg.mask_token_id).any()
+    launches = {n: kk.launches for n, kk in KERNELS.items()}
+    want = cfg.num_layers * 8
+    assert launches["grouped_ffn_fused"] == launches["flash_attention_direct"] == want
+    assert launches["grouped_gateup"] == launches["grouped_down"] == 0
+    assert launches["flash_attention_fwd"] == 0

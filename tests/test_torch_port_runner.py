@@ -125,8 +125,12 @@ def test_runner_refuses_what_is_not_ported():
     cfg = t_get_config("dream-tiny", dtype="float32")
     tok = ttok.Tokenizer.byte_fallback(512)
     r = ModelRunner.random_init("llada-tiny", device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 #3"):
-        ModelRunner(cfg, r.params, tok, device="cpu")
+    dream = ModelRunner.random_init("dream-tiny", device="cpu")
+    assert dream.family == "dream"
+    with pytest.raises(NotImplementedError, match="no equivalent"):
+        dream.generate_ids(np.array([3, 4]), parallel_threshold=0.9, **GEN)
+    with pytest.raises(ValueError, match="family"):
+        ModelRunner(cfg, dream.params, tok, family="gpt", device="cpu")
     with pytest.raises(NotImplementedError, match="block-cache"):
         ModelRunner(r.cfg, r.params, tok, accel="block-cache", device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
