@@ -7,10 +7,14 @@ Phases, in order:
 
 1. card name and power limit (nvidia-smi), then build of every CUDA kernel
    from ``ct_diffusionmodelbench_tpu_torch/csrc`` (one nvcc per source, all
-   started together).
+   started together); ptxas's registers and spills per kernel, and whether
+   the flash forward and dk/dv kernels spill at head dim 128.
 2. kernels: each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs, timed with CUDA events beside the plain
-   version, one PyTorch library call where one exists, and its bound.
+   version, one PyTorch library call where one exists, and its bound.  The
+   flash kernels and their SDPA yardsticks are timed in turns (kernel,
+   SDPA, kernel, SDPA, ...; medians), with their achieved TFLOP/s and share
+   of the bound.
 3. slice: full-width, full-depth ``llada-moe-7b`` (random weights from a
    seeded generator) decoding greedily through ``llada_generate`` at batch 8,
    prompt 64, gen 256, steps 128, block 32; launch counts read around that
@@ -53,7 +57,8 @@ Phases, in order:
 12. training kernels: the flash forward with lse and the two backward kernels
    at the training shape (B 1, S 2048, H = KV = 32, Dh 128, RoPE) against
    their plain versions, timed beside them and beside SDPA's forward and
-   backward; also a GQA case (H 16, KV 4) and a padded-mask case.
+   backward, and the forward beside itself without RoPE; also a GQA case
+   (H 16, KV 4) and a padded-mask case.
 13. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
    5 optimizer steps by ``Trainer`` (seq 2048, micro-batch 1, grad-accum 4,
    remat, CE chunk 512, AdamW) on seeded token rows; s/step over steps 2-5,
@@ -62,18 +67,24 @@ Phases, in order:
    gradient with the kernels against the same on their plain versions.
 
 The bf16 MoE weights are freed before phase 8, the int8 ones before
-phase 11, Dream's before phase 12.  Prints the ``{"kernels": [...]}`` line and, last, the
-``{"ok": true, ...}`` line.  Exits non-zero, printing no result, without a
-card or if any phase fails.
+phase 11, Dream's before phase 12.  Prints the first designs' times of the
+redesigned flash kernels (constants from PERF.md, on a line of their own),
+the ``{"kernels": [...]}`` line and, last, the
+``{"ok": true, ...}`` line.  Exits 2, printing no result, without a card or
+without the port's package beside it (the script run on its own); exits 1
+if any phase fails.
 """
 
 from __future__ import annotations
 
 import contextlib
 import gc
+import importlib.util
 import json
 import os
+import re
 import shutil
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -134,8 +145,8 @@ BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # micro-batch 1, grad-accum 4, prompt 64; 5 optimizer steps of 20 rows.
 TRAIN_LAYERS, TRAIN_SEQ, TRAIN_ACCUM, TRAIN_PROMPT, TRAIN_STEPS = 8, 2048, 4, 64, 5
 # Kernel against plain version at the training shape.  The forward output
-# keeps FLASH_TOL.  lse is f32 from scores that can differ by one bf16 ulp
-# of a rotated q/k element (the kernel may fuse the rotation's multiply-add
+# keeps FLASH_TOL.  lse is f32 from scores and sums taken in another order
+# than the plain version's (K9 may also fuse the rotation's multiply-add
 # where PyTorch rounds twice): a few 1e-4 at most, checked at 2e-3.  The
 # backward's f32 outputs sum products of bf16-rounded P and dS whose f32
 # sources differ in their last bits; a flipped rounding moves one term by
@@ -150,6 +161,16 @@ BWD_RTOL, BWD_ATOL_OF_MAX = 2 ** -6, 2 ** -8
 # f32 sum over the masked tokens: 2**-7 relative.
 GRAD_REL_L2 = 2 ** -5
 LOSS_RTOL = 2 ** -7
+
+# Times of the first designs of the two redesigned flash kernels, copied from
+# PERF.md's kernel table (the WMMA designs with the accumulators in shared
+# memory, on an H100 80GB HBM3 at 700 W); constants, not measured here.
+FIRST_DESIGN_MS = {"flash_attention_fwd": 0.3158, "flash_attention_fwd T": 2.7245,
+                   "flash_attention_fwd chat": 0.1324,
+                   "flash_attention_fwd Dream geometry": 0.1455,
+                   "flash_attention_bwd_dkv": 1.7452}
+# Rounds of the in-turn timings; the median of each is reported.
+TURNS = 5
 
 
 def card_line() -> str:
@@ -171,6 +192,53 @@ def time_ms(fn, iters: int, warmup: int = 3) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def time_turns(fns, iters: int, rounds: int = TURNS) -> dict:
+    """Median device ms per call of each function in ``fns`` (name → fn),
+    timed in turns: each round times every function ``iters`` calls in a
+    row, one after the other, so a drift of the card's clock or of its
+    neighbours falls on all of them alike."""
+    for fn in fns.values():
+        for _ in range(3):
+            fn()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            times[name].append(time_ms(fn, iters, warmup=0))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def report_rate(label: str, flops: float, ms: float, bound: float) -> dict:
+    """Print and return a kernel's achieved TFLOP/s and share of its bound."""
+    tflops = flops / ms / 1e9
+    share = bound / ms
+    print(f"  {label}: {tflops:.1f} TFLOP/s achieved, {share:.4f} of its bound "
+          f"({bound:.4f} ms / {ms:.4f} ms)", flush=True)
+    return dict(tflops=tflops, bound_share=share)
+
+
+def ptxas_report(libs) -> None:
+    """Print ptxas's entry, register and spill lines, and the spill bytes of
+    the flash forward and dk/dv kernels at head dim 128 (found by their
+    mangled names)."""
+    watch = {"flash_fwd_kernel<128>": "16flash_fwd_kernelILi128E",
+             "flash_bwd_dkv_kernel<128>": "20flash_bwd_dkv_kernelILi128E"}
+    spills = {}
+    for lib in libs:
+        entry = ""
+        for line in lib.path.with_suffix(".log").read_text().splitlines():
+            if "Compiling entry function" in line:
+                entry = line
+            elif not ("registers" in line or "spill" in line):
+                continue
+            print(f"  {lib.source.name}: {line.strip()}", flush=True)
+            stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+            for name, mangled in watch.items():
+                if stores and mangled in entry:
+                    spills[name] = int(stores.group(1)) + int(stores.group(2))
+    print("  spill bytes at Dh 128: " + ", ".join(
+        f"{k} {spills.get(k, 'not found')}" for k in watch), flush=True)
 
 
 def bound_ms(flops: float, nbytes: float):
@@ -295,25 +363,28 @@ def kernel_phase(cfg, params, dev):
     bias = fa.mask_bias(mask, BATCH, SEQ, dev)
     a_out = torch.empty_like(a_k)
     kv_len = fa.kv_tile_len(SEQ)
-    k_ms = time_ms(lambda: fa.FLASH_KERNEL(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), a_out.data_ptr(), None, BATCH, SEQ, kv_len, H, KV, Dh,
-        Dh ** -0.5, stream), 50)
     p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, mask=mask, rope=(cos, sin)), 10)
     qr = apply_rope(q, cos, sin).transpose(1, 2)
     kr = apply_rope(k, cos, sin).transpose(1, 2)
     vt = v.transpose(1, 2)
     keep = mask.bool()[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(lambda: sdpa(qr, kr, vt, attn_mask=keep, enable_gqa=True), 50)
-    b_ms, b_by = bound_ms(4.0 * BATCH * H * SEQ * SEQ * Dh,
-                          nbytes(q, k, v, a_k, bias, cos, sin))
+    turns = time_turns({
+        "kernel": lambda: fa.FLASH_KERNEL(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), cos.data_ptr(),
+            sin.data_ptr(), a_out.data_ptr(), None, BATCH, SEQ, kv_len, H, KV, Dh,
+            Dh ** -0.5, stream),
+        "sdpa": lambda: sdpa(qr, kr, vt, attn_mask=keep, enable_gqa=True)}, 50)
+    k_ms, lib_ms = turns["kernel"], turns["sdpa"]
+    flops = 4.0 * BATCH * H * SEQ * SEQ * Dh
+    b_ms, b_by = bound_ms(flops, nbytes(q, k, v, a_k, bias, cos, sin))
+    rate = report_rate("flash_attention_fwd (decode shape)", flops, k_ms, b_ms)
     results.append(dict(
         name="flash_attention_fwd", route="cuda",
         source="ct_diffusionmodelbench_tpu_torch/csrc/flash_attention.cu",
         replaces="ct_diffusionmodelbench_tpu/ops/flash_attention.py:312",
         max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms))
+        library_ms=lib_ms, **rate))
     for r in results:
         r["kernel_ms"] = r["ms"]
         print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
@@ -546,15 +617,16 @@ def direct_case(name, q, k, v, mask, rope, dev, stream):
                               cos.data_ptr(), sin.data_ptr(), buf.data_ptr(), None, b,
                               s, kv_len, h, kv, dh, dh ** -0.5, stream)
 
-    k_ms = time_ms(raw(fa.DIRECT_KERNEL), 50)
-    k8_ms = time_ms(raw(fa.FLASH_KERNEL), 50)
     p_ms = time_ms(lambda: fa.flash_attention_plain(q, k, v, mask=mask, rope=rope), 10)
     qr = apply_rope(q, cos, sin).transpose(1, 2)
     kr = apply_rope(k, cos, sin).transpose(1, 2)
     vt = v.transpose(1, 2)
     keep = mask.bool()[:, None, None, :]
     sdpa = torch.nn.functional.scaled_dot_product_attention
-    lib_ms = time_ms(lambda: sdpa(qr, kr, vt, attn_mask=keep, enable_gqa=True), 50)
+    turns = time_turns({"K9": raw(fa.DIRECT_KERNEL), "K8": raw(fa.FLASH_KERNEL),
+                        "sdpa": lambda: sdpa(qr, kr, vt, attn_mask=keep, enable_gqa=True)},
+                       50)
+    k_ms, k8_ms, lib_ms = turns["K9"], turns["K8"], turns["sdpa"]
     b_ms, b_by = bound_ms(4.0 * b * h * s * s * dh, nbytes(q, k, v, out, bias, cos, sin))
     print(f"  flash_attention_direct {name} (B {b}, S {s}, H {h}, KV {kv}, Dh {dh}): "
           f"kernel {k_ms:.4f} ms, K8 {k8_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
@@ -1076,37 +1148,54 @@ def train_kernel_phase(dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     scale = Dh ** -0.5
     o_buf, l_buf = torch.empty_like(out), torch.empty_like(lse)
-    fwd_ms = time_ms(lambda: fa.FLASH_KERNEL(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), cos.data_ptr(),
-        sin.data_ptr(), o_buf.data_ptr(), l_buf.data_ptr(), B, S,
-        fa.kv_tile_len(S), H, KV, Dh, scale, stream), 20)
     fwd_plain_ms = time_ms(lambda: fa.flash_attention_plain(
         q, k, v, rope=rope, with_lse=True), 3, warmup=1)
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = qr.transpose(1, 2), kr.transpose(1, 2), v.transpose(1, 2)
-    fwd_lib_ms = time_ms(lambda: sdpa(qt, kt, vt), 20)
-    fwd_bound = bound_ms(4.0 * B * H * S * S * Dh,
-                         nbytes(q, k, v, out, lse, bias, cos, sin))
+    def fwd(rope_ptrs):
+        return lambda: fa.FLASH_KERNEL(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), *rope_ptrs,
+            o_buf.data_ptr(), l_buf.data_ptr(), B, S, fa.kv_tile_len(S), H, KV, Dh,
+            scale, stream)
+
+    # The kernel without RoPE (null tables: no cos / sin copies, no rotation)
+    # shows what the fused rotation costs.
+    turns = time_turns({"kernel": fwd((cos.data_ptr(), sin.data_ptr())),
+                        "no_rope": fwd((None, None)),
+                        "sdpa": lambda: sdpa(qt, kt, vt)}, 20)
+    fwd_ms, fwd_lib_ms, no_rope_ms = turns["kernel"], turns["sdpa"], turns["no_rope"]
+    print(f"  flash_attention_fwd with lse (training shape): {fwd_ms:.4f} ms, without "
+          f"RoPE {no_rope_ms:.4f} ms", flush=True)
+    fwd_flops = 4.0 * B * H * S * S * Dh
+    fwd_bound = bound_ms(fwd_flops, nbytes(q, k, v, out, lse, bias, cos, sin))
+    fwd_rate = report_rate("flash_attention_fwd with lse (training shape)", fwd_flops,
+                           fwd_ms, fwd_bound[0])
 
     dsum = fab.row_dot(out, do)
     dq, dk, dv = (torch.empty(t.shape, dtype=torch.float32, device=dev)
                   for t in (q, k, v))
     common = (qr.data_ptr(), kr.data_ptr(), v.data_ptr(), bias.data_ptr(),
               do.data_ptr(), lse.data_ptr(), dsum.data_ptr())
-    dq_ms = time_ms(lambda: fab.DQ_KERNEL(
-        *common, dq.data_ptr(), B, S, H, KV, Dh, scale, stream), 20)
-    dkv_ms = time_ms(lambda: fab.DKV_KERNEL(
-        *common, dk.data_ptr(), dv.data_ptr(), B, S, H, KV, Dh, scale, stream), 20)
     bwd_plain_ms = time_ms(lambda: fab.flash_attention_bwd_plain(
         qr, kr, v, bias, out, do, lse), 3, warmup=1)
     qg, kg, vg = (t.detach().requires_grad_(True) for t in (qt, kt, vt))
     s_out = sdpa(qg, kg, vg)
     dot = do.transpose(1, 2)
-    sdpa_bwd_ms = time_ms(lambda: torch.autograd.grad(
-        s_out, (qg, kg, vg), dot, retain_graph=True), 20)
+    turns = time_turns({
+        "dq": lambda: fab.DQ_KERNEL(*common, dq.data_ptr(), B, S, H, KV, Dh, scale, stream),
+        "dkv": lambda: fab.DKV_KERNEL(*common, dk.data_ptr(), dv.data_ptr(), B, S, H, KV,
+                                      Dh, scale, stream),
+        "sdpa_bwd": lambda: torch.autograd.grad(s_out, (qg, kg, vg), dot,
+                                                retain_graph=True)}, 20)
+    dq_ms, dkv_ms, sdpa_bwd_ms = turns["dq"], turns["dkv"], turns["sdpa_bwd"]
     ins = nbytes(qr, kr, v, do, lse, dsum, bias)
-    dq_bound = bound_ms(6.0 * B * H * S * S * Dh, ins + nbytes(dq))
-    dkv_bound = bound_ms(8.0 * B * H * S * S * Dh, ins + nbytes(dk, dv))
+    dq_flops, dkv_flops = 6.0 * B * H * S * S * Dh, 8.0 * B * H * S * S * Dh
+    dq_bound = bound_ms(dq_flops, ins + nbytes(dq))
+    dkv_bound = bound_ms(dkv_flops, ins + nbytes(dk, dv))
+    dq_rate = report_rate("flash_attention_bwd_dq (training shape)", dq_flops, dq_ms,
+                          dq_bound[0])
+    dkv_rate = report_rate("flash_attention_bwd_dkv (training shape)", dkv_flops, dkv_ms,
+                           dkv_bound[0])
     print(f"  training shape B {B}, S {S}, H {H}, KV {KV}, Dh {Dh}: "
           f"fwd+lse kernel {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms, SDPA fwd "
           f"{fwd_lib_ms:.4f} ms, bound {fwd_bound[0]:.4f} ms ({fwd_bound[1]}); "
@@ -1121,16 +1210,16 @@ def train_kernel_phase(dev):
         dict(name="flash_attention_bwd_dq", route="cuda", source=src,
              replaces=f"{ref}:93", max_abs_err=err_bwd, ms=dq_ms, kernel_ms=dq_ms,
              plain_ms=bwd_plain_ms, bound_ms=dq_bound[0], bound_by=dq_bound[1],
-             library_ms=None, sdpa_backward_ms=sdpa_bwd_ms),
+             library_ms=None, sdpa_backward_ms=sdpa_bwd_ms, **dq_rate),
         dict(name="flash_attention_bwd_dkv", route="cuda", source=src,
              replaces=f"{ref}:93", max_abs_err=err_bwd, ms=dkv_ms, kernel_ms=dkv_ms,
              plain_ms=bwd_plain_ms, bound_ms=dkv_bound[0], bound_by=dkv_bound[1],
-             library_ms=None, sdpa_backward_ms=sdpa_bwd_ms),
+             library_ms=None, sdpa_backward_ms=sdpa_bwd_ms, **dkv_rate),
     ]
     fwd_train = dict(shape=f"B {B}, S {S}, H {H}, KV {KV}, Dh {Dh}, RoPE, lse",
                      max_abs_err=err_fwd, ms=fwd_ms, plain_ms=fwd_plain_ms,
                      bound_ms=fwd_bound[0], bound_by=fwd_bound[1],
-                     library_ms=fwd_lib_ms)
+                     library_ms=fwd_lib_ms, no_rope_ms=no_rope_ms, **fwd_rate)
     return results, fwd_train
 
 
@@ -1275,6 +1364,10 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if importlib.util.find_spec("ct_diffusionmodelbench_tpu_torch") is None:
+        print("chip_smoke: the package ct_diffusionmodelbench_tpu_torch is not beside "
+              "this script; run it from the repository's root", file=sys.stderr)
+        return 2
 
     from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
     from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
@@ -1291,10 +1384,7 @@ def main() -> int:
             flash_attention.LIBRARY_DIRECT, flash_attention_bwd.LIBRARY]
     build_s = build_all(libs)
     print(f"kernel build: {build_s:.2f} s", flush=True)
-    for lib in libs:
-        for line in lib.path.with_suffix(".log").read_text().splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {lib.source.name}: {line.strip()}", flush=True)
+    ptxas_report(libs)
 
     cfg = get_config("llada-moe-7b")
     t0 = time.perf_counter()
@@ -1372,8 +1462,10 @@ def main() -> int:
     results += train_results
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
-            "sdpa_backward_ms", "training_shape", "pair_ms", "k8_ms", "dream_geometry",
-            "dream_launches")
+            "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",
+            "k8_ms", "dream_geometry", "dream_launches")
+    print("first designs' ms (constants from PERF.md, not measured in this run): "
+          + json.dumps(FIRST_DESIGN_MS), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}
                                   for r in results]}), flush=True)
     missing = set(KERNELS) - {r["name"] for r in results}

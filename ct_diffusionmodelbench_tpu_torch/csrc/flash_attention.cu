@@ -5,247 +5,377 @@
 //   log-sum-exp output (with_lse) that the backward reads.
 //
 // What it computes, per batch b, query head h (kv head h // rep):
-//   q, k rotated by rotate-half RoPE in f32 from cos/sin [B, S, Dh/2], cast
-//   to bf16; s = (q k^T) * scale + bias, bias = 0 for a real key and -1e30
-//   for a padding key; online softmax with f32 running max and sum; P cast
-//   to bf16 for P V, accumulated in f32; out = acc / max(l, 1e-30) in bf16;
-//   with a non-null lse pointer also lse = m + log(max(l, 1e-30)) in f32,
-//   [B, H, S] (a null pointer writes nothing extra: the serving path).
+//   q, k rotated by rotate-half RoPE in f32 from cos/sin [B, S, Dh/2] (each
+//   product and sum rounded on its own, as PyTorch's elementwise ops do),
+//   cast to bf16; s = (q k^T) * scale + bias, bias = 0 for a real key and
+//   -1e30 for a padding key; online softmax with f32 running max and sum; P
+//   cast to bf16 for P V, accumulated in f32; out = acc / max(l, 1e-30) in
+//   bf16; with a non-null lse pointer also lse = m + log(max(l, 1e-30)) in
+//   f32, [B, H, S] (a null pointer writes nothing extra: the serving path).
 // Layout: heads in the last dim of the flat [B, S, H*Dh] / [B, S, KV*Dh]
 // projection outputs, so no transpose is ever materialized.
-// The reference pads the keys to its tile (kv_len >= S); keys at S..kv_len
-// are zero with bias -1e30 here too, masked in the kernel, never copied.
+// The reference pads the keys to its tile (kv_len >= S); keys S..kv_len-1
+// are zero keys with bias -1e30 here too: their tiles are visited, filled
+// with zeros by the copy itself, never read from memory.  They only matter
+// for a row whose every key is masked, which averages V over kv_len keys.
 //
-// Bound on an H100 SXM at the main path (B 8, S 320, H 16, KV 4, Dh 128):
-// 6.7 GFLOP (~7 us at 989 TFLOP/s) against ~27 MB of q, k, v, out, bias and
-// RoPE tables (~8 us at 3.35 TB/s): both tiny; at this size launch latency
-// and the 640-block wave shape dominate.
+// Bound on an H100 SXM: at the training shape (B 1, S 2048, H = KV = 32,
+// Dh 128) 6.87e10 FLOP of products (0.069 ms at 989 TFLOP/s) against ~34 MB
+// (0.010 ms at 3.35 TB/s): bound by operations.  At the decode shape (B 8,
+// S 320, H 16, KV 4) 6.7 GFLOP (~7 us) against ~27 MB (~8 us): both tiny,
+// so the wave shape and the per-block prologue weigh.
 //
-// Design: one block of 4 warps per (64-row q tile, head, batch).  The q tile
-// is rotated once into shared memory; each 64-key tile of K is rotated as it
-// is loaded and V copied beside it.  Each warp owns 16 query rows: Q K^T and
-// P V run as WMMA bf16 fragments; scores go through shared memory for the
-// row-wise online softmax (warp shuffles), and the f32 output accumulator
-// lives in shared memory, rescaled per row before each P V.  K and V are
-// read by each of the rep query heads of a kv head (no repeat in memory).
+// Design (Hopper; hopper_mma.cuh has the layouts and instructions):
+// - A block is three consumer warpgroups (384 threads) over three "units" of
+//   one kv head; a unit is 64 query rows of one query head.  The units of kv
+//   head g are its rep query heads times the 64-row query tiles, taken three
+//   by three (head fastest), so all warpgroups read the same K / V tiles: for
+//   rep > 1 several query heads share every rotated K tile, for rep 1 the
+//   block holds 192 consecutive rows of one head.  Each K / V / cos / sin
+//   tile brought from L2 and each rotation thus serves 192 query rows, not
+//   128 as with two warpgroups, which is faster at the training and decode
+//   shapes (PERF.md).  A warpgroup without a unit (a count that is not a
+//   multiple of three) copies and rotates but issues no product.
+// - Each warpgroup rotates its Q tile once, 16-byte loads, into shared memory.
+// - K, V, the keys' cos / sin rows and the bias flow through a two-stage ring
+//   of shared memory filled by cp.async, 16 bytes a thread, while the previous
+//   tile computes.  V lands directly in the swizzled layout the wgmma
+//   descriptor names.  Each thread rotates in place the K chunk pairs (d and
+//   d + Dh/2 sit in different 16-byte chunks) whose bytes and cos / sin it
+//   copied itself, so no barrier separates landing from rotating; one proxy
+//   fence and one __syncthreads per tile publish the tile to wgmma.
+// - S = Q K^T is wgmma m64n64k16 with both operands in shared memory; the f32
+//   scores stay in registers (32 per thread).  The online softmax runs on
+//   them: a thread holds 16 keys of two rows, the four threads of a quad hold
+//   a row, so the row max and sum take two shuffles; the running max, the sum
+//   (kept per thread, reduced once at the end) and the alpha rescale of the
+//   accumulator stay in registers.
+// - P is packed to bf16 in registers in the A-operand layout of the next
+//   wgmma (the f32 score fragment maps onto it pair by pair), and O += P V is
+//   wgmma m64n{Dh}k16 with A from registers and V an MN-major operand.  O
+//   (64 x Dh f32, Dh/2 registers per thread) stays in registers over the
+//   whole key loop and is divided by l once, in the epilogue.  P V is not
+//   waited for at once: it runs while the next K tile is rotated, and ends
+//   before the barrier after which that tile's stage is refilled.
+// Registers per thread at Dh 128: O 64, scores 32, P 16, plus the running
+// statistics and addresses; __launch_bounds__(384, 1) allows 168 (65536 /
+// 384, in steps of 8), and chip_smoke.py prints ptxas's count and spills.
+// Shared memory at Dh 128: three rotated Q tiles (48 KB) and two stages of
+// K, V, cos, sin and bias (2 x 65 KB): 179 KB, one block per SM.
+// Deterministic: no atomics, no split over keys; every block visits its
+// keys in order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using namespace ctdb;
 
-constexpr int BQ = 64;
-constexpr int BKV = 64;
-constexpr int THREADS = 128;
+constexpr int BQ = 64;    // query rows per warpgroup (unit)
+constexpr int BKV = 64;   // keys per K / V tile
+constexpr int NWG = 3;    // consumer warpgroups per block
+constexpr int THREADS = 128 * NWG;
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
-struct Smem {
-  static constexpr int LDH = DH + 8;   // bf16 q/k/v tiles
-  static constexpr int LDS = BKV + 4;  // f32 scores
-  static constexpr int LDP = BKV + 8;  // bf16 probabilities
-  static constexpr int LDO = DH + 4;   // f32 output accumulator
-  static constexpr int Q = 0;
-  static constexpr int K = Q + BQ * LDH * 2;
-  static constexpr int V = K + BKV * LDH * 2;
-  static constexpr int P = V + BKV * LDH * 2;
-  static constexpr int S = P + BQ * LDP * 2;
-  static constexpr int O = S + BQ * LDS * 4;
-  static constexpr int BIAS = O + BQ * LDO * 4;
-  static constexpr int BYTES = BIAS + BKV * 4;
+struct Layout {
+  using Tile = SwTile<DH>;
+  static constexpr int Q = 0;                      // NWG rotated q tiles
+  static constexpr int STAGE0 = NWG * Tile::BYTES;
+  // Offsets inside a stage; every tile starts on a 1024-byte boundary.
+  static constexpr int K = 0;
+  static constexpr int V = K + Tile::BYTES;
+  static constexpr int COS = V + Tile::BYTES;      // [64, Dh/2] f32
+  static constexpr int SIN = COS + BKV * DH * 2;
+  static constexpr int BIAS = SIN + BKV * DH * 2;  // [64] f32
+  static constexpr int STAGE_BYTES = (BIAS + BKV * 4 + 1023) / 1024 * 1024;
+  static constexpr int BYTES = STAGE0 + 2 * STAGE_BYTES + 1024;  // + base alignment
 };
 
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// Rotate-half RoPE of rows [r0, r0 + 64) of one head into a bf16 tile.
-// src rows have stride `stride`; rows >= S are zero.
+// Start the copies of the K / V tile at keys [j0, j0 + 64) into stage `stp`
+// and commit them as one group.  Keys >= S are zero-filled, their bias
+// -1e30.  Thread p of the pair loop copies K chunks (r, c) and (r, c + Dh/16)
+// and their cos / sin: rotate_k gives it the same pairs.
 template <int DH>
-__device__ __forceinline__ void load_rotated(bf16* dst, const bf16* src,
-                                             size_t stride, const float* cosb,
-                                             const float* sinb, int r0, int S) {
+__device__ __forceinline__ void issue_kv(unsigned char* stp, const bf16* kb, const bf16* vb,
+                                         const float* cb, const float* sb,
+                                         const float* biasb, size_t kv_stride, int j0,
+                                         int S) {
+  using L = Layout<DH>;
+  using Tile = typename L::Tile;
+  constexpr int CH = DH / 8;   // 16-byte chunks per row
+  constexpr int HC = CH / 2;   // chunk pairs per row
   constexpr int HALF = DH / 2;
-  constexpr int LDH = Smem<DH>::LDH;
-  for (int p = threadIdx.x; p < 64 * HALF; p += THREADS) {
-    const int r = p / HALF;
-    const int d = p % HALF;
-    const int i = r0 + r;
-    float o1 = 0.0f, o2 = 0.0f;
+  const uint32_t st = smem_u32(stp);
+  const int tid = threadIdx.x;
+  for (int p = tid; p < BKV * HC; p += THREADS) {
+    const int r = p / HC;
+    const int c = p % HC;
+    const int j = j0 + r;
+    const bool ok = j < S;
+    const size_t row = ok ? j : 0;
+    const bf16* src = kb + row * kv_stride + c * 8;
+    cp_async16(st + L::K + Tile::chunk(r, c), src, ok);
+    cp_async16(st + L::K + Tile::chunk(r, c + HC), src + HALF, ok);
+    if (cb != nullptr) {
+      const uint32_t off = (r * HALF + c * 8) * 4;
+      const float* cs = cb + row * HALF + c * 8;
+      const float* ss = sb + row * HALF + c * 8;
+      cp_async16(st + L::COS + off, cs, ok);
+      cp_async16(st + L::COS + off + 16, cs + 4, ok);
+      cp_async16(st + L::SIN + off, ss, ok);
+      cp_async16(st + L::SIN + off + 16, ss + 4, ok);
+    }
+  }
+  for (int p = tid; p < BKV * CH; p += THREADS) {
+    const int r = p / CH;
+    const int c = p % CH;
+    const int j = j0 + r;
+    const bool ok = j < S;
+    cp_async16(st + L::V + Tile::chunk(r, c), vb + (ok ? j : 0) * kv_stride + c * 8, ok);
+  }
+  if (tid < BKV) {
+    const int j = j0 + tid;
+    if (j < S)
+      cp_async4(st + L::BIAS + tid * 4, biasb + j, true);
+    else
+      reinterpret_cast<float*>(stp + L::BIAS)[tid] = NEG_INF;
+  }
+  cp_async_commit();
+}
+
+// Rotate, in place, the K chunk pairs this thread copied (issue_kv's pairs).
+template <int DH>
+__device__ __forceinline__ void rotate_k(unsigned char* stp) {
+  using L = Layout<DH>;
+  using Tile = typename L::Tile;
+  constexpr int HC = DH / 16;
+  constexpr int HALF = DH / 2;
+  const float* cosr = reinterpret_cast<const float*>(stp + L::COS);
+  const float* sinr = reinterpret_cast<const float*>(stp + L::SIN);
+  for (int p = threadIdx.x; p < BKV * HC; p += THREADS) {
+    const int r = p / HC;
+    const int c = p % HC;
+    uint4* lo = reinterpret_cast<uint4*>(stp + L::K + Tile::chunk(r, c));
+    uint4* hi = reinterpret_cast<uint4*>(stp + L::K + Tile::chunk(r, c + HC));
+    float cv[8], sv[8];
+    const float4* cp = reinterpret_cast<const float4*>(cosr + r * HALF + c * 8);
+    const float4* sp = reinterpret_cast<const float4*>(sinr + r * HALF + c * 8);
+    *reinterpret_cast<float4*>(cv) = cp[0];
+    *reinterpret_cast<float4*>(cv + 4) = cp[1];
+    *reinterpret_cast<float4*>(sv) = sp[0];
+    *reinterpret_cast<float4*>(sv + 4) = sp[1];
+    uint4 a = *lo, b = *hi;
+    rope8(a, b, cv, sv);
+    *lo = a;
+    *hi = b;
+  }
+}
+
+// Rows [i0, i0 + 64) of one query head, rotated, into a swizzled tile by the
+// 128 threads of one warpgroup (wtid = thread within it); rows >= S are zero.
+template <int DH>
+__device__ __forceinline__ void load_q(unsigned char* qs, const bf16* qb, size_t q_stride,
+                                       const float* cb, const float* sb, int i0, int S,
+                                       int wtid) {
+  using Tile = SwTile<DH>;
+  constexpr int HC = DH / 16;
+  constexpr int HALF = DH / 2;
+  for (int p = wtid; p < BQ * HC; p += 128) {
+    const int r = p / HC;
+    const int c = p % HC;
+    const int i = i0 + r;
+    uint4 lo = make_uint4(0u, 0u, 0u, 0u), hi = lo;
     if (i < S) {
-      const float x1 = __bfloat162float(src[i * stride + d]);
-      const float x2 = __bfloat162float(src[i * stride + d + HALF]);
-      if (cosb != nullptr) {
-        const float c = cosb[static_cast<size_t>(i) * HALF + d];
-        const float s = sinb[static_cast<size_t>(i) * HALF + d];
-        o1 = x1 * c - x2 * s;
-        o2 = x2 * c + x1 * s;
-      } else {
-        o1 = x1;
-        o2 = x2;
+      const bf16* src = qb + static_cast<size_t>(i) * q_stride + c * 8;
+      lo = *reinterpret_cast<const uint4*>(src);
+      hi = *reinterpret_cast<const uint4*>(src + HALF);
+      if (cb != nullptr) {
+        float cv[8], sv[8];
+        const float4* cp = reinterpret_cast<const float4*>(cb + static_cast<size_t>(i) * HALF + c * 8);
+        const float4* sp = reinterpret_cast<const float4*>(sb + static_cast<size_t>(i) * HALF + c * 8);
+        *reinterpret_cast<float4*>(cv) = cp[0];
+        *reinterpret_cast<float4*>(cv + 4) = cp[1];
+        *reinterpret_cast<float4*>(sv) = sp[0];
+        *reinterpret_cast<float4*>(sv + 4) = sp[1];
+        rope8(lo, hi, cv, sv);
       }
     }
-    dst[r * LDH + d] = __float2bfloat16(o1);
-    dst[r * LDH + d + HALF] = __float2bfloat16(o2);
+    *reinterpret_cast<uint4*>(qs + Tile::chunk(r, c)) = lo;
+    *reinterpret_cast<uint4*>(qs + Tile::chunk(r, c + HC)) = hi;
   }
 }
 
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
                  const float* __restrict__ cosb, const float* __restrict__ sinb,
                  bf16* __restrict__ out, float* __restrict__ lse, int S,
                  int kv_len, int H, int KV, float scale) {
-  using L = Smem<DH>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::Q);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::K);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::V);
-  bf16* Ps = reinterpret_cast<bf16*>(smem + L::P);
-  float* Ss = reinterpret_cast<float*>(smem + L::S);
-  float* Os = reinterpret_cast<float*>(smem + L::O);
-  float* bias_s = reinterpret_cast<float*>(smem + L::BIAS);
-
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
+  using L = Layout<DH>;
+  using Tile = typename L::Tile;
   constexpr int HALF = DH / 2;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rep = H / KV;
+  const int nqt = (S + BQ - 1) / BQ;
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+  const int wtid = tid % 128;
+  const int warp = wtid / 32;
+  const int lane = tid % 32;
+  const int gid = lane / 4;
+  const int tig = lane % 4;
+  const int unit = blockIdx.x * NWG + wg;
+  const bool active = unit < rep * nqt;
+  const int h = g * rep + (active ? unit % rep : 0);
+  const int q0 = (active ? unit / rep : 0) * BQ;
 
   const size_t q_stride = static_cast<size_t>(H) * DH;
   const size_t kv_stride = static_cast<size_t>(KV) * DH;
   const bf16* qb = q + static_cast<size_t>(b) * S * q_stride + h * DH;
-  const bf16* kb = k + static_cast<size_t>(b) * S * kv_stride + kvh * DH;
-  const bf16* vb = v + static_cast<size_t>(b) * S * kv_stride + kvh * DH;
+  const bf16* kb = k + static_cast<size_t>(b) * S * kv_stride + g * DH;
+  const bf16* vb = v + static_cast<size_t>(b) * S * kv_stride + g * DH;
   const float* cb = cosb == nullptr ? nullptr : cosb + static_cast<size_t>(b) * S * HALF;
   const float* sb = sinb == nullptr ? nullptr : sinb + static_cast<size_t>(b) * S * HALF;
   const float* biasb = bias + static_cast<size_t>(b) * S;
+  unsigned char* qs = smem + L::Q + wg * Tile::BYTES;
+  const uint32_t q_addr = smem_u32(qs);
 
-  load_rotated<DH>(Qs, qb, q_stride, cb, sb, q0, S);
-  for (int i = tid; i < BQ * L::LDO; i += THREADS) Os[i] = 0.0f;
+  const int nkt = kv_len / BKV;
+  issue_kv<DH>(smem + L::STAGE0, kb, vb, cb, sb, biasb, kv_stride, 0, S);
+  if (active) load_q<DH>(qs, qb, q_stride, cb, sb, q0, S, wtid);
 
-  // Running max / sum of this warp's 16 rows, replicated in every lane.
-  float row_m[16], row_l[16];
+  float o[DH / 2];
+  float s[32];
+  uint32_t pa[BKV / 16][4];  // P as the bf16 A operand of P V
 #pragma unroll
-  for (int r = 0; r < 16; ++r) {
-    row_m[r] = NEG_INF;
-    row_l[r] = 0.0f;
-  }
+  for (int i = 0; i < DH / 2; ++i) o[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+  // Running max and this thread's share of the sum, rows gid and gid + 8 of
+  // the warp's 16.
+  float m0 = NEG_INF, m1 = NEG_INF, l0 = 0.0f, l1 = 0.0f;
 
-  const int nkt = (kv_len + BKV - 1) / BKV;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int j0 = kt * BKV;
-    __syncthreads();  // every warp is done with the previous K/V tile
-    load_rotated<DH>(Ks, kb, kv_stride, cb, sb, j0, S);
-    for (int p = tid; p < BKV * DH / 8; p += THREADS) {
-      const int r = p / (DH / 8);
-      const int c = (p % (DH / 8)) * 8;
-      const int j = j0 + r;
-      uint4 val = make_uint4(0u, 0u, 0u, 0u);
-      if (j < S) val = *reinterpret_cast<const uint4*>(vb + j * kv_stride + c);
-      *reinterpret_cast<uint4*>(Vs + r * L::LDH + c) = val;
-    }
-    if (tid < BKV) {
-      const int j = j0 + tid;
-      bias_s[tid] = j < S ? biasb[j] : NEG_INF;
-    }
+  for (int t = 0; t < nkt; ++t) {
+    unsigned char* stp = smem + L::STAGE0 + (t & 1) * L::STAGE_BYTES;
+    cp_async_wait<0>();
+    if (cb != nullptr) rotate_k<DH>(stp);
+    // Tile t - 1's P V ran during the rotation; it reads o, pa and the
+    // stage that the copies below overwrite, so it ends before the barrier.
+    wgmma_wait<0>();
+    fence_regs(o);
+#pragma unroll
+    for (int kk = 0; kk < BKV / 16; ++kk) fence_regs(pa[kk]);
+    fence_proxy_async();
+    // Tile t is in place for every thread; every warpgroup is done with
+    // tile t - 1, whose stage the next copies overwrite.
     __syncthreads();
+    if (t + 1 < nkt)
+      issue_kv<DH>(smem + L::STAGE0 + ((t + 1) & 1) * L::STAGE_BYTES, kb, vb, cb, sb,
+                   biasb, kv_stride, (t + 1) * BKV, S);
+    if (!active) continue;
 
-    // Scores of this warp's 16 rows against the 64 keys.
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> sf[BKV / 16];
+    // S = Q K^T
+    const uint32_t k_addr = smem_u32(stp + L::K);
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < BKV / 16; ++n) wmma::fill_fragment(sf[n], 0.0f);
-#pragma unroll
-      for (int kk = 0; kk < DH; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Qs + warp * 16 * L::LDH + kk, L::LDH);
-#pragma unroll
-        for (int n = 0; n < BKV / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> kf;
-          wmma::load_matrix_sync(kf, Ks + n * 16 * L::LDH + kk, L::LDH);
-          wmma::mma_sync(sf[n], a, kf, sf[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < BKV / 16; ++n)
-        wmma::store_matrix_sync(Ss + warp * 16 * L::LDS + n * 16, sf[n],
-                                L::LDS, wmma::mem_row_major);
-    }
-    __syncwarp();
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_m64n64(s, Tile::k_major(q_addr, kk), Tile::k_major(k_addr, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
 
-    // Online softmax; each lane holds keys lane and lane + 32 of a row.
+    // Online softmax on the registers.
+    const float* bs = reinterpret_cast<const float*>(stp + L::BIAS);
+    float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = warp * 16 + rr;
-      const float s0 = Ss[r * L::LDS + lane] * scale + bias_s[lane];
-      const float s1 = Ss[r * L::LDS + lane + 32] * scale + bias_s[lane + 32];
-      const float m_new = fmaxf(row_m[rr], warp_max(fmaxf(s0, s1)));
-      const float p0 = expf(s0 - m_new);
-      const float p1 = expf(s1 - m_new);
-      Ps[r * L::LDP + lane] = __float2bfloat16(p0);
-      Ps[r * L::LDP + lane + 32] = __float2bfloat16(p1);
-      const float alpha = expf(row_m[rr] - m_new);
-      row_l[rr] = row_l[rr] * alpha + warp_sum(p0 + p1);
-      row_m[rr] = m_new;
-      for (int d = lane; d < DH; d += 32) Os[r * L::LDO + d] *= alpha;
+    for (int i = 0; i < 8; ++i) {
+      const float2 bb = *reinterpret_cast<const float2*>(bs + 8 * i + 2 * tig);
+      s[4 * i] = fmaf(s[4 * i], scale, bb.x);
+      s[4 * i + 1] = fmaf(s[4 * i + 1], scale, bb.y);
+      s[4 * i + 2] = fmaf(s[4 * i + 2], scale, bb.x);
+      s[4 * i + 3] = fmaf(s[4 * i + 3], scale, bb.y);
+      mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
+      mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
-    __syncwarp();
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 1));
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, 2));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 1));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, 2));
+    const float a0 = exp2f((m0 - mx0) * LOG2E);
+    const float a1 = exp2f((m1 - mx1) * LOG2E);
+    m0 = mx0;
+    m1 = mx1;
+    float r0 = 0.0f, r1 = 0.0f;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const float p00 = exp2f((s[4 * i] - mx0) * LOG2E);
+      const float p01 = exp2f((s[4 * i + 1] - mx0) * LOG2E);
+      const float p10 = exp2f((s[4 * i + 2] - mx1) * LOG2E);
+      const float p11 = exp2f((s[4 * i + 3] - mx1) * LOG2E);
+      r0 += p00 + p01;
+      r1 += p10 + p11;
+      pa[i / 2][(i % 2) * 2] = pack_bf16(p00, p01);
+      pa[i / 2][(i % 2) * 2 + 1] = pack_bf16(p10, p11);
+    }
+    l0 = l0 * a0 + r0;
+    l1 = l1 * a1 + r1;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) {
+      o[4 * i] *= a0;
+      o[4 * i + 1] *= a0;
+      o[4 * i + 2] *= a1;
+      o[4 * i + 3] *= a1;
+    }
 
-    // O += P V for this warp's rows.
-    {
-      wmma::fragment<wmma::accumulator, 16, 16, 16, float> of[DH / 16];
+    // O += P V, waited for at the top of the next tile (or below).
+    const uint32_t v_addr = smem_u32(stp + L::V);
+    wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < DH / 16; ++n)
-        wmma::load_matrix_sync(of[n], Os + warp * 16 * L::LDO + n * 16, L::LDO,
-                               wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < BKV; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, Ps + warp * 16 * L::LDP + kk, L::LDP);
-#pragma unroll
-        for (int n = 0; n < DH / 16; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> vf;
-          wmma::load_matrix_sync(vf, Vs + kk * L::LDH + n * 16, L::LDH);
-          wmma::mma_sync(of[n], a, vf, of[n]);
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < DH / 16; ++n)
-        wmma::store_matrix_sync(Os + warp * 16 * L::LDO + n * 16, of[n], L::LDO,
-                                wmma::mem_row_major);
-    }
-    __syncwarp();
+    for (int kk = 0; kk < BKV / 16; ++kk)
+      wgmma_rs<DH>(o, pa[kk], Tile::mn_major(v_addr, kk), 1);
+    wgmma_commit();
   }
-
+  wgmma_wait<0>();
+  fence_regs(o);
 #pragma unroll
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = warp * 16 + rr;
-    const int i = q0 + r;
-    if (i >= S) continue;
-    const float denom = fmaxf(row_l[rr], 1e-30f);
-    bf16* ob = out + (static_cast<size_t>(b) * S + i) * q_stride + h * DH;
-    for (int d = lane; d < DH; d += 32)
-      ob[d] = __float2bfloat16(Os[r * L::LDO + d] / denom);
-    if (lse != nullptr && lane == 0)
-      lse[(static_cast<size_t>(b) * H + h) * S + i] = row_m[rr] + logf(denom);
+  for (int kk = 0; kk < BKV / 16; ++kk) fence_regs(pa[kk]);
+
+  if (!active) return;
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 1);
+  l0 += __shfl_xor_sync(0xffffffffu, l0, 2);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 1);
+  l1 += __shfl_xor_sync(0xffffffffu, l1, 2);
+  const float d0 = fmaxf(l0, 1e-30f);
+  const float d1 = fmaxf(l1, 1e-30f);
+  const int i0 = q0 + warp * 16 + gid;
+  const int i1 = i0 + 8;
+  bf16* ob = out + static_cast<size_t>(b) * S * q_stride + h * DH + 2 * tig;
+  if (i0 < S) {
+    uint32_t* row = reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(i0) * q_stride);
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i) row[4 * i] = pack_bf16(o[4 * i] / d0, o[4 * i + 1] / d0);
+  }
+  if (i1 < S) {
+    uint32_t* row = reinterpret_cast<uint32_t*>(ob + static_cast<size_t>(i1) * q_stride);
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      row[4 * i] = pack_bf16(o[4 * i + 2] / d1, o[4 * i + 3] / d1);
+  }
+  if (lse != nullptr && tig == 0) {
+    float* lb = lse + (static_cast<size_t>(b) * H + h) * S;
+    if (i0 < S) lb[i0] = m0 + logf(d0);
+    if (i1 < S) lb[i1] = m1 + logf(d1);
   }
 }
 
@@ -253,11 +383,12 @@ template <int DH>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            const float* cosb, const float* sinb, void* out, float* lse, int B,
            int S, int kv_len, int H, int KV, float scale, cudaStream_t stream) {
-  constexpr int bytes = Smem<DH>::BYTES;
+  constexpr int bytes = Layout<DH>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + BQ - 1) / BQ, H, B);
+  const int units = (H / KV) * ((S + BQ - 1) / BQ);
+  dim3 grid((units + NWG - 1) / NWG, KV, B);
   flash_fwd_kernel<DH><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bias, cosb, sinb, static_cast<bf16*>(out),
@@ -271,13 +402,15 @@ extern "C" {
 
 // q [B, S, H*Dh], k/v [B, S, KV*Dh] bf16; bias [B, S] f32; cos/sin
 // [B, S, Dh/2] f32 or both null (no RoPE); out [B, S, H*Dh] bf16; lse
-// [B, H, S] f32 or null.  kv_len >= S: keys S..kv_len-1 count as zero keys
-// with bias -1e30.
+// [B, H, S] f32 or null.  kv_len >= S, a multiple of 64: keys S..kv_len-1
+// count as zero keys with bias -1e30.
 int ctdb_flash_attention_fwd(const void* q, const void* k, const void* v,
                              const float* bias, const float* cosb,
                              const float* sinb, void* out, float* lse, int B,
                              int S, int kv_len, int H, int KV, int head_dim,
                              float scale, void* stream) {
+  if (S < 1 || kv_len < S || kv_len % BKV != 0 || KV < 1 || H % KV != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (head_dim) {
     case 16:
@@ -291,7 +424,7 @@ int ctdb_flash_attention_fwd(const void* q, const void* k, const void* v,
                         scale, st);
     case 128:
       return launch<128>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
-                        scale, st);
+                         scale, st);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }

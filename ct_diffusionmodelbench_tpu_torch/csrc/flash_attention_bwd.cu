@@ -25,31 +25,52 @@
 // at 989 TFLOP/s), dkv 4 (1.37e11 FLOP, 0.139 ms); each moves ~85 MB
 // (0.025 ms at 3.35 TB/s).  Both are bound by operations.
 //
-// Design: one block of 8 warps per 64-row tile.  dq: a (q tile, head,
-// batch) block loops over 64-key tiles; warps 0-3 compute the 16-row
-// slices of S = Q K^T, warps 4-7 those of dP = dO V^T (WMMA bf16, f32
-// accumulators), both go through shared memory for the elementwise dS,
-// then each warp adds dS K into half of its 16 rows' dQ columns, kept in
-// registers for the whole key loop.  dkv: a (key tile, kv head, batch)
-// block loops over the rep query heads and their 64-row q tiles and works
-// on the transposed scores (S^T = K Q^T, dP^T = V dO^T), so each warp's
-// 16 key rows own their dV (warps 0-3) or dK (warps 4-7) accumulators in
-// registers; the sum over query heads and q tiles stays inside the block
-// and needs no atomics.  Shared memory at Dh 128: four bf16 [64, Dh] tiles,
-// two f32 [64, 64] score tiles and two bf16 [64, 64] tiles (121 KB).
+// Design, dq: one block of 8 warps per (64-row q tile, head, batch) loops
+// over 64-key tiles; warps 0-3 compute the 16-row slices of S = Q K^T, warps
+// 4-7 those of dP = dO V^T (WMMA bf16, f32 accumulators), both go through
+// shared memory for the elementwise dS, then each warp adds dS K into half
+// of its 16 rows' dQ columns, kept in registers for the whole key loop.
+//
+// Design, dk/dv (Hopper; hopper_mma.cuh has the layouts and instructions):
+// one block of two warpgroups per (64-key tile, kv head, batch) loops over
+// the rep query heads of the kv head and their 64-row query tiles, so the
+// sum over heads and tiles stays inside the block and needs no atomics.  It
+// works on the transposed scores, keys as rows, so each warpgroup's
+// accumulator (64 keys x Dh f32, Dh/2 registers per thread) stays in
+// registers over the whole loop:
+// - warpgroup 0: S^T = K Q^T (wgmma m64n64k16, both operands in shared
+//   memory, scores in registers), P^T = exp(S^T scale + bias_key - lse_q) in
+//   registers, P^T written once to shared memory for warpgroup 1 (in f32, so
+//   that dS^T comes from the unrounded p, as in the reference), then
+//   dV += P^T dO (wgmma with P^T from registers as bf16, dO an MN-major
+//   operand);
+// - warpgroup 1: dP^T = V dO^T, then, after a named barrier on P^T,
+//   dS^T = P^T (dP^T - D_q) scale in registers and dK += dS^T Q likewise.
+//   dV and dK in one warpgroup would take 128 accumulator registers per
+//   thread at Dh 128 besides the scores: the split keeps each near 112.
+// - Q, dO, lse and D of the next query tile arrive through a two-stage ring
+//   filled by cp.async (16 bytes a thread, straight into the swizzled layout;
+//   lse and D per query, 4 bytes a thread) while the current one computes;
+//   K and V are copied once.  One proxy fence and one __syncthreads per query
+//   tile; the warpgroups meet once more on the named barrier.
+// Shared memory at Dh 128: K, V, P^T (16 KB each) and two stages of Q, dO,
+// lse and D (2 x 33 KB): 115 KB, one block per SM.
+// Deterministic: every block sums its query tiles in one fixed order.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <mma.h>
 #include <stdint.h>
 
+#include "hopper_mma.cuh"
+
 namespace {
 
-using bf16 = __nv_bfloat16;
+using namespace ctdb;
 using namespace nvcuda;
 
 constexpr int TILE = 64;     // query rows and keys per tile
-constexpr int THREADS = 256;  // 8 warps
+constexpr int THREADS = 256;  // dq: 8 warps
 constexpr float NEG_INF = -1e30f;
 
 template <int DH>
@@ -68,15 +89,12 @@ struct Smem {
   static constexpr int S0 = H3 + TILE_H;
   static constexpr int S1 = S0 + TILE_S;
   static constexpr int P0 = S1 + TILE_S;
-  static constexpr int P1 = P0 + TILE_P;
-  static constexpr int BIAS = P1 + TILE_P;
+  static constexpr int BIAS = P0 + TILE_P;
   static constexpr int LSE = BIAS + TILE * 4;
   static constexpr int DSUM = LSE + TILE * 4;
   static constexpr int BYTES = DSUM + TILE * 4;
-  // dq stages its [64, Dh] f32 result over the two score tiles; dkv stages
-  // dV and dK over the whole buffer.
+  // dq stages its [64, Dh] f32 result over the two score tiles.
   static_assert(TILE * LDO * 4 <= 2 * TILE_S, "dq staging does not fit");
-  static_assert(2 * TILE * LDO * 4 <= BYTES, "dkv staging does not fit");
 };
 
 // Rows [r0, r0 + 64) of one head (row stride `stride`) into a bf16 tile;
@@ -241,128 +259,235 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// ---------------------------------------------------------------------------
+// dk / dv (K11) on wgmma; see the design note at the top.
+constexpr int DKV_THREADS = 256;  // warpgroup 0: P^T and dV; 1: dP^T, dS^T and dK
+
 template <int DH>
-__global__ void __launch_bounds__(THREADS)
+struct DkvLayout {
+  using Tile = SwTile<DH>;
+  static constexpr int K = 0;                    // this block's keys, swizzled
+  static constexpr int V = K + Tile::BYTES;
+  static constexpr int P = V + Tile::BYTES;      // [64 x 64] f32 P^T, fragment order
+  static constexpr int STAGE0 = P + TILE * TILE * 4;
+  // Offsets inside a stage of the ring.
+  static constexpr int Q = 0;
+  static constexpr int DO = Q + Tile::BYTES;
+  static constexpr int LSE = DO + Tile::BYTES;   // [64] f32 per query
+  static constexpr int DSUM = LSE + TILE * 4;
+  static constexpr int STAGE_BYTES = (DSUM + TILE * 4 + 1023) / 1024 * 1024;
+  static constexpr int BYTES = STAGE0 + 2 * STAGE_BYTES + 1024;  // + base alignment
+};
+
+// Start the copies of query rows [i0, i0 + 64) of one head (q, dO, lse, D)
+// into stage `stp` and commit them; rows >= S are zero-filled.
+template <int DH>
+__device__ __forceinline__ void issue_q_do(unsigned char* stp, const bf16* qb, const bf16* dob,
+                                           const float* lse_h, const float* dsum_h,
+                                           size_t q_stride, int i0, int S) {
+  using L = DkvLayout<DH>;
+  using Tile = typename L::Tile;
+  constexpr int CH = DH / 8;
+  const uint32_t st = smem_u32(stp);
+  const int tid = threadIdx.x;
+  for (int p = tid; p < TILE * CH; p += DKV_THREADS) {
+    const int r = p / CH;
+    const int c = p % CH;
+    const int i = i0 + r;
+    const bool ok = i < S;
+    const size_t off = (ok ? i : 0) * q_stride + c * 8;
+    cp_async16(st + L::Q + Tile::chunk(r, c), qb + off, ok);
+    cp_async16(st + L::DO + Tile::chunk(r, c), dob + off, ok);
+  }
+  if (tid < TILE) {
+    const int i = i0 + tid;
+    const bool ok = i < S;
+    cp_async4(st + L::LSE + tid * 4, lse_h + (ok ? i : 0), ok);
+    cp_async4(st + L::DSUM + tid * 4, dsum_h + (ok ? i : 0), ok);
+  }
+  cp_async_commit();
+}
+
+template <int DH>
+__global__ void __launch_bounds__(DKV_THREADS, 1)
 flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                      const bf16* __restrict__ v, const float* __restrict__ bias,
                      const bf16* __restrict__ dout, const float* __restrict__ lse,
                      const float* __restrict__ dsum, float* __restrict__ dk,
                      float* __restrict__ dv, int S, int H, int KV, float scale) {
-  using L = Smem<DH>;
-  constexpr int NF = DH / 16;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::H0);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::H1);
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::H2);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::H3);
-  float* St = reinterpret_cast<float*>(smem + L::S0);   // [key, query]
-  float* dPt = reinterpret_cast<float*>(smem + L::S1);
-  bf16* Pt = reinterpret_cast<bf16*>(smem + L::P0);
-  bf16* dSt = reinterpret_cast<bf16*>(smem + L::P1);
-  float* bias_s = reinterpret_cast<float*>(smem + L::BIAS);
-  float* lse_s = reinterpret_cast<float*>(smem + L::LSE);
-  float* dsum_s = reinterpret_cast<float*>(smem + L::DSUM);
+  using L = DkvLayout<DH>;
+  using Tile = typename L::Tile;
+  constexpr int CH = DH / 8;
+  constexpr float LOG2E = 1.4426950408889634f;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  float* pbuf = reinterpret_cast<float*>(smem + L::P);
 
   const int j0 = blockIdx.x * TILE;
   const int g = blockIdx.y;
   const int b = blockIdx.z;
   const int rep = H / KV;
+  const int nqt = (S + TILE - 1) / TILE;
+  const int n_it = rep * nqt;
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int rw = warp % 4;    // 16 key rows of the tile
-  const int half = warp / 4;  // 0: dV, 1: dK
+  const int wg = tid / 128;
+  const int wtid = tid % 128;
+  const int warp = wtid / 32;
+  const int lane = tid % 32;
+  const int gid = lane / 4;
+  const int tig = lane % 4;
 
   const size_t q_stride = static_cast<size_t>(H) * DH;
   const size_t kv_stride = static_cast<size_t>(KV) * DH;
   const bf16* kb = k + static_cast<size_t>(b) * S * kv_stride + g * DH;
   const bf16* vb = v + static_cast<size_t>(b) * S * kv_stride + g * DH;
+  const bf16* qbase = q + static_cast<size_t>(b) * S * q_stride;
+  const bf16* dobase = dout + static_cast<size_t>(b) * S * q_stride;
+  const size_t lse_base = static_cast<size_t>(b) * H * S;
 
-  load_tile<DH>(Ks, kb, kv_stride, j0, S);
-  load_tile<DH>(Vs, vb, kv_stride, j0, S);
-  if (tid < TILE) {
-    const int j = j0 + tid;
-    bias_s[tid] = j < S ? bias[static_cast<size_t>(b) * S + j] : NEG_INF;
+  // K and V of this block's keys travel with the first query tile's group.
+  const uint32_t k_addr = smem_u32(smem + L::K);
+  const uint32_t v_addr = smem_u32(smem + L::V);
+  for (int p = tid; p < TILE * CH; p += DKV_THREADS) {
+    const int r = p / CH;
+    const int c = p % CH;
+    const int j = j0 + r;
+    const bool ok = j < S;
+    const size_t off = (ok ? j : 0) * kv_stride + c * 8;
+    cp_async16(k_addr + Tile::chunk(r, c), kb + off, ok);
+    cp_async16(v_addr + Tile::chunk(r, c), vb + off, ok);
+  }
+  {
+    const int h = g * rep;
+    issue_q_do<DH>(smem + L::STAGE0, qbase + h * DH, dobase + h * DH,
+                   lse + lse_base + static_cast<size_t>(h) * S,
+                   dsum + lse_base + static_cast<size_t>(h) * S, q_stride, 0, S);
   }
 
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NF];
+  // This thread's key rows (within the tile) and their bias.
+  const int kr0 = warp * 16 + gid;
+  const int kr1 = kr0 + 8;
+  const float bk0 = j0 + kr0 < S ? bias[static_cast<size_t>(b) * S + j0 + kr0] : NEG_INF;
+  const float bk1 = j0 + kr1 < S ? bias[static_cast<size_t>(b) * S + j0 + kr1] : NEG_INF;
+
+  float acc[DH / 2];  // dV (warpgroup 0) or dK (warpgroup 1), [64 keys x Dh]
+  float s[32];        // S^T (warpgroup 0) or dP^T (warpgroup 1), [64 keys x 64 queries]
 #pragma unroll
-  for (int n = 0; n < NF; ++n) wmma::fill_fragment(acc[n], 0.0f);
-
-  const int nqt = (S + TILE - 1) / TILE;
-  for (int r = 0; r < rep; ++r) {
-    const int h = g * rep + r;
-    const size_t head_row = (static_cast<size_t>(b) * H + h) * S;
-    const bf16* qb = q + static_cast<size_t>(b) * S * q_stride + h * DH;
-    const bf16* dob = dout + static_cast<size_t>(b) * S * q_stride + h * DH;
-    for (int qt = 0; qt < nqt; ++qt) {
-      const int i0 = qt * TILE;
-      __syncthreads();  // every warp is done with the previous Q, dO, P, dS
-      load_tile<DH>(Qs, qb, q_stride, i0, S);
-      load_tile<DH>(dOs, dob, q_stride, i0, S);
-      if (tid < TILE) {
-        const int i = i0 + tid;
-        lse_s[tid] = i < S ? lse[head_row + i] : 0.0f;
-        dsum_s[tid] = i < S ? dsum[head_row + i] : 0.0f;
-      }
-      __syncthreads();
-
-      // S^T = K Q^T (warps 0-3) and dP^T = V dO^T (warps 4-7).
-      if (half == 0)
-        rows_times_tile_t<DH>(St + rw * 16 * L::LDS, Ks + rw * 16 * L::LDH, Qs);
-      else
-        rows_times_tile_t<DH>(dPt + rw * 16 * L::LDS, Vs + rw * 16 * L::LDH, dOs);
-      __syncthreads();
-
-      // P^T and dS^T in bf16; query rows past S get p = 0.
-      for (int p = tid; p < TILE * TILE; p += THREADS) {
-        const int rk = p / TILE;  // key
-        const int c = p % TILE;   // query
-        float pr = 0.0f;
-        if (i0 + c < S) {
-          const float s = St[rk * L::LDS + c] * scale + bias_s[rk];
-          pr = expf(s - lse_s[c]);
-        }
-        const float ds = pr * (dPt[rk * L::LDS + c] - dsum_s[c]) * scale;
-        Pt[rk * L::LDP + c] = __float2bfloat16(pr);
-        dSt[rk * L::LDP + c] = __float2bfloat16(ds);
-      }
-      __syncthreads();
-
-      // dV += P^T dO (warps 0-3), dK += dS^T Q (warps 4-7).
-      const bf16* a_src = half == 0 ? Pt : dSt;
-      const bf16* b_src = half == 0 ? dOs : Qs;
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.0f;
 #pragma unroll
-      for (int kk = 0; kk < TILE; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-        wmma::load_matrix_sync(af, a_src + rw * 16 * L::LDP + kk, L::LDP);
-#pragma unroll
-        for (int n = 0; n < NF; ++n) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, b_src + kk * L::LDH + n * 16, L::LDH);
-          wmma::mma_sync(acc[n], af, bf, acc[n]);
-        }
-      }
+  for (int i = 0; i < 32; ++i) s[i] = 0.0f;
+
+  for (int it = 0; it < n_it; ++it) {
+    unsigned char* stp = smem + L::STAGE0 + (it & 1) * L::STAGE_BYTES;
+    cp_async_wait<0>();
+    fence_proxy_async();
+    // The tile is in place; both warpgroups are done with the previous one
+    // (its stage and P^T may be overwritten).
+    __syncthreads();
+    if (it + 1 < n_it) {
+      const int h = g * rep + (it + 1) / nqt;
+      issue_q_do<DH>(smem + L::STAGE0 + ((it + 1) & 1) * L::STAGE_BYTES, qbase + h * DH,
+                     dobase + h * DH, lse + lse_base + static_cast<size_t>(h) * S,
+                     dsum + lse_base + static_cast<size_t>(h) * S, q_stride,
+                     ((it + 1) % nqt) * TILE, S);
     }
+    const int i0 = (it % nqt) * TILE;
+    const uint32_t q_addr = smem_u32(stp + L::Q);
+    const uint32_t do_addr = smem_u32(stp + L::DO);
+    uint32_t fa[4][4];  // P^T or dS^T as the bf16 A operand
+
+    if (wg == 0) {
+      // S^T = K Q^T, then P^T = exp(S^T * scale + bias_key - lse_query).
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss_m64n64(s, Tile::k_major(k_addr, kk), Tile::k_major(q_addr, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      const float* ls = reinterpret_cast<const float*>(stp + L::LSE);
+      const bool ragged = i0 + TILE > S;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const int col = 8 * i + 2 * tig;
+        const float2 lq = *reinterpret_cast<const float2*>(ls + col);
+        float p00 = exp2f((fmaf(s[4 * i], scale, bk0) - lq.x) * LOG2E);
+        float p01 = exp2f((fmaf(s[4 * i + 1], scale, bk0) - lq.y) * LOG2E);
+        float p10 = exp2f((fmaf(s[4 * i + 2], scale, bk1) - lq.x) * LOG2E);
+        float p11 = exp2f((fmaf(s[4 * i + 3], scale, bk1) - lq.y) * LOG2E);
+        if (ragged) {  // query rows past S carry p = 0
+          if (i0 + col >= S) p00 = p10 = 0.0f;
+          if (i0 + col + 1 >= S) p01 = p11 = 0.0f;
+        }
+        s[4 * i] = p00;
+        s[4 * i + 1] = p01;
+        s[4 * i + 2] = p10;
+        s[4 * i + 3] = p11;
+        fa[i / 2][(i % 2) * 2] = pack_bf16(p00, p01);
+        fa[i / 2][(i % 2) * 2 + 1] = pack_bf16(p10, p11);
+      }
+      // P^T in f32 for warpgroup 1, whose thread wtid holds dP^T at the
+      // same positions: thread-major, four floats at a time.
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+        reinterpret_cast<float4*>(pbuf)[i * 128 + wtid] =
+            make_float4(s[4 * i], s[4 * i + 1], s[4 * i + 2], s[4 * i + 3]);
+      named_arrive(1, DKV_THREADS);
+      // dV += P^T dO
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk)
+        wgmma_rs<DH>(acc, fa[kk], Tile::mn_major(do_addr, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+    } else {
+      // dP^T = V dO^T, then dS^T = P^T (dP^T - D_query) scale.
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk)
+        wgmma_ss_m64n64(s, Tile::k_major(v_addr, kk), Tile::k_major(do_addr, kk), kk > 0);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      const float* dsq = reinterpret_cast<const float*>(stp + L::DSUM);
+      named_sync(1, DKV_THREADS);  // P^T is written
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float4 p = reinterpret_cast<const float4*>(pbuf)[i * 128 + wtid];
+        const float2 dq = *reinterpret_cast<const float2*>(dsq + 8 * i + 2 * tig);
+        const float d00 = __fmul_rn(__fmul_rn(p.x, __fsub_rn(s[4 * i], dq.x)), scale);
+        const float d01 = __fmul_rn(__fmul_rn(p.y, __fsub_rn(s[4 * i + 1], dq.y)), scale);
+        const float d10 = __fmul_rn(__fmul_rn(p.z, __fsub_rn(s[4 * i + 2], dq.x)), scale);
+        const float d11 = __fmul_rn(__fmul_rn(p.w, __fsub_rn(s[4 * i + 3], dq.y)), scale);
+        fa[i / 2][(i % 2) * 2] = pack_bf16(d00, d01);
+        fa[i / 2][(i % 2) * 2 + 1] = pack_bf16(d10, d11);
+      }
+      // dK += dS^T Q
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < TILE / 16; ++kk)
+        wgmma_rs<DH>(acc, fa[kk], Tile::mn_major(q_addr, kk), 1);
+      wgmma_commit();
+      wgmma_wait<0>();
+    }
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) fence_regs(fa[kk]);
   }
 
-  // Stage dV (rows 0..63) then dK (rows 64..127) and write the keys < S.
-  __syncthreads();
-  float* stage = reinterpret_cast<float*>(smem);
+  // dV from warpgroup 0, dK from warpgroup 1; keys >= S are dropped.
+  float* dst = (wg == 0 ? dv : dk) + static_cast<size_t>(b) * S * kv_stride + g * DH + 2 * tig;
+  if (j0 + kr0 < S) {
+    float* row = dst + static_cast<size_t>(j0 + kr0) * kv_stride;
 #pragma unroll
-  for (int n = 0; n < NF; ++n)
-    wmma::store_matrix_sync(stage + (half * TILE + rw * 16) * L::LDO + n * 16,
-                            acc[n], L::LDO, wmma::mem_row_major);
-  __syncthreads();
-  float* dkb = dk + static_cast<size_t>(b) * S * kv_stride + g * DH;
-  float* dvb = dv + static_cast<size_t>(b) * S * kv_stride + g * DH;
-  for (int p = tid; p < 2 * TILE * DH; p += THREADS) {
-    const int r = p / DH;
-    const int c = p % DH;
-    const int j = j0 + (r % TILE);
-    if (j < S) {
-      float* dst = r < TILE ? dvb : dkb;
-      dst[j * kv_stride + c] = stage[r * L::LDO + c];
-    }
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<float2*>(row + 8 * i) = make_float2(acc[4 * i], acc[4 * i + 1]);
+  }
+  if (j0 + kr1 < S) {
+    float* row = dst + static_cast<size_t>(j0 + kr1) * kv_stride;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<float2*>(row + 8 * i) = make_float2(acc[4 * i + 2], acc[4 * i + 3]);
   }
 }
 
@@ -387,12 +512,12 @@ int launch_dkv(const void* q, const void* k, const void* v, const float* bias,
                const void* dout, const float* lse, const float* dsum, float* dk,
                float* dv, int B, int S, int H, int KV, float scale,
                cudaStream_t stream) {
-  constexpr int bytes = Smem<DH>::BYTES;
+  constexpr int bytes = DkvLayout<DH>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_bwd_dkv_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   dim3 grid((S + TILE - 1) / TILE, KV, B);
-  flash_bwd_dkv_kernel<DH><<<grid, THREADS, bytes, stream>>>(
+  flash_bwd_dkv_kernel<DH><<<grid, DKV_THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bias, static_cast<const bf16*>(dout), lse,
       dsum, dk, dv, S, H, KV, scale);

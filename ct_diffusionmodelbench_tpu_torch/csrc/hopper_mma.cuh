@@ -1,0 +1,268 @@
+// Hopper building blocks shared by the flash-attention kernels
+// (flash_attention.cu: the forward; flash_attention_bwd.cu: dk/dv).
+//
+// - cp.async copies from device memory into shared memory, 16 bytes (or 4)
+//   per thread, zero-filling rows past the sequence end;
+// - the canonical swizzled layout of a 64-row bf16 [64, Dh] tile that wgmma
+//   reads, and the matrix descriptors that name it: one layout serves as a
+//   K-major operand (Q, K as the A / B of Q K^T) and as an MN-major one (V as
+//   the B of P V), so every tile is stored the same way;
+// - the wgmma instructions the kernels issue, with their fence / commit /
+//   wait and the register fences that keep the compiler from touching an
+//   operand while an asynchronous wgmma still owns it;
+// - rotate-half RoPE rounded as PyTorch's separate elementwise ops round it.
+//
+// Layout.  A row of the tile is Dh * 2 bytes.  It is cut into column blocks
+// of SW = min(Dh * 2, 128) bytes (the 128 B, 64 B or 32 B swizzle mode:
+// Dh 128 takes two 128 B blocks, Dh 64 one, Dh 32 one 64 B block, Dh 16 one
+// 32 B block); block b holds the SW-byte slice of all 64 rows, row after
+// row, and inside a block the 16-byte chunk c of row r sits at chunk
+// c ^ f(r), f(r) = r % 8 (128 B), (r / 2) % 4 (64 B), (r / 4) % 2 (32 B).
+// That is the address swizzle wgmma applies to bits 4-6 of an address from
+// bits 7-9, so every tile starts at a multiple of 1024 bytes.
+//
+// Descriptors (PTX ISA, "matrix descriptor"): start address / 16 in bits
+// 0-13, leading byte offset / 16 in 16-29, stride byte offset / 16 in 32-45,
+// swizzle mode in 62-63 (1: 128 B, 2: 64 B, 3: 32 B).
+// - K-major (rows are M or N, columns the reduction dim K): the stride byte
+//   offset steps 8 rows (8 * SW); the leading offset is unused when
+//   swizzled; k-step kk (16 columns, 32 bytes) starts 32 * kk bytes into the
+//   row, in the column block that holds it.
+// - MN-major (rows are K, columns N): the stride byte offset steps 8 rows
+//   of K (8 * SW), the leading byte offset steps to the next SW-byte column
+//   block of N (64 * SW); k-step kk starts 16 rows further down.
+//
+// Register layouts (wgmma m64nNk16, per warp w of the warpgroup, lane =
+// 4 * g + t): accumulator element d[4 i + 2 h + e] is row 16 w + g + 8 h,
+// column 8 i + 2 t + e; the A fragment of k-step kk from registers holds
+// A[16 w + g + 8 h][16 kk + 8 u + 2 t + e] in bf16 half e of register
+// 2 u + h.  So an f32 accumulator over 64 columns becomes the A operand of
+// the next product over those columns pair by pair: register j of k-step kk
+// packs d[8 kk + 2 j] and d[8 kk + 2 j + 1].
+
+#pragma once
+
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+namespace ctdb {
+
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from device memory into shared memory, asynchronously; with
+// `valid` false nothing is read and the 16 bytes are zeroed.
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// As cp_async16, for one 4-byte word (rows of f32 vectors that need not be
+// 16-byte aligned).
+__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(dst), "l"(src),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Make this thread's shared-memory writes (stores and completed cp.async
+// copies) visible to wgmma, which reads shared memory through the async
+// proxy; a barrier after it publishes them to the other threads' wgmma.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barriers (id 1-15; 0 is __syncthreads) over `threads` threads.
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
+                                              uint64_t mode) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
+}
+
+// A [64, DH] bf16 tile in the canonical swizzled layout (see the top).
+template <int DH>
+struct SwTile {
+  static constexpr int SW = DH * 2 < 128 ? DH * 2 : 128;  // bytes per swizzled row
+  static constexpr int CPB = SW / 16;                      // 16-byte chunks in it
+  static constexpr int BLOCK = 64 * SW;                    // one column block
+  static constexpr int BYTES = 64 * DH * 2;
+  static constexpr uint64_t MODE = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
+
+  // Byte offset of chunk c (elements 8c .. 8c + 7) of row r.
+  __device__ static __forceinline__ uint32_t chunk(int r, int c) {
+    const int f = SW == 128 ? (r & 7) : (SW == 64 ? ((r >> 1) & 3) : ((r >> 2) & 1));
+    return (c / CPB) * BLOCK + r * SW + (((c % CPB) ^ f) << 4);
+  }
+  // k-step kk of the tile at `base` as a K-major operand.
+  __device__ static __forceinline__ uint64_t k_major(uint32_t base, int kk) {
+    return smem_desc(base + (kk * 32 / SW) * BLOCK + (kk * 32) % SW, 16, 8 * SW, MODE);
+  }
+  // k-step kk of the tile at `base` as an MN-major operand.
+  __device__ static __forceinline__ uint64_t mn_major(uint32_t base, int kk) {
+    return smem_desc(base + kk * 16 * SW, BLOCK, 8 * SW, MODE);
+  }
+};
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Tie registers to this point of the instruction order: placed after a
+// wgmma wait, no read of an accumulator moves above the wait, and no
+// register of an A operand is reused before it.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(d[i])::"memory");
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Rotate-half RoPE of 8 pairs: lo holds x1 = x[d .. d + 7], hi holds
+// x2 = x[d + Dh/2 .. d + Dh/2 + 7]; becomes x1 c - x2 s, x2 c + x1 s with
+// every product and sum rounded on its own, as PyTorch's ops round them.
+__device__ __forceinline__ void rope8(uint4& lo, uint4& hi, const float* c, const float* s) {
+  const bf16* x1 = reinterpret_cast<const bf16*>(&lo);
+  const bf16* x2 = reinterpret_cast<const bf16*>(&hi);
+  uint4 o1, o2;
+  bf16* y1 = reinterpret_cast<bf16*>(&o1);
+  bf16* y2 = reinterpret_cast<bf16*>(&o2);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const float a = __bfloat162float(x1[j]);
+    const float b = __bfloat162float(x2[j]);
+    y1[j] = __float2bfloat16(__fsub_rn(__fmul_rn(a, c[j]), __fmul_rn(b, s[j])));
+    y2[j] = __float2bfloat16(__fadd_rn(__fmul_rn(b, c[j]), __fmul_rn(a, s[j])));
+  }
+  lo = o1;
+  hi = o2;
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]; A and B K-major in shared memory.
+__device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]; A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]; A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]; A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128]; A in registers, B MN-major in shared memory.
+__device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+}
+
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A in registers, B MN-major.
+template <int N>
+__device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
+                                         uint64_t desc_b, int scale_d) {
+  static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma width");
+  if constexpr (N == 16) wgmma_rs_m64n16(d, a, desc_b, scale_d);
+  if constexpr (N == 32) wgmma_rs_m64n32(d, a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_rs_m64n64(d, a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_rs_m64n128(d, a, desc_b, scale_d);
+}
+
+}  // namespace ctdb

@@ -4,7 +4,8 @@ Each source under ``csrc/`` is compiled by ``nvcc`` for ``sm_90a`` into a
 shared library with a plain C interface and loaded with ``ctypes``.  Nothing
 is built at import: a library is built at its first use (or all at once,
 in parallel, by :func:`build_all`) into ``build/cuda_kernels/`` at the repo
-root, named by a hash of its source and flags so a changed source rebuilds.
+root, named by a hash of its source, the ``csrc/`` headers it includes and
+the flags, so a changed source or header rebuilds.
 
 Every C entry point launches on the stream it is given and returns
 ``cudaGetLastError()``; :class:`Kernel` raises on a non-zero code and counts
@@ -16,6 +17,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
@@ -27,6 +29,21 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
 NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-lineinfo", "-shared",
                            "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_LOCAL_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def local_headers(source: Path) -> List[Path]:
+    """The ``#include "..."`` files of ``source`` that sit beside it, and
+    theirs, each once, in the order first met."""
+    found: List[Path] = []
+    todo = [source]
+    while todo:
+        for name in _LOCAL_INCLUDE.findall(todo.pop().read_text()):
+            header = source.parent / name
+            if header.exists() and header not in found:
+                found.append(header)
+                todo.append(header)
+    return found
 
 
 def _nvcc() -> str:
@@ -49,6 +66,8 @@ class Library:
     @property
     def path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
+        for header in local_headers(self.source):
+            h.update(header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 

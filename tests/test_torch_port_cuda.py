@@ -12,8 +12,9 @@ in f32 and round once to bf16, so they differ by at most one bf16 ulp
 weights are exact in bf16, and both versions scale the f32 product before
 the one rounding); flash attention also rounds P to
 bf16 against differently tiled running maxima (two ulps).  The forward's
-lse is f32 from scores that may differ by one bf16 ulp of a rotated q/k
-element (the kernel may fuse the rotation's multiply-add): 2e-3 absolute.
+lse is f32 from scores and sums taken in another order than the plain
+version's (and, in K9's case, may fuse the rotation's multiply-add where
+PyTorch rounds twice): 2e-3 absolute.
 The backward's f32 outputs sum products of bf16-rounded P and dS, whose
 f32 sources differ in their last bits between the two versions; a flipped
 rounding moves one term by one bf16 ulp (2**-8 relative), so each result
@@ -24,7 +25,7 @@ import pytest
 import torch
 
 from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params, make_forward_fn
-from ct_diffusionmodelbench_tpu_torch.models.layers import rope_angles
+from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rope_angles
 from ct_diffusionmodelbench_tpu_torch.models.transformer import token_positions
 from ct_diffusionmodelbench_tpu_torch.ops import attention
 from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
@@ -246,6 +247,69 @@ def test_flash_lse_and_backward_kernels_match_plain(cuda_device, dh, h, kv, s):
     _bwd_close(got, fab.flash_attention_bwd_plain(q, k, v, bias, out, do, lse))
     masked_keys = mask[:2] == 0  # rows of batch 2 see every key with p = 1
     assert not got[1][:2][masked_keys].any() and not got[2][:2][masked_keys].any()
+
+
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 128, 129, 1023, 1025])
+def test_flash_kernel_tile_edges(cuda_device, s):
+    """The forward where its 64-row query tiles and 64-key tiles end, and
+    across the kv_tile_len switch at 1024 (1023 pads to 1024 keys, 1025 to
+    1536), with the all-masked row; lse too."""
+    dev = cuda_device
+    q, k, v, _, mask = _attn_case(dev, 3, s, 8, 2, 128, 3 * s)
+    rope = rope_angles(token_positions(mask, 3, s, dev), 128, 10000.0)
+    out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope, with_lse=True)
+    out_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask, rope=rope, with_lse=True)
+    torch.testing.assert_close(out, out_p, **FLASH_TOL)
+    torch.testing.assert_close(lse, lse_p, **LSE_TOL)
+
+
+@pytest.mark.parametrize("h,kv", [(16, 4), (28, 4)])  # llada-moe-7b's heads; rep 7 (Dream)
+def test_flash_kernel_decode_shape(cuda_device, h, kv):
+    """The forward at the decode path's shape: B 8, S 320 (384 keys after
+    padding, a whole tile of zero keys), left padding of 0, 4, ..., 28
+    tokens, RoPE; two calls bit-equal."""
+    dev, b, s, dh = cuda_device, 8, 320, 128
+    g = torch.Generator(device=dev).manual_seed(h)
+    q = torch.randn((b, s, h, dh), generator=g, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, dh), generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    for i in range(b):
+        mask[i, :4 * i] = 0
+    rope = rope_angles(token_positions(mask, b, s, dev), dh, 10000.0)
+    out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope, with_lse=True)
+    out_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask, rope=rope, with_lse=True)
+    torch.testing.assert_close(out, out_p, **FLASH_TOL)
+    torch.testing.assert_close(lse, lse_p, **LSE_TOL)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope))
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 2), (28, 4)])   # rep 1, 4, 7
+@pytest.mark.parametrize("s", [37, 300])
+def test_flash_dkv_kernel_rep_and_repeat(cuda_device, h, kv, s):
+    """dk/dv summed over rep query heads inside the block, on the ragged
+    last tile and the all-masked row (batch 2); two calls bit-equal."""
+    dev = cuda_device
+    q, k, v, do, mask = _attn_case(dev, 3, s, h, kv, 128, 7 * s + h)
+    cos, sin = rope_angles(token_positions(mask, 3, s, dev), 128, 10000.0)
+    out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, rope=(cos, sin), with_lse=True)
+    qr, kr = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    bias = fa.mask_bias(mask, 3, s, dev)
+    got = fab.flash_attention_bwd(qr, kr, v, bias, out, do, lse)
+    _bwd_close(got, fab.flash_attention_bwd_plain(qr, kr, v, bias, out, do, lse))
+    again = fab.flash_attention_bwd(qr, kr, v, bias, out, do, lse)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_flash_backward_kernels_head_dims(cuda_device, dh):
+    """The backward at every head dim (each takes its own swizzle width)."""
+    dev = cuda_device
+    q, k, v, do, mask = _attn_case(dev, 3, 130, 8, 2, dh, dh)
+    out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, with_lse=True)
+    bias = fa.mask_bias(mask, 3, 130, dev)
+    got = fab.flash_attention_bwd(q, k, v, bias, out, do, lse)
+    _bwd_close(got, fab.flash_attention_bwd_plain(q, k, v, bias, out, do, lse))
 
 
 def test_flash_function_carries_gradients_on_card(cuda_device, monkeypatch):

@@ -1,0 +1,53 @@
+"""The port's kernel build bookkeeping, on the CPU (no nvcc needed).
+
+A library is named by a hash of its source, the ``csrc/`` headers it
+includes and the nvcc flags, so an edited header rebuilds every source that
+includes it instead of loading a stale library from ``build/cuda_kernels/``.
+"""
+
+from pathlib import Path
+
+import pytest
+
+from ct_diffusionmodelbench_tpu_torch.ops import cuda_build
+from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
+from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+
+
+def _write(path: Path, text: str) -> Path:
+    path.write_text(text)
+    return path
+
+
+def test_local_headers_are_followed_once(tmp_path):
+    src = _write(tmp_path / "k.cu", '#include <cuda_runtime.h>\n#include "a.cuh"\n'
+                                    '  #  include "b.cuh"\n')
+    _write(tmp_path / "a.cuh", '#pragma once\n#include "c.cuh"\n#include "b.cuh"\n')
+    _write(tmp_path / "b.cuh", "#pragma once\n")
+    _write(tmp_path / "c.cuh", '#pragma once\n#include "a.cuh"\n')
+    got = [h.name for h in cuda_build.local_headers(src)]
+    assert sorted(got) == ["a.cuh", "b.cuh", "c.cuh"] and len(got) == 3
+
+
+def test_library_path_changes_with_an_included_header(tmp_path):
+    src = _write(tmp_path / "k.cu", '#include "h.cuh"\nint f() { return G; }\n')
+    header = _write(tmp_path / "h.cuh", "#define G 1\n")
+    lib = cuda_build.Library("flash_attention.cu")
+    lib.source = src
+    before = lib.path
+    assert lib.path == before                      # stable while nothing changes
+    header.write_text("#define G 2\n")
+    assert lib.path != before
+    assert lib.path.name.startswith("k-") and lib.path.parent == cuda_build.BUILD_DIR
+
+
+@pytest.mark.parametrize("library", [fa.LIBRARY, fab.LIBRARY])
+def test_flash_sources_hash_the_shared_header(library):
+    assert [h.name for h in cuda_build.local_headers(library.source)] == ["hopper_mma.cuh"]
+
+
+@pytest.mark.parametrize("library", [gg.LIBRARY, gg.LIBRARY_Q, gg.LIBRARY_FUSED,
+                                     fa.LIBRARY_DIRECT])
+def test_sources_without_local_headers_hash_only_themselves(library):
+    assert cuda_build.local_headers(library.source) == []
