@@ -7,8 +7,9 @@ Phases, in order:
 
 1. card name and power limit (nvidia-smi), then build of every CUDA kernel
    from ``ct_diffusionmodelbench_tpu_torch/csrc`` (one nvcc per source, all
-   started together); ptxas's registers and spills per kernel, and whether
-   the flash forward and dk/dv kernels spill at head dim 128.
+   started together); ptxas's registers, spills and warnings per kernel, and
+   whether the flash forward and dk/dv kernels at head dim 128 and the two
+   int8 grouped kernels spill.
 2. kernels: each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs, timed with CUDA events beside the plain
    version, one PyTorch library call where one exists, and its bound.  The
@@ -40,9 +41,12 @@ Phases, in order:
 8. int8 kernels: ``ModelRunner.random_init("llada-moe-7b", quant="int8")``
    (each weight quantized as it is built); the int8 gate/up and down
    kernels on the layer-1 routing of a full-size int8 forward, with the
-   stacked [18, 64, ...] int8 experts, against their plain versions, timed
-   beside them and beside ``torch._grouped_mm`` on weights dequantized to
-   bf16 beforehand.
+   stacked [18, 64, ...] int8 experts, against their plain versions, with
+   the pad-skip vector ``tile_valid`` the main path hands them (real rows
+   against the plain versions, the rest zero) and without it; timed beside
+   the plain versions and, in turns (medians of 5), with and without
+   ``tile_valid`` beside ``torch._grouped_mm`` on weights dequantized to
+   bf16 beforehand, with their achieved TFLOP/s and share of the bound.
 9. int8 slice: ``ModelRunner.generate_ids`` at the bf16 slice's shape and
    prompt; launch counts read around that run (the int8 pair and flash, not
    the bf16 pair); no mask id may remain; a repeated forward must give
@@ -68,7 +72,8 @@ Phases, in order:
 
 The bf16 MoE weights are freed before phase 8, the int8 ones before
 phase 11, Dream's before phase 12.  Prints the first designs' times of the
-redesigned flash kernels (constants from PERF.md, on a line of their own),
+redesigned flash and int8 grouped kernels (constants from PERF.md, on a
+line of their own),
 the ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, ...}`` line.  Exits 2, printing no result, without a card or
 without the port's package beside it (the script run on its own); exits 1
@@ -162,13 +167,15 @@ BWD_RTOL, BWD_ATOL_OF_MAX = 2 ** -6, 2 ** -8
 GRAD_REL_L2 = 2 ** -5
 LOSS_RTOL = 2 ** -7
 
-# Times of the first designs of the two redesigned flash kernels, copied from
-# PERF.md's kernel table (the WMMA designs with the accumulators in shared
-# memory, on an H100 80GB HBM3 at 700 W); constants, not measured here.
+# Times of the first designs of the redesigned kernels, copied from PERF.md's
+# kernel table (the WMMA designs: the flash kernels with their accumulators
+# in shared memory, the int8 grouped pair widening int8 through shared
+# memory; on an H100 80GB HBM3 at 700 W); constants, not measured here.
 FIRST_DESIGN_MS = {"flash_attention_fwd": 0.3158, "flash_attention_fwd T": 2.7245,
                    "flash_attention_fwd chat": 0.1324,
                    "flash_attention_fwd Dream geometry": 0.1455,
-                   "flash_attention_bwd_dkv": 1.7452}
+                   "flash_attention_bwd_dkv": 1.7452,
+                   "grouped_gateup_q": 1.3266, "grouped_down_q": 0.7082}
 # Rounds of the in-turn timings; the median of each is reported.
 TURNS = 5
 
@@ -219,25 +226,29 @@ def report_rate(label: str, flops: float, ms: float, bound: float) -> dict:
 
 
 def ptxas_report(libs) -> None:
-    """Print ptxas's entry, register and spill lines, and the spill bytes of
-    the flash forward and dk/dv kernels at head dim 128 (found by their
-    mangled names)."""
+    """Print ptxas's entry, register, spill and warning lines (a warning
+    names, among others, wgmma products it had to serialize), and the spill
+    bytes of the flash forward and dk/dv kernels at head dim 128 and of both
+    int8 grouped kernels (found by their mangled names)."""
     watch = {"flash_fwd_kernel<128>": "16flash_fwd_kernelILi128E",
-             "flash_bwd_dkv_kernel<128>": "20flash_bwd_dkv_kernelILi128E"}
+             "flash_bwd_dkv_kernel<128>": "20flash_bwd_dkv_kernelILi128E",
+             "grouped_gemm_q_kernel<2> (gate/up)": "21grouped_gemm_q_kernelILi2E",
+             "grouped_gemm_q_kernel<1> (down)": "21grouped_gemm_q_kernelILi1E"}
     spills = {}
     for lib in libs:
         entry = ""
         for line in lib.path.with_suffix(".log").read_text().splitlines():
             if "Compiling entry function" in line:
                 entry = line
-            elif not ("registers" in line or "spill" in line):
+            elif not ("registers" in line or "spill" in line
+                      or "warning" in line.lower()):
                 continue
             print(f"  {lib.source.name}: {line.strip()}", flush=True)
             stores = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
             for name, mangled in watch.items():
                 if stores and mangled in entry:
                     spills[name] = int(stores.group(1)) + int(stores.group(2))
-    print("  spill bytes at Dh 128: " + ", ".join(
+    print("  spill bytes: " + ", ".join(
         f"{k} {spills.get(k, 'not found')}" for k in watch), flush=True)
 
 
@@ -951,61 +962,91 @@ def int8_kernel_phase(runner, dev):
     def layer_deq(w):
         return dequantize_tensor({"q": w["q"][li], "s": w["s"][li]}, torch.bfloat16)
 
+    # The pad-skip vector grouped_expert_ffn_cuda hands the pair: tiles with
+    # no real row, zero-filled instead of multiplied.
+    valid = gg.valid_tiles(sizes, tile_expert, gg.TILE_M, m_pad)
+    real = valid.repeat_interleave(gg.TILE_M) != 0
+    print(f"  pad-skip: {int((valid == 0).sum())} of {valid.numel()} tiles hold no "
+          f"real row", flush=True)
+
+    def skip_pad_check(name, got, want):
+        err = compare(f"{name} with tile_valid, real rows", got[real], want[real],
+                      **GROUPED_TOL)
+        if got[~real].any():
+            raise AssertionError(f"{name}: a tile that tile_valid marks empty is not zero")
+        return err
+
     # gate/up
     h_k = gg.grouped_gateup_q(xs, qg, qu, tile_expert, gg.TILE_M, li)
     h_p = gg.grouped_gateup_q_plain(xs, qg, qu, tile_expert, gg.TILE_M, li)
     torch.cuda.synchronize()
-    err = compare("grouped_gateup_q", h_k, h_p, **GROUPED_TOL)
+    err = max(compare("grouped_gateup_q", h_k, h_p, **GROUPED_TOL), skip_pad_check(
+        "grouped_gateup_q",
+        gg.grouped_gateup_q(xs, qg, qu, tile_expert, gg.TILE_M, li, valid), h_p))
     h_out = torch.empty_like(h_k)
-    k_ms = time_ms(lambda: gg.GATEUP_Q_KERNEL(
-        xs.data_ptr(), qg["q"].data_ptr(), qu["q"].data_ptr(), qg["s"].data_ptr(),
-        qu["s"].data_ptr(), h_out.data_ptr(), tile_expert.data_ptr(), m_pad, D, Fm,
-        E, li, gg.TILE_M, stream), 20)
+
+    def gateup(tile_valid):
+        return lambda: gg.GATEUP_Q_KERNEL(
+            xs.data_ptr(), qg["q"].data_ptr(), qu["q"].data_ptr(), qg["s"].data_ptr(),
+            qu["s"].data_ptr(), h_out.data_ptr(), tile_expert.data_ptr(), m_pad, D, Fm,
+            E, li, gg.TILE_M, tile_valid, stream)
+
     p_ms = time_ms(lambda: gg.grouped_gateup_q_plain(
-        xs, qg, qu, tile_expert, gg.TILE_M, li), 3, warmup=1)
-    lib_ms = None
+        xs, qg, qu, tile_expert, gg.TILE_M, li, valid), 3, warmup=1)
+    fns = {"kernel": gateup(valid.data_ptr()), "no_skip": gateup(None)}
     if grouped_mm is not None:
         w_gu = torch.cat([layer_deq(qg), layer_deq(qu)], dim=-1)
-        lib_ms = time_ms(lambda: grouped_mm(xs, w_gu, offs=pend), 20)
-        del w_gu
+        fns["library"] = lambda: grouped_mm(xs, w_gu, offs=pend)
+    turns = time_turns(fns, 20)
     # The m routed rows' bytes (padding rows copy token 0, weight 0), each
     # used expert's two int8 matrices and their f32 scales once.
-    b_ms, b_by = bound_ms(4.0 * m * D * Fm,
-                          m * (D + Fm) * bf16 + nbytes(tile_expert)
+    flops = 4.0 * m * D * Fm
+    b_ms, b_by = bound_ms(flops, m * (D + Fm) * bf16 + nbytes(tile_expert)
                           + used * 2 * (D * Fm + 4 * Fm))
+    rate = report_rate("grouped_gateup_q", flops, turns["kernel"], b_ms)
     results.append(dict(
         name="grouped_gateup_q", route="cuda", source=src, replaces=f"{ref}:1172",
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms))
+        max_abs_err=err, ms=turns["kernel"], plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=turns.get("library"), no_skip_ms=turns["no_skip"],
+        **rate))
 
     # down, on the plain gate/up output for both
     o_k = gg.grouped_down_q(h_p, qd, tile_expert, gg.TILE_M, li)
     o_p = gg.grouped_down_q_plain(h_p, qd, tile_expert, gg.TILE_M, li)
     torch.cuda.synchronize()
-    err = compare("grouped_down_q", o_k, o_p, **GROUPED_TOL)
+    err = max(compare("grouped_down_q", o_k, o_p, **GROUPED_TOL), skip_pad_check(
+        "grouped_down_q",
+        gg.grouped_down_q(h_p, qd, tile_expert, gg.TILE_M, li, valid), o_p))
     o_out = torch.empty_like(o_k)
-    k_ms = time_ms(lambda: gg.DOWN_Q_KERNEL(
-        h_p.data_ptr(), qd["q"].data_ptr(), qd["s"].data_ptr(), o_out.data_ptr(),
-        tile_expert.data_ptr(), m_pad, Fm, D, E, li, gg.TILE_M, stream), 20)
+
+    def down(tile_valid):
+        return lambda: gg.DOWN_Q_KERNEL(
+            h_p.data_ptr(), qd["q"].data_ptr(), qd["s"].data_ptr(), o_out.data_ptr(),
+            tile_expert.data_ptr(), m_pad, Fm, D, E, li, gg.TILE_M, tile_valid, stream)
+
     p_ms = time_ms(lambda: gg.grouped_down_q_plain(
-        h_p, qd, tile_expert, gg.TILE_M, li), 3, warmup=1)
-    lib_ms = None
+        h_p, qd, tile_expert, gg.TILE_M, li, valid), 3, warmup=1)
+    fns = {"kernel": down(valid.data_ptr()), "no_skip": down(None)}
     if grouped_mm is not None:
         wd_l = layer_deq(qd)
-        lib_ms = time_ms(lambda: grouped_mm(h_p, wd_l, offs=pend), 20)
-        del wd_l
-    b_ms, b_by = bound_ms(2.0 * m * Fm * D,
-                          m * (Fm + D) * bf16 + nbytes(tile_expert)
+        fns["library"] = lambda: grouped_mm(h_p, wd_l, offs=pend)
+    turns = time_turns(fns, 20)
+    flops = 2.0 * m * Fm * D
+    b_ms, b_by = bound_ms(flops, m * (Fm + D) * bf16 + nbytes(tile_expert)
                           + used * (Fm * D + 4 * D))
+    rate = report_rate("grouped_down_q", flops, turns["kernel"], b_ms)
     results.append(dict(
         name="grouped_down_q", route="cuda", source=src, replaces=f"{ref}:1242",
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms))
+        max_abs_err=err, ms=turns["kernel"], plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=turns.get("library"), no_skip_ms=turns["no_skip"],
+        **rate))
     for r in results:
         r["kernel_ms"] = r["ms"]
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library (torch._grouped_mm on weights dequantized to bf16 "
-              f"beforehand, not timed) {r['library_ms']}, bound "
+        print(f"  {r['name']}: kernel (with tile_valid, as on the main path) "
+              f"{r['ms']:.4f} ms, without {r['no_skip_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library "
+              f"(torch._grouped_mm on weights dequantized to bf16 beforehand, not "
+              f"timed; in turns with the kernel) {r['library_ms']}, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})", flush=True)
     return results
 
@@ -1463,7 +1504,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",
-            "k8_ms", "dream_geometry", "dream_launches")
+            "k8_ms", "dream_geometry", "dream_launches", "no_skip_ms")
     print("first designs' ms (constants from PERF.md, not measured in this run): "
           + json.dumps(FIRST_DESIGN_MS), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -15,7 +15,10 @@
 // the per-column scale multiplies the f32 accumulator in the epilogue: before
 // the SiLU for gate/up, before the bf16 store for down.  This is the same
 // (x @ q) * s as ops/quant.py::qdot and the TPU kernels' run-start cast with
-// an accumulator-epilogue scale.
+// an accumulator-epilogue scale.  With a tile_valid vector ([M_pad / tile_m]
+// int32; null: every tile valid), a tile whose entry is 0 holds no real row:
+// its output rows are zeros and no product runs for it (the reference's
+// pad-skip sentinel slot).
 //
 // Bound on an H100 SXM at the main path (M = 20480 routed rows, D 2048,
 // F 896, 64 experts): gate/up moves ~0.36 GB (the used experts' two int8
@@ -23,213 +26,343 @@
 // ~0.15 ms at 989 TFLOP/s: bound by operations.  Down: 0.24 GB / 0.07 ms
 // against 75 GFLOP / 0.076 ms.  int8 halves the weight bytes of the bf16
 // pair; the products stay bf16, because int8 x int8 would need activations
-// quantized too, which the reference does not do.
+// quantized too, which the reference does not do.  So the design's work is
+// to keep the tensor cores fed, with wgmma, while the weights are widened.
 //
-// Design: grouped_gemm.cu's, one block per (64-row tile, 128-column tile),
-// 4 warps of WMMA bf16 16x16x16 fragments (32x64 each), a 3-stage cp.async
-// ring.  The ring carries the weight tile as int8: a [32 x 128] tile is
-// 4 KB, half of the bf16 pair's, 16 weights per 16-byte cp.async (so N must
-// be a multiple of 16).  Each k-step widens its int8 stage to one bf16
-// working tile in shared memory (a register round trip per 16 weights, after
-// the ring barrier), and the fragments read that tile.  The tile-to-expert
-// map and the layer offset are the bf16 pair's.  Left for later: TMA, wgmma
-// reading int8 through registers, a persistent per-expert schedule.
+// Design (Hopper; hopper_mma.cuh has the layouts and instructions):
+// - wgmma reads B from shared memory only; only A may come from registers.
+//   So each warpgroup computes a transposed tile, out^T = W^T x^T: A is 64
+//   weight columns (the wgmma M), widened from int8 in registers; B is the
+//   64 or 128 rows of x (h for down) of the tile, K-major and swizzled in
+//   shared memory as they lie in device memory (the wgmma N); the f32
+//   accumulators hold out^T.
+// - A block is two consumer warpgroups, each with two 64-column A slices:
+//   gate and up of the same 64 columns of h (gate/up: the two accumulators
+//   line up element for element, so silu(g sg) (u su) runs in registers), or
+//   two neighbouring 64-column slices of out (down).  A block covers 128
+//   columns of h or 256 of out.
+// - A block takes the 64-row tiles 2y and 2y + 1: one m64n128k16 pass when
+//   both belong to one expert (always at tile_m 128), else an m64n64k16 pass
+//   for each (the tail of an odd-length run; or a zero fill for a tile that
+//   tile_valid marks empty).  Column blocks vary fastest in the grid, so the
+//   row tiles that read one expert's weight slice run close together in time
+//   and share it in L2 (a layer's 235 MB of int8 gate/up weights do not fit
+//   the 50 MB).
+// - A 5-stage cp.async ring carries per 64-deep k-step the x tile (16 KB at
+//   128 rows) and the int8 weight tile (64 rows of the block's 256 weight
+//   columns, rows padded to 272 bytes so the 8 rows one ldmatrix phase reads
+//   fall in 8 different bank groups): 33 KB a stage, three stages in flight,
+//   one __syncthreads per k-step.  The weights never pass through shared
+//   memory as bf16: ldmatrix.x4.trans, on 16-bit pairs of int8, hands a
+//   thread per k16 step and slice the bytes W[k][c], W[k][c + 1],
+//   W[k + 1][c], W[k + 1][c + 1] of its column pair c = 16 w + 2 g, which is
+//   what the A fragment wants (hopper_mma.cuh: A[16 w + g + 8 h][k] with k in
+//   pairs): the order of the 64 columns inside a warpgroup is free, and
+//   accumulator row 16 w + g + 8 h holds weight column 16 w + 2 g + h.  Each
+//   byte widens exactly through the f32 magic number (0x4B0000xx after
+//   ^ 0x80, minus 2^23 + 128: an int8 value's f32 has its low 16 bits zero,
+//   so its bf16 is its upper half) and __byte_perm packs the k-pairs: 11
+//   integer and float instructions per 4 weights.
+// - Per k16 step each warpgroup issues its two RS wgmmas and waits only for
+//   those of three steps before, so up to four steps' products are in
+//   flight while the next A fragment widens, one register buffer per k16
+//   step of a stage.  Per k16 step a block's four m64n128k16 products take
+//   256 tensor-core clocks at the peak against ~112 clocks of integer
+//   widening and 32 of ldmatrix.
+// - Epilogue: each thread loads its columns' f32 scales once per pass; the
+//   scaled (for gate/up, SiLU-gated) bf16 pairs are staged, transposed, in
+//   the ring's shared memory and leave as 16-byte rows.
+// - What holds it back (H100, PERF.md): the copies.  With the products
+//   taken out the kernel keeps most of its time, without the widening it
+//   is no faster, and the products add to the copies' time rather than
+//   hide behind them.  Each block brings 32 KB from L2 per 64-deep step
+//   for 4.2 MFLOP; TMA with multicast across a cluster, fed by a producer
+//   warp, is the next step.
+// Registers per thread at n128: 2 x 64 f32 accumulators and 4 x 2 x 4 A
+// registers; __launch_bounds__(256, 1) allows 255, and chip_smoke.py prints
+// ptxas's count and spills.  Shared memory: 5 x 33 KB, one block per SM.
+// Deterministic: every output element is one block's in-order k loop.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
+
+#include "hopper_mma.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-using namespace nvcuda;
+using namespace ctdb;
 
-constexpr int BM = 64;
-constexpr int BN = 128;   // output columns per block, summed over the weights
-constexpr int BK = 32;
-constexpr int STAGES = 3;
-constexpr int THREADS = 128;
-constexpr int A_LD = BK + 8;    // bf16 x tile (padded: bank spread, 32 B rows)
-constexpr int Q_LD = BN + 16;   // int8 weight tile; rows stay 16-byte aligned
-constexpr int B_LD = BN + 8;    // bf16 working copy of the weight tile
-constexpr int C_LD = BN + 4;
-constexpr int A_STAGE = BM * A_LD;   // bf16 elements
-constexpr int Q_STAGE = BK * Q_LD;   // bytes
-constexpr int A_BYTES = STAGES * A_STAGE * 2;
-constexpr int Q_BYTES = STAGES * Q_STAGE;
-constexpr int B_BYTES = BK * B_LD * 2;
-constexpr int PIPE_BYTES = A_BYTES + Q_BYTES + B_BYTES;
-constexpr int EPI_BYTES = BM * C_LD * 4;
-constexpr int SMEM_BYTES = PIPE_BYTES > EPI_BYTES ? PIPE_BYTES : EPI_BYTES;
-static_assert(SMEM_BYTES <= 48 * 1024, "static shared memory limit");
-static_assert(A_BYTES % 32 == 0 && (A_BYTES + Q_BYTES) % 32 == 0,
-              "WMMA tiles need 32-byte aligned bases");
+constexpr int NWG = 2;                    // consumer warpgroups per block
+constexpr int THREADS = 128 * NWG;
+constexpr int TILE_ROWS = 64;             // rows of the layout's smallest tile
+constexpr int BK = 64;                    // k per ring stage
+constexpr int KSTEPS = BK / 16;           // k16 wgmma steps per stage
+constexpr int STAGES = 5;
+constexpr int WCOLS = 128 * NWG;          // weight columns per block, all matrices
+constexpr int W_PITCH = WCOLS + 16;       // bytes per weight-tile row
+using XTile = SwTile<BK, 2 * TILE_ROWS>;  // the B tile: 128 rows of 64 values
+constexpr int X_BYTES = XTile::BYTES;
+constexpr int STAGE_BYTES = (X_BYTES + BK * W_PITCH + 1023) / 1024 * 1024;
+constexpr int SMEM_BYTES = STAGES * STAGE_BYTES + 1024;  // + base alignment
 
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem,
-                                           bool pred) {
-  unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(smem));
-  int n = pred ? 16 : 0;  // 0 bytes read: the 16 bytes are zero-filled
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
-               "l"(gmem), "r"(n));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// Bytes [shift/8] and [shift/8 + 1] of v (int8) as two bf16, low address
-// first.  Exact: every int8 value is a bf16.
-__device__ __forceinline__ uint32_t widen2(int v, int shift) {
-  const float lo = static_cast<float>(static_cast<int8_t>(v >> shift));
-  const float hi = static_cast<float>(static_cast<int8_t>(v >> (shift + 8)));
-  __nv_bfloat162 p = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&p);
-}
-
-__device__ __forceinline__ uint4 widen_lo(int a, int b) {
-  return make_uint4(widen2(a, 0), widen2(a, 16), widen2(b, 0), widen2(b, 16));
-}
-
-// NMAT = 2: gate/up (q0 = qg, q1 = qu, 64 columns of each per block).
-// NMAT = 1: down (q0 = qd, 128 columns per block).
+// NMAT = 2: gate/up (q0 = qg, q1 = qu); NMAT = 1: down (q0 = q1 = qd).
 template <int NMAT>
-__global__ void __launch_bounds__(THREADS)
-grouped_gemm_q_kernel(const bf16* __restrict__ x, const int8_t* __restrict__ q0,
-                      const int8_t* __restrict__ q1, const float* __restrict__ s0,
-                      const float* __restrict__ s1, bf16* __restrict__ out,
-                      const int* __restrict__ tile_expert, int K, int N,
-                      int num_experts, int layer, int tile_m) {
-  constexpr int WN = BN / NMAT;  // columns of each weight matrix per block
-  __shared__ __align__(128) unsigned char smem[SMEM_BYTES];
-  bf16* As = reinterpret_cast<bf16*>(smem);
-  int8_t* Qs = reinterpret_cast<int8_t*>(smem + A_BYTES);
-  bf16* Bs = reinterpret_cast<bf16*>(smem + A_BYTES + Q_BYTES);
-  float* Cs = reinterpret_cast<float*>(smem);  // epilogue reuse
+struct Cols {
+  static constexpr int OUT = WCOLS / NMAT;  // columns of out per block
+  // Byte offset, in a weight-tile row, of slice s of warpgroup wg: the row
+  // holds [qg n0 .. n0 + 127 | qu n0 .. n0 + 127] or [qd n0 .. n0 + 255].
+  __device__ static __forceinline__ int slice(int wg, int s) {
+    return NMAT == 2 ? 128 * s + 64 * wg : 128 * wg + 64 * s;
+  }
+  // Column of out, from the block's first, of slice s of warpgroup wg.
+  __device__ static __forceinline__ int out(int wg, int s) {
+    return NMAT == 2 ? 64 * wg : 128 * wg + 64 * s;
+  }
+};
+static_assert(StagedTile<2 * TILE_ROWS, Cols<1>::OUT>::BYTES <= STAGES * STAGE_BYTES,
+              "the staged output tile fits in the ring");
 
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr)
+               : "memory");
+}
+
+// r holds the int8 bytes (W[k][c], W[k][c + 1], W[k + 1][c], W[k + 1][c + 1]);
+// c0 becomes the bf16 pair (W[k][c], W[k + 1][c]), c1 (W[k][c + 1],
+// W[k + 1][c + 1]), low half first.  Exact for every int8 value.
+__device__ __forceinline__ void widen_kpairs(uint32_t r, uint32_t& c0, uint32_t& c1) {
+  constexpr uint32_t MAGIC = 0x4B000000u;  // 2^23
+  constexpr float BIAS = 8388736.0f;       // 2^23 + 128
+  const uint32_t u = r ^ 0x80808080u;      // each byte v + 128, unsigned
+  const float f0 = __uint_as_float(__byte_perm(u, MAGIC, 0x7650)) - BIAS;
+  const float f1 = __uint_as_float(__byte_perm(u, MAGIC, 0x7651)) - BIAS;
+  const float f2 = __uint_as_float(__byte_perm(u, MAGIC, 0x7652)) - BIAS;
+  const float f3 = __uint_as_float(__byte_perm(u, MAGIC, 0x7653)) - BIAS;
+  c0 = __byte_perm(__float_as_uint(f0), __float_as_uint(f2), 0x7632);
+  c1 = __byte_perm(__float_as_uint(f1), __float_as_uint(f3), 0x7632);
+}
+
+// Two A fragments from an int8 weight tile in shared memory: one
+// ldmatrix.x4.trans (matrix j = lane / 8 from this lane's row address, 8
+// k-rows of 16 bytes) and the widening.  fa[0] is from matrices 0 and 1 (k
+// rows 0-7 and 8-15 of one k16 step), fa[1] from matrices 2 and 3.
+__device__ __forceinline__ void load_a_pair(uint32_t (&fa)[2][4], uint32_t lane_addr) {
+  uint32_t r[4];
+  ldmatrix_x4_trans(r, lane_addr);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    widen_kpairs(r[2 * s], fa[s][0], fa[s][1]);
+    widen_kpairs(r[2 * s + 1], fa[s][2], fa[s][3]);
+  }
+}
+
+// The weight tile of k-step [k0, k0 + 64) into shared memory at dst: 64
+// rows of the block's weight columns, 16 per cp.async; rows >= K and
+// columns >= N are zero-filled (N % 16 == 0).
+template <int NMAT>
+__device__ __forceinline__ void issue_weights(uint32_t dst, const int8_t* w0,
+                                              const int8_t* w1, int K, int N, int n0,
+                                              int k0, int tid) {
+  constexpr int CPR = WCOLS / 16;  // 16-byte chunks per row
+  constexpr int CPM = CPR / NMAT;  // of them per matrix
+#pragma unroll
+  for (int i = 0; i < BK * CPR / THREADS; ++i) {
+    const int p = tid + i * THREADS;
+    const int k = p / CPR;
+    const int c = p % CPR;
+    const int8_t* w = c < CPM ? w0 : w1;
+    const int col = n0 + 16 * (c % CPM);
+    const bool ok = k0 + k < K && col < N;
+    cp_async16(dst + k * W_PITCH + 16 * c,
+               ok ? w + static_cast<size_t>(k0 + k) * N + col : w0, ok);
+  }
+}
+
+struct Args {
+  const bf16* x;
+  const int8_t* q0;
+  const int8_t* q1;
+  const float* s0;
+  const float* s1;
+  bf16* out;
+  int K, N, num_experts, layer;
+};
+
+// One pass: NR rows of x from row0, all of expert e, times the block's
+// weight columns from n0, into out.
+template <int NMAT, int NR>
+__device__ __forceinline__ void run_pass(unsigned char* smem, Args a, size_t row0,
+                                         int e, int n0) {
   const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int warp_m = warp / 2;
-  const int warp_n = warp % 2;
-  const int m0 = blockIdx.y * BM;
-  const int n0 = blockIdx.x * WN;
-  const int e = tile_expert[m0 / tile_m];
-  const size_t le = static_cast<size_t>(layer) * num_experts + e;
-  const size_t w_off = le * static_cast<size_t>(K) * N;
-  const int8_t* wa = q0 + w_off;
-  const int8_t* wb = (NMAT == 2 ? q1 : q0) + w_off;
-  const float* sa = s0 + le * N;
-  const float* sb = (NMAT == 2 ? s1 : s0) + le * N;
-  const bf16* xa = x + static_cast<size_t>(m0) * K;
-
-  auto load_stage = [&](int stage, int k0) {
-    bf16* as = As + stage * A_STAGE;
-    int8_t* qs = Qs + stage * Q_STAGE;
-#pragma unroll
-    for (int c = tid; c < BM * BK / 8; c += THREADS) {
-      const int r = c / (BK / 8);
-      const int kc = (c % (BK / 8)) * 8;
-      const bool ok = k0 + kc < K;
-      const bf16* src = ok ? xa + static_cast<size_t>(r) * K + k0 + kc : x;
-      cp_async16(as + r * A_LD + kc, src, ok);
-    }
-#pragma unroll
-    for (int c = tid; c < BK * BN / 16; c += THREADS) {
-      const int r = c / (BN / 16);
-      const int cc = (c % (BN / 16)) * 16;
-      const int col = n0 + cc % WN;
-      const int8_t* wm = cc / WN == 0 ? wa : wb;
-      const bool ok = k0 + r < K && col < N;
-      const int8_t* src = ok ? wm + static_cast<size_t>(k0 + r) * N + col : q0;
-      cp_async16(qs + r * Q_LD + cc, src, ok);
-    }
-  };
-
-  // int8 stage -> the bf16 working tile, 16 weights per thread and step.
-  auto widen_stage = [&](int stage) {
-    const int8_t* qs = Qs + stage * Q_STAGE;
-#pragma unroll
-    for (int c = tid; c < BK * BN / 16; c += THREADS) {
-      const int r = c / (BN / 16);
-      const int cc = (c % (BN / 16)) * 16;
-      const int4 raw = *reinterpret_cast<const int4*>(qs + r * Q_LD + cc);
-      uint4* dst = reinterpret_cast<uint4*>(Bs + r * B_LD + cc);
-      dst[0] = widen_lo(raw.x, raw.y);
-      dst[1] = widen_lo(raw.z, raw.w);
-    }
-  };
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[2][4];
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) wmma::fill_fragment(acc[i][j], 0.0f);
-
+  const int wg = tid / 128;
+  const int warp = (tid % 128) / 32;
+  const int lane = tid % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int K = a.K, N = a.N;
+  const size_t le = static_cast<size_t>(a.layer) * a.num_experts + e;
+  const int8_t* w0 = a.q0 + le * K * N;
+  const int8_t* w1 = a.q1 + le * K * N;
+  const bf16* xr = a.x + row0 * K;
+  const uint32_t base = smem_u32(smem);
   const int ktiles = (K + BK - 1) / BK;
+
+  auto issue = [&](int kt) {
+    const uint32_t st = base + (kt % STAGES) * STAGE_BYTES;
+    issue_kmajor_rows<NR, THREADS>(st, xr, K, kt * BK, K, tid);
+    issue_weights<NMAT>(st + X_BYTES, w0, w1, K, N, n0, kt * BK, tid);
+  };
+
+  __syncthreads();  // the previous pass's epilogue is done with the ring
 #pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < ktiles) load_stage(s, s * BK);
+  for (int s = 0; s < STAGES - 2; ++s) {
+    if (s < ktiles) issue(s);
     cp_async_commit();
   }
+
+  float acc[2][NR / 2];
+  uint32_t fa[KSTEPS][2][4];  // A fragments: [k16 step of the stage][slice][register]
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+#pragma unroll
+    for (int i = 0; i < NR / 2; ++i) acc[s][i] = 0.0f;
+#pragma unroll
+    for (int b = 0; b < KSTEPS; ++b)
+#pragma unroll
+      for (int j = 0; j < 4; ++j) fa[b][s][j] = 0u;
+  }
+  // This lane's ldmatrix row: matrix j = lane / 8 is slice j / 2, k rows
+  // 8 (j % 2) .. 8 (j % 2) + 7 of the k16 step; the warp's 16 columns.
+  const int mj = lane / 8;
+  const uint32_t lm_off = X_BYTES + ((mj % 2) * 8 + lane % 8) * W_PITCH +
+                          Cols<NMAT>::slice(wg, mj / 2) + 16 * warp;
 
   for (int kt = 0; kt < ktiles; ++kt) {
-    cp_async_wait<STAGES - 2>();
-    __syncthreads();  // stage kt landed; every warp is done with step kt - 1
-    const int nk = kt + STAGES - 1;  // refill the stage consumed at kt - 1
-    if (nk < ktiles) load_stage(nk % STAGES, nk * BK);
-    cp_async_commit();
-    widen_stage(kt % STAGES);
+    cp_async_wait<STAGES - 3>();
+    fence_proxy_async();
+    // Stage kt is in place for every thread; every warpgroup's products of
+    // step kt - 2 have retired (each leaves in flight only its last
+    // KSTEPS - 1 groups, all of step kt - 1), so that step's stage can be
+    // refilled.
     __syncthreads();
-
-    const bf16* as = As + (kt % STAGES) * A_STAGE;
+    if (kt + STAGES - 2 < ktiles) issue(kt + STAGES - 2);
+    cp_async_commit();
+    const uint32_t st = base + (kt % STAGES) * STAGE_BYTES;
 #pragma unroll
-    for (int kk = 0; kk < BK; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> a[2];
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> b[4];
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-        wmma::load_matrix_sync(a[i], as + (warp_m * 32 + i * 16) * A_LD + kk,
-                               A_LD);
-#pragma unroll
-      for (int j = 0; j < 4; ++j)
-        wmma::load_matrix_sync(b[j], Bs + kk * B_LD + warp_n * 64 + j * 16,
-                               B_LD);
-#pragma unroll
-      for (int i = 0; i < 2; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          wmma::mma_sync(acc[i][j], a[i], b[j], acc[i][j]);
+    for (int kk = 0; kk < KSTEPS; ++kk) {
+      load_a_pair(fa[kk], st + lm_off + kk * 16 * W_PITCH);
+      const uint64_t desc = XTile::k_major(st, kk);
+      wgmma_fence();
+      wgmma_rs<NR, 0>(acc[0], fa[kk][0], desc, 1);
+      wgmma_rs<NR, 0>(acc[1], fa[kk][1], desc, 1);
+      wgmma_commit();
+      // The products of KSTEPS - 1 steps ago are done: the A buffer of the
+      // next step is free.
+      wgmma_wait<KSTEPS - 1>();
+      fence_regs(fa[(kk + 1) % KSTEPS][0]);
+      fence_regs(fa[(kk + 1) % KSTEPS][1]);
     }
   }
-
+  wgmma_wait<0>();
+  fence_regs(acc[0]);
+  fence_regs(acc[1]);
+#pragma unroll
+  for (int b = 0; b < KSTEPS; ++b) {
+    fence_regs(fa[b][0]);
+    fence_regs(fa[b][1]);
+  }
   cp_async_wait<0>();
-  __syncthreads();  // every warp is done with the ring before Cs reuses it
-#pragma unroll
-  for (int i = 0; i < 2; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      wmma::store_matrix_sync(
-          Cs + (warp_m * 32 + i * 16) * C_LD + warp_n * 64 + j * 16, acc[i][j],
-          C_LD, wmma::mem_row_major);
-  __syncthreads();
+  __syncthreads();  // every warpgroup is done with the ring; the staging reuses it
 
-  for (int idx = tid; idx < BM * WN; idx += THREADS) {
-    const int r = idx / WN;
-    const int c = idx % WN;
-    const int col = n0 + c;
-    if (col >= N) continue;
-    float v = Cs[r * C_LD + c] * sa[col];
-    if (NMAT == 2) {
-      const float u = Cs[r * C_LD + WN + c] * sb[col];
-      v = v / (1.0f + expf(-v)) * u;  // silu(gate) * up, in f32
+  using Stage = StagedTile<NR, Cols<NMAT>::OUT>;
+  const int cw = 16 * warp + 2 * g;  // weight column of accumulator rows g, g + 8
+  if constexpr (NMAT == 2) {
+    const int col = n0 + Cols<2>::out(wg, 0) + cw;
+    float2 sg = make_float2(0.0f, 0.0f), su = sg;
+    if (col < N) {
+      sg = *reinterpret_cast<const float2*>(a.s0 + le * N + col);
+      su = *reinterpret_cast<const float2*>(a.s1 + le * N + col);
     }
-    out[static_cast<size_t>(m0 + r) * N + col] = __float2bfloat16(v);
+#pragma unroll
+    for (int i = 0; i < NR / 8; ++i)
+#pragma unroll
+      for (int e2 = 0; e2 < 2; ++e2) {
+        float v[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const float gv = acc[0][4 * i + 2 * h + e2] * (h ? sg.y : sg.x);
+          const float uv = acc[1][4 * i + 2 * h + e2] * (h ? su.y : su.x);
+          v[h] = gv / (1.0f + expf(-gv)) * uv;  // silu(gate) * up, in f32
+        }
+        Stage::put(smem, 8 * i + 2 * t + e2, Cols<2>::out(wg, 0) + cw, pack_bf16(v[0], v[1]));
+      }
+  } else {
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      const int col = n0 + Cols<1>::out(wg, s) + cw;
+      float2 sd = make_float2(0.0f, 0.0f);
+      if (col < N) sd = *reinterpret_cast<const float2*>(a.s0 + le * N + col);
+#pragma unroll
+      for (int i = 0; i < NR / 8; ++i)
+#pragma unroll
+        for (int e2 = 0; e2 < 2; ++e2)
+          Stage::put(smem, 8 * i + 2 * t + e2, Cols<1>::out(wg, s) + cw,
+                     pack_bf16(acc[s][4 * i + e2] * sd.x, acc[s][4 * i + 2 + e2] * sd.y));
+    }
   }
+  __syncthreads();
+  Stage::template store<THREADS>(smem, a.out, N, row0, n0, N, tid);
+}
+
+template <int NMAT>
+__global__ void __launch_bounds__(THREADS, 1)
+grouped_gemm_q_kernel(Args a, const int* __restrict__ tile_expert,
+                      const int* __restrict__ tile_valid, int m_pad, int tile_m) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const int n0 = blockIdx.x * Cols<NMAT>::OUT;
+  const int tiles = m_pad / TILE_ROWS;
+  const int t0 = 2 * blockIdx.y;
+  const bool two = t0 + 1 < tiles;
+  auto owner = [&](int tile) { return tile * TILE_ROWS / tile_m; };
+  auto valid = [&](int tile) { return tile_valid == nullptr || tile_valid[owner(tile)] != 0; };
+  const int e0 = tile_expert[owner(t0)];
+  const int e1 = two ? tile_expert[owner(t0 + 1)] : -1;
+  const bool v0 = valid(t0);
+  const bool v1 = two && valid(t0 + 1);
+  const size_t r0 = static_cast<size_t>(t0) * TILE_ROWS;
+  using Zero = StagedTile<TILE_ROWS, Cols<NMAT>::OUT>;
+  if (v0 && v1 && e0 == e1) {
+    run_pass<NMAT, 2 * TILE_ROWS>(smem, a, r0, e0, n0);
+    return;
+  }
+  if (v0)
+    run_pass<NMAT, TILE_ROWS>(smem, a, r0, e0, n0);
+  else
+    Zero::template zero<THREADS>(a.out, a.N, r0, n0, a.N, threadIdx.x);
+  if (!two) return;
+  if (v1)
+    run_pass<NMAT, TILE_ROWS>(smem, a, r0 + TILE_ROWS, e1, n0);
+  else
+    Zero::template zero<THREADS>(a.out, a.N, r0 + TILE_ROWS, n0, a.N, threadIdx.x);
+}
+
+template <int NMAT>
+int launch(const Args& a, const int* tile_expert, const int* tile_valid, int m_pad,
+           int tile_m, void* stream) {
+  if (m_pad < TILE_ROWS || m_pad % TILE_ROWS || tile_m < TILE_ROWS || tile_m % TILE_ROWS ||
+      m_pad % tile_m || a.K < 8 || a.K % 8 || a.N < 16 || a.N % 16)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaError_t err = cudaFuncSetAttribute(
+      grouped_gemm_q_kernel<NMAT>, cudaFuncAttributeMaxDynamicSharedMemorySize, SMEM_BYTES);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  dim3 grid((a.N + Cols<NMAT>::OUT - 1) / Cols<NMAT>::OUT, (m_pad / TILE_ROWS + 1) / 2);
+  grouped_gemm_q_kernel<NMAT><<<grid, THREADS, SMEM_BYTES, static_cast<cudaStream_t>(stream)>>>(
+      a, tile_expert, tile_valid, m_pad, tile_m);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
@@ -238,30 +371,29 @@ extern "C" {
 
 // h [m_pad, f] = silu((x @ qg[layer, e]) * sg[layer, e])
 //                * ((x @ qu[layer, e]) * su[layer, e]); x [m_pad, d].
+// tile_valid: int32 [m_pad / tile_m] or null.
 int ctdb_grouped_gateup_q(const void* x, const void* qg, const void* qu,
                           const void* sg, const void* su, void* h,
                           const int* tile_expert, int m_pad, int d, int f,
-                          int num_experts, int layer, int tile_m, void* stream) {
-  dim3 grid((f + BN / 2 - 1) / (BN / 2), m_pad / BM);
-  grouped_gemm_q_kernel<2><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(x), static_cast<const int8_t*>(qg),
-      static_cast<const int8_t*>(qu), static_cast<const float*>(sg),
-      static_cast<const float*>(su), static_cast<bf16*>(h), tile_expert, d, f,
-      num_experts, layer, tile_m);
-  return static_cast<int>(cudaGetLastError());
+                          int num_experts, int layer, int tile_m,
+                          const int* tile_valid, void* stream) {
+  const Args a{static_cast<const bf16*>(x), static_cast<const int8_t*>(qg),
+               static_cast<const int8_t*>(qu), static_cast<const float*>(sg),
+               static_cast<const float*>(su), static_cast<bf16*>(h), d, f, num_experts,
+               layer};
+  return launch<2>(a, tile_expert, tile_valid, m_pad, tile_m, stream);
 }
 
 // out [m_pad, d] = (h @ qd[layer, e]) * sd[layer, e]; h [m_pad, f].
 int ctdb_grouped_down_q(const void* h, const void* qd, const void* sd, void* out,
                         const int* tile_expert, int m_pad, int f, int d,
-                        int num_experts, int layer, int tile_m, void* stream) {
-  dim3 grid((d + BN - 1) / BN, m_pad / BM);
-  grouped_gemm_q_kernel<1><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const bf16*>(h), static_cast<const int8_t*>(qd),
-      static_cast<const int8_t*>(qd), static_cast<const float*>(sd),
-      static_cast<const float*>(sd), static_cast<bf16*>(out), tile_expert, f, d,
-      num_experts, layer, tile_m);
-  return static_cast<int>(cudaGetLastError());
+                        int num_experts, int layer, int tile_m, const int* tile_valid,
+                        void* stream) {
+  const Args a{static_cast<const bf16*>(h), static_cast<const int8_t*>(qd),
+               static_cast<const int8_t*>(qd), static_cast<const float*>(sd),
+               static_cast<const float*>(sd), static_cast<bf16*>(out), f, d, num_experts,
+               layer};
+  return launch<1>(a, tile_expert, tile_valid, m_pad, tile_m, stream);
 }
 
 }  // extern "C"

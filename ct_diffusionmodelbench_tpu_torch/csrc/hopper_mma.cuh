@@ -1,21 +1,28 @@
-// Hopper building blocks shared by the flash-attention kernels
-// (flash_attention.cu: the forward; flash_attention_bwd.cu: dk/dv).
+// Hopper building blocks shared by the wgmma kernels (flash_attention.cu:
+// the forward; flash_attention_bwd.cu: dk/dv; grouped_gemm_q.cu: the int8
+// grouped expert GEMMs).
 //
 // - cp.async copies from device memory into shared memory, 16 bytes (or 4)
 //   per thread, zero-filling rows past the sequence end;
-// - the canonical swizzled layout of a 64-row bf16 [64, Dh] tile that wgmma
+// - the canonical swizzled layout of a bf16 [ROWS, Dh] tile that wgmma
 //   reads, and the matrix descriptors that name it: one layout serves as a
 //   K-major operand (Q, K as the A / B of Q K^T) and as an MN-major one (V as
 //   the B of P V), so every tile is stored the same way;
 // - the wgmma instructions the kernels issue, with their fence / commit /
 //   wait and the register fences that keep the compiler from touching an
 //   operand while an asynchronous wgmma still owns it;
-// - rotate-half RoPE rounded as PyTorch's separate elementwise ops round it.
+// - rotate-half RoPE rounded as PyTorch's separate elementwise ops round it;
+// - for the grouped GEMMs, which compute a transposed output tile
+//   out^T = W^T x^T (the weight as the 64-row A operand, the rows of x as
+//   N): the copy of 64 or 128 rows of x, 64 values deep, into a K-major B
+//   tile, and the epilogue that stages such a transposed tile in shared
+//   memory and writes it back as 16-byte rows.
 //
-// Layout.  A row of the tile is Dh * 2 bytes.  It is cut into column blocks
+// Layout.  A tile has ROWS rows (64; 128 for the grouped GEMMs' B tile),
+// each Dh * 2 bytes.  A row is cut into column blocks
 // of SW = min(Dh * 2, 128) bytes (the 128 B, 64 B or 32 B swizzle mode:
 // Dh 128 takes two 128 B blocks, Dh 64 one, Dh 32 one 64 B block, Dh 16 one
-// 32 B block); block b holds the SW-byte slice of all 64 rows, row after
+// 32 B block); block b holds the SW-byte slice of all ROWS rows, row after
 // row, and inside a block the 16-byte chunk c of row r sits at chunk
 // c ^ f(r), f(r) = r % 8 (128 B), (r / 2) % 4 (64 B), (r / 4) % 2 (32 B).
 // That is the address swizzle wgmma applies to bits 4-6 of an address from
@@ -30,7 +37,9 @@
 //   row, in the column block that holds it.
 // - MN-major (rows are K, columns N): the stride byte offset steps 8 rows
 //   of K (8 * SW), the leading byte offset steps to the next SW-byte column
-//   block of N (64 * SW); k-step kk starts 16 rows further down.
+//   block of N (ROWS * SW); k-step kk starts 16 rows further down.
+// wgmma reads an A operand from registers with B in either major
+// (imm-trans-b 1: MN-major, 0: K-major).
 //
 // Register layouts (wgmma m64nNk16, per warp w of the warpgroup, lane =
 // 4 * g + t): accumulator element d[4 i + 2 h + e] is row 16 w + g + 8 h,
@@ -101,13 +110,14 @@ __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint3
          (static_cast<uint64_t>(sbo >> 4) << 32) | (mode << 62);
 }
 
-// A [64, DH] bf16 tile in the canonical swizzled layout (see the top).
-template <int DH>
+// A [ROWS, DH] bf16 tile in the canonical swizzled layout (see the top).
+template <int DH, int ROWS = 64>
 struct SwTile {
+  static_assert(ROWS % 8 == 0, "8-row core matrices");
   static constexpr int SW = DH * 2 < 128 ? DH * 2 : 128;  // bytes per swizzled row
   static constexpr int CPB = SW / 16;                      // 16-byte chunks in it
-  static constexpr int BLOCK = 64 * SW;                    // one column block
-  static constexpr int BYTES = 64 * DH * 2;
+  static constexpr int BLOCK = ROWS * SW;                  // one column block
+  static constexpr int BYTES = ROWS * DH * 2;
   static constexpr uint64_t MODE = SW == 128 ? 1 : (SW == 64 ? 2 : 3);
 
   // Byte offset of chunk c (elements 8c .. 8c + 7) of row r.
@@ -191,32 +201,38 @@ __device__ __forceinline__ void wgmma_ss_m64n64(float (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
 }
 
-// D[64 x 16] (+)= A[64 x 16] B[16 x 16]; A in registers, B MN-major in shared memory.
+// D[64 x 16] (+)= A[64 x 16] B[16 x 16]; A in registers, B in shared memory
+// (TRANS_B 1: MN-major, 0: K-major).
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs_m64n16(float (&d)[8], const uint32_t (&a)[4],
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "{%8, %9, %10, %11}, %12, p, 1, 1, 1;\n}\n"
+      "{%8, %9, %10, %11}, %12, p, 1, 1, %14;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
-// D[64 x 32] (+)= A[64 x 16] B[16 x 32]; A in registers, B MN-major in shared memory.
+// D[64 x 32] (+)= A[64 x 16] B[16 x 32]; A in registers, B in shared memory
+// (TRANS_B 1: MN-major, 0: K-major).
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs_m64n32(float (&d)[16], const uint32_t (&a)[4],
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p, 1, 1, 1;\n}\n"
+      "{%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
-// D[64 x 64] (+)= A[64 x 16] B[16 x 64]; A in registers, B MN-major in shared memory.
+// D[64 x 64] (+)= A[64 x 16] B[16 x 64]; A in registers, B in shared memory
+// (TRANS_B 1: MN-major, 0: K-major).
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (&a)[4],
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -224,15 +240,17 @@ __device__ __forceinline__ void wgmma_rs_m64n64(float (&d)[32], const uint32_t (
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
       "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      "{%32, %33, %34, %35}, %36, p, 1, 1, %38;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
-// D[64 x 128] (+)= A[64 x 16] B[16 x 128]; A in registers, B MN-major in shared memory.
+// D[64 x 128] (+)= A[64 x 16] B[16 x 128]; A in registers, B in shared memory
+// (TRANS_B 1: MN-major, 0: K-major).
+template <int TRANS_B>
 __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t (&a)[4],
                                                  uint64_t desc_b, int scale_d) {
   asm volatile(
@@ -242,7 +260,7 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t 
       "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
       "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
       "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      "{%64, %65, %66, %67}, %68, p, 1, 1, %70;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
@@ -251,18 +269,92 @@ __device__ __forceinline__ void wgmma_rs_m64n128(float (&d)[64], const uint32_t 
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d), "n"(TRANS_B));
 }
 
-// D[64 x N] (+)= A[64 x 16] B[16 x N], A in registers, B MN-major.
-template <int N>
+// D[64 x N] (+)= A[64 x 16] B[16 x N], A in registers, B MN-major (the
+// default) or, with TRANS_B 0, K-major.
+template <int N, int TRANS_B = 1>
 __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[4],
                                          uint64_t desc_b, int scale_d) {
   static_assert(N == 16 || N == 32 || N == 64 || N == 128, "wgmma width");
-  if constexpr (N == 16) wgmma_rs_m64n16(d, a, desc_b, scale_d);
-  if constexpr (N == 32) wgmma_rs_m64n32(d, a, desc_b, scale_d);
-  if constexpr (N == 64) wgmma_rs_m64n64(d, a, desc_b, scale_d);
-  if constexpr (N == 128) wgmma_rs_m64n128(d, a, desc_b, scale_d);
+  static_assert(TRANS_B == 0 || TRANS_B == 1, "imm-trans-b");
+  if constexpr (N == 16) wgmma_rs_m64n16<TRANS_B>(d, a, desc_b, scale_d);
+  if constexpr (N == 32) wgmma_rs_m64n32<TRANS_B>(d, a, desc_b, scale_d);
+  if constexpr (N == 64) wgmma_rs_m64n64<TRANS_B>(d, a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_rs_m64n128<TRANS_B>(d, a, desc_b, scale_d);
 }
+
+
+// ---------------------------------------------------------------------------
+// Transposed tiles of the grouped GEMMs (out^T = W^T x^T: x rows as N)
+// ---------------------------------------------------------------------------
+
+// Rows [0, ROWS) of x (row stride ld), values [k0, k0 + 64), into the K-major
+// swizzled tile SwTile<64, ROWS> at dst: one cp.async of 16 bytes per 8
+// values, THREADS threads sharing them; values >= K are zero-filled (K % 8
+// == 0).  Rows of x are K-contiguous in device memory, so this is the B tile
+// of out^T as it lies there.
+template <int ROWS, int THREADS>
+__device__ __forceinline__ void issue_kmajor_rows(uint32_t dst, const bf16* x, size_t ld,
+                                                  int k0, int K, int tid) {
+  using Tile = SwTile<64, ROWS>;
+  static_assert(ROWS * 8 % THREADS == 0, "whole copies per thread");
+#pragma unroll
+  for (int i = 0; i < ROWS * 8 / THREADS; ++i) {
+    const int p = tid + i * THREADS;
+    const int r = p / 8;
+    const int c = p % 8;
+    const bool ok = k0 + 8 * c < K;
+    cp_async16(dst + Tile::chunk(r, c), ok ? x + r * ld + k0 + 8 * c : x, ok);
+  }
+}
+
+// A [ROWS, COLS] bf16 output tile staged in shared memory on its way out.
+// The accumulators of out^T hold, per thread, column pairs of rows of out
+// that lie 2 apart (row 8 i + 2 t + e of thread t of a quad), so each pair
+// goes to shared memory as one 4-byte word, and the tile leaves as 16-byte
+// row chunks.  Rows are padded by 16 bytes: the four rows a quad writes at
+// once then fall in four different 8-bank groups.
+template <int ROWS, int COLS>
+struct StagedTile {
+  static_assert(COLS % 64 == 0, "the bank spread assumes 128-byte rows");
+  static constexpr int PITCH = COLS * 2 + 16;
+  static constexpr int BYTES = ROWS * PITCH;
+
+  // bf16 pair (col, col + 1) of row `row`.
+  __device__ static __forceinline__ void put(unsigned char* base, int row, int col,
+                                             uint32_t pair) {
+    *reinterpret_cast<uint32_t*>(base + row * PITCH + col * 2) = pair;
+  }
+  // Rows [0, ROWS) to out[row0 + r][col0 + c] (row stride ldo) for the
+  // columns below n; col0 and n are multiples of 8.
+  template <int THREADS>
+  __device__ static __forceinline__ void store(const unsigned char* base, bf16* out,
+                                               size_t ldo, size_t row0, int col0, int n,
+                                               int tid) {
+    constexpr int CPR = COLS / 8;
+    for (int p = tid; p < ROWS * CPR; p += THREADS) {
+      const int r = p / CPR;
+      const int c = p % CPR;
+      const int col = col0 + 8 * c;
+      if (col < n)
+        *reinterpret_cast<uint4*>(out + (row0 + r) * ldo + col) =
+            *reinterpret_cast<const uint4*>(base + r * PITCH + 16 * c);
+    }
+  }
+  // Zeros to the same ROWS x COLS window of out.
+  template <int THREADS>
+  __device__ static __forceinline__ void zero(bf16* out, size_t ldo, size_t row0, int col0,
+                                              int n, int tid) {
+    constexpr int CPR = COLS / 8;
+    for (int p = tid; p < ROWS * CPR; p += THREADS) {
+      const int col = col0 + 8 * (p % CPR);
+      if (col < n)
+        *reinterpret_cast<uint4*>(out + (row0 + p / CPR) * ldo + col) =
+            make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+};
 
 }  // namespace ctdb

@@ -15,7 +15,12 @@ Their int8 forms (``csrc/grouped_gemm_q.cu``), :func:`grouped_gateup_q` and
 :func:`grouped_down_q`, take quantized ``{"q": int8 [(L,) E, K, N], "s": f32
 [(L,) E, N]}`` weights and compute ``silu((x @ q_g) * s_g) * ((x @ q_u) *
 s_u)`` and ``(h @ q_d) * s_d``: the scale on the f32 product, as
-``ops/quant.py::qdot``.
+``ops/quant.py::qdot``.  Both take the reference's optional pad-skip
+vector ``tile_valid`` (a tile marked 0 holds no real row: zeros, no
+product); :func:`grouped_expert_ffn_cuda` always hands it to the int8
+pair (the reference builds it only under ``CTDB_GROUPED_SKIP_PAD=1``, since
+a conditional write costs its TPU kernel the pipelining; on the card the
+pad-skip is faster), and the FFN output is the same as without it.
 :func:`grouped_ffn_fused` (``csrc/grouped_ffn_fused.cu``) computes the
 whole FFN, ``bf16(silu(x @ Wg[e]) * (x @ Wu[e])) @ Wd[e]``, in one kernel
 with h kept in shared memory; :func:`grouped_expert_ffn_cuda` takes it
@@ -49,9 +54,9 @@ DOWN_KERNEL = Kernel("grouped_down", LIBRARY, "ctdb_grouped_down",
                      [PTR] * 4 + [INT] * 6 + [PTR])
 LIBRARY_Q = Library("grouped_gemm_q.cu")
 GATEUP_Q_KERNEL = Kernel("grouped_gateup_q", LIBRARY_Q, "ctdb_grouped_gateup_q",
-                         [PTR] * 7 + [INT] * 6 + [PTR])
+                         [PTR] * 7 + [INT] * 6 + [PTR] * 2)
 DOWN_Q_KERNEL = Kernel("grouped_down_q", LIBRARY_Q, "ctdb_grouped_down_q",
-                       [PTR] * 5 + [INT] * 6 + [PTR])
+                       [PTR] * 5 + [INT] * 6 + [PTR] * 2)
 LIBRARY_FUSED = Library("grouped_ffn_fused.cu")
 FUSED_KERNEL = Kernel("grouped_ffn_fused", LIBRARY_FUSED, "ctdb_grouped_ffn_fused",
                       [PTR] * 6 + [INT] * 6 + [PTR])
@@ -300,23 +305,36 @@ def _tiles_times_experts_q(x_padded, w, tile_expert, tile_m, layer_index):
     return acc * s.float()[tile_expert.long()][:, None, :]
 
 
+def _zero_invalid_tiles(out, tile_valid):
+    """Zero the [tiles, tile_m, N] products of the tiles ``tile_valid``
+    marks 0 (none when it is None)."""
+    if tile_valid is None:
+        return out
+    return out.masked_fill((tile_valid == 0)[:, None, None], 0.0)
+
+
 def grouped_gateup_q_plain(x_padded, we_gate: dict, we_up: dict, tile_expert,
                            tile_m: int = TILE_M,
-                           layer_index: Optional[int] = None) -> torch.Tensor:
+                           layer_index: Optional[int] = None,
+                           tile_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The int8 gate/up kernel's function in PyTorch: per-tile f32 products
-    with ``q`` (exact in any float type), scaled before the SiLU."""
+    with ``q`` (exact in any float type), scaled before the SiLU; zero rows
+    in the tiles ``tile_valid`` marks 0."""
     gate = _tiles_times_experts_q(x_padded, we_gate, tile_expert, tile_m, layer_index)
     up = _tiles_times_experts_q(x_padded, we_up, tile_expert, tile_m, layer_index)
-    h = (F.silu(gate) * up).to(x_padded.dtype)
+    h = _zero_invalid_tiles(F.silu(gate) * up, tile_valid).to(x_padded.dtype)
     return h.reshape(x_padded.shape[0], we_gate["q"].shape[-1])
 
 
 def grouped_down_q_plain(h_padded, we_down: dict, tile_expert,
                          tile_m: int = TILE_M,
-                         layer_index: Optional[int] = None) -> torch.Tensor:
-    """The int8 down kernel's function in PyTorch: scaled before the cast."""
+                         layer_index: Optional[int] = None,
+                         tile_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The int8 down kernel's function in PyTorch: scaled before the cast;
+    zero rows in the tiles ``tile_valid`` marks 0."""
     out = _tiles_times_experts_q(h_padded, we_down, tile_expert, tile_m, layer_index)
-    return out.to(h_padded.dtype).reshape(h_padded.shape[0], we_down["q"].shape[-1])
+    out = _zero_invalid_tiles(out, tile_valid).to(h_padded.dtype)
+    return out.reshape(h_padded.shape[0], we_down["q"].shape[-1])
 
 
 def _check_scales(ws, n):
@@ -328,45 +346,75 @@ def _check_scales(ws, n):
                              f"on {q.device}, got {s.dtype} {tuple(s.shape)}")
 
 
+def _tile_valid_ptr(tile_valid, tile_expert) -> Optional[int]:
+    """The kernel's ``tile_valid`` pointer: None (null) for none, else the
+    checked vector's address; it must match ``tile_expert`` in device, type
+    and shape."""
+    if tile_valid is None:
+        return None
+    if (tile_valid.device != tile_expert.device or tile_valid.dtype != torch.int32
+            or tile_valid.shape != tile_expert.shape or not tile_valid.is_contiguous()):
+        raise ValueError("tile_valid must be contiguous int32 "
+                         f"{tuple(tile_expert.shape)} on {tile_expert.device}")
+    return tile_valid.data_ptr()
+
+
 def grouped_gateup_q(x_padded, we_gate: dict, we_up: dict, tile_expert,
                      tile_m: int = TILE_M,
-                     layer_index: Optional[int] = None) -> torch.Tensor:
+                     layer_index: Optional[int] = None,
+                     tile_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """h [M_pad, F] = silu((x @ q_g[e]) * s_g[e]) * ((x @ q_u[e]) * s_u[e])
-    per row tile."""
+    per row tile; zeros in the tiles ``tile_valid`` marks 0."""
     if x_padded.device.type == "cpu":
         return grouped_gateup_q_plain(x_padded, we_gate, we_up, tile_expert,
-                                      tile_m, layer_index)
+                                      tile_m, layer_index, tile_valid)
     _refuse_grad("grouped_gateup_q", x_padded)
     m_pad, d, f, e, layer = _check_kernel_args(
         x_padded, (we_gate["q"], we_up["q"]), tile_expert, tile_m, layer_index,
         w_dtype=torch.int8)
     _check_scales((we_gate, we_up), f)
+    valid = _tile_valid_ptr(tile_valid, tile_expert)
     h = torch.empty((m_pad, f), dtype=x_padded.dtype, device=x_padded.device)
     stream = torch.cuda.current_stream(x_padded.device).cuda_stream
     GATEUP_Q_KERNEL(x_padded.data_ptr(), we_gate["q"].data_ptr(),
                     we_up["q"].data_ptr(), we_gate["s"].data_ptr(),
                     we_up["s"].data_ptr(), h.data_ptr(), tile_expert.data_ptr(),
-                    m_pad, d, f, e, layer, tile_m, stream)
+                    m_pad, d, f, e, layer, tile_m, valid, stream)
     return h
 
 
 def grouped_down_q(h_padded, we_down: dict, tile_expert, tile_m: int = TILE_M,
-                   layer_index: Optional[int] = None) -> torch.Tensor:
-    """out [M_pad, D] = (h @ q_d[e]) * s_d[e] per row tile."""
+                   layer_index: Optional[int] = None,
+                   tile_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out [M_pad, D] = (h @ q_d[e]) * s_d[e] per row tile; zeros in the
+    tiles ``tile_valid`` marks 0."""
     if h_padded.device.type == "cpu":
         return grouped_down_q_plain(h_padded, we_down, tile_expert, tile_m,
-                                    layer_index)
+                                    layer_index, tile_valid)
     _refuse_grad("grouped_down_q", h_padded)
     m_pad, f, d, e, layer = _check_kernel_args(
         h_padded, (we_down["q"],), tile_expert, tile_m, layer_index,
         w_dtype=torch.int8)
     _check_scales((we_down,), d)
+    valid = _tile_valid_ptr(tile_valid, tile_expert)
     out = torch.empty((m_pad, d), dtype=h_padded.dtype, device=h_padded.device)
     stream = torch.cuda.current_stream(h_padded.device).cuda_stream
     DOWN_Q_KERNEL(h_padded.data_ptr(), we_down["q"].data_ptr(),
                   we_down["s"].data_ptr(), out.data_ptr(), tile_expert.data_ptr(),
-                  m_pad, f, d, e, layer, tile_m, stream)
+                  m_pad, f, d, e, layer, tile_m, valid, stream)
     return out
+
+
+def valid_tiles(sizes: torch.Tensor, tile_expert: torch.Tensor, tile_m: int,
+                m_pad: int) -> torch.Tensor:
+    """int32 [m_pad / tile_m]: 1 where a tile holds a real row, as the
+    reference builds ``tile_valid``: the tile starts before its expert's
+    last real row ends."""
+    padded = _round_up(sizes, tile_m)
+    pend_real = torch.cumsum(padded, 0, dtype=torch.int32) - padded + sizes
+    tile_start = torch.arange(m_pad // tile_m, dtype=torch.int32,
+                              device=sizes.device) * tile_m
+    return (tile_start < pend_real[tile_expert.long()]).to(torch.int32)
 
 
 def gather_rows(x: torch.Tensor, dest: torch.Tensor, k: int, m_pad: int):
@@ -399,8 +447,9 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
     Counterpart of ``grouped_expert_ffn_pallas``: counting layout, one row
     gather, the gate/up and down kernels (their int8 forms for quantized
     ``{"q", "s"}`` weights, which need D and F to be multiples of 128, as
-    the reference's; the fused kernel instead under ``CTDB_GROUPED_FUSED=1``
-    for plain weights with D and F multiples of 128), the weighted combine."""
+    the reference's, with the pad-skip vector; the fused kernel instead under
+    ``CTDB_GROUPED_FUSED=1`` for plain weights with D and F multiples of
+    128), the weighted combine."""
     quantized = is_quantized(we_gate)
     if x.is_cuda:
         plain = [] if quantized else [we_gate, we_up, we_down]
@@ -414,11 +463,14 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
         raise ValueError(f"int8 grouped FFN needs D, F % 128 == 0, got {d}, {fm}")
     if tile_m == TILE_M and n * k >= 65536:
         tile_m = 128
-    dest, tile_expert, _, m_pad = counting_layout(topk_idx, e, tile_m)
+    dest, tile_expert, sizes, m_pad = counting_layout(topk_idx, e, tile_m)
     xs = gather_rows(x, dest, k, m_pad)
     if quantized:
-        h = grouped_gateup_q(xs, we_gate, we_up, tile_expert, tile_m, layer_index)
-        out_padded = grouped_down_q(h, we_down, tile_expert, tile_m, layer_index)
+        valid = valid_tiles(sizes, tile_expert, tile_m, m_pad)
+        h = grouped_gateup_q(xs, we_gate, we_up, tile_expert, tile_m, layer_index,
+                             valid)
+        out_padded = grouped_down_q(h, we_down, tile_expert, tile_m, layer_index,
+                                    valid)
     elif aligned and fused_mode():
         out_padded = grouped_ffn_fused(xs, we_gate, we_up, we_down, tile_expert,
                                        tile_m, layer_index)

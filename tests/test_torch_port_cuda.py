@@ -114,6 +114,147 @@ def test_int8_grouped_kernels_match_plain(cuda_device, d, f, layers, e, skew):
     assert KERNELS["grouped_gateup"].launches == 0
 
 
+# The int8 pair's schedule (csrc/grouped_gemm_q.cu): a block takes the 64-row
+# tiles 2y, 2y + 1 as one n128 pass when one expert owns both, else one n64
+# pass each, or zeros for a tile that tile_valid marks empty.
+
+def _routing_of_sizes(dev, sizes, d, seed):
+    """Top-1 routing with exactly sizes[e] rows on expert e, seeded order."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.repeat_interleave(torch.arange(len(sizes), device=dev),
+                                   torch.tensor(sizes, device=dev))
+    idx = flat[torch.randperm(flat.numel(), generator=g, device=dev)][:, None]
+    x = torch.randn((flat.numel(), d), generator=g, device=dev, dtype=torch.bfloat16)
+    return x, idx, g
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("d,f,layers,tile_m,sizes", [
+    # odd runs of 64-row tiles (pairs span two experts), an odd tile count
+    # (the last pair is one tile), a pair of one real and one padding tile
+    # of the same expert; the last of 3 layers
+    (256, 384, 3, 64, [30, 100, 0, 64, 130, 1, 65, 10]),
+    (128, 256, None, 128, [200, 30, 0, 300, 10, 0, 0, 90]),     # tile_m 128
+    (128, 128, 2, 64, [0, 0, 0, 0, 0, 300, 0, 0]),               # one expert
+], ids=["odd_runs_last_layer", "tile_m_128", "one_expert"])
+def test_int8_grouped_kernel_schedule_edges(cuda_device, d, f, layers, tile_m, sizes,
+                                            with_valid):
+    dev, e = cuda_device, len(sizes)
+    x, idx, g = _routing_of_sizes(dev, sizes, d, d + f + tile_m)
+    lead = () if layers is None else (layers,)
+    qg, qu = (_int8_experts(g, dev, lead, e, d, f) for _ in range(2))
+    qd = _int8_experts(g, dev, lead, e, f, d)
+    li = None if layers is None else layers - 1
+    dest, te, got_sizes, m_pad = gg.counting_layout(idx, e, tile_m)
+    assert got_sizes.tolist() == sizes
+    valid = gg.valid_tiles(got_sizes, te, tile_m, m_pad)
+    assert bool((valid[-1] == 0).item())        # trailing all-padding tiles
+    tv = valid if with_valid else None
+    xs = gg.gather_rows(x, dest, 1, m_pad)
+    reset_launch_counts()
+    h = gg.grouped_gateup_q(xs, qg, qu, te, tile_m, li, tv)
+    h_p = gg.grouped_gateup_q_plain(xs, qg, qu, te, tile_m, li, tv)
+    torch.testing.assert_close(h, h_p, **GROUPED_TOL)
+    o = gg.grouped_down_q(h_p, qd, te, tile_m, li, tv)
+    torch.testing.assert_close(
+        o, gg.grouped_down_q_plain(h_p, qd, te, tile_m, li, tv), **GROUPED_TOL)
+    assert KERNELS["grouped_gateup_q"].launches == KERNELS["grouped_down_q"].launches == 1
+    if with_valid:
+        empty = valid.repeat_interleave(tile_m) == 0
+        assert not h[empty].any() and not o[empty].any()
+        real = ~empty
+        assert torch.equal(h[real], gg.grouped_gateup_q(xs, qg, qu, te, tile_m, li)[real])
+
+
+@pytest.mark.parametrize("d,f,layers,e", [(256, 384, None, 8), (2048, 896, 2, 64)])
+def test_int8_grouped_kernels_exact_arithmetic(cuda_device, d, f, layers, e):
+    """Integers in [-8, 8] times 2**-7 against int8 weights over their whole
+    range: every sum over K <= 2048 stays below 2**21 units of 2**-7, exact
+    in f32 in any order, so a wrong descriptor, swizzle, column order or
+    widening gives a wrong number, never a rounding.  The down kernel is
+    bit-equal to its plain version; gate/up within one bf16 ulp (the SiLU's
+    exp)."""
+    dev = cuda_device
+    x, idx, g = _routing(dev, 300, d, e, 2, d + f + e)
+    lead = () if layers is None else (layers,)
+
+    def ints(shape, lo, hi, dtype=torch.int64):
+        return torch.randint(lo, hi, shape, generator=g, device=dev, dtype=dtype)
+
+    def experts(k_dim, n_dim):
+        return {"q": ints(lead + (e, k_dim, n_dim), -128, 128, torch.int8),
+                "s": torch.rand(lead + (e, n_dim), generator=g, device=dev) * 0.1 + 0.01}
+
+    x = (ints(x.shape, -8, 9) * 2 ** -7).to(torch.bfloat16)
+    qg, qu, qd = experts(d, f), experts(d, f), experts(f, d)
+    li = None if layers is None else layers - 1
+    dest, te, _, m_pad = gg.counting_layout(idx, e, gg.TILE_M)
+    xs = gg.gather_rows(x, dest, 2, m_pad)
+    h = gg.grouped_gateup_q(xs, qg, qu, te, gg.TILE_M, li)
+    torch.testing.assert_close(
+        h, gg.grouped_gateup_q_plain(xs, qg, qu, te, gg.TILE_M, li), rtol=2 ** -7, atol=0.0)
+    h_in = (ints((m_pad, f), -8, 9) * 2 ** -7).to(torch.bfloat16)
+    assert torch.equal(gg.grouped_down_q(h_in, qd, te, gg.TILE_M, li),
+                       gg.grouped_down_q_plain(h_in, qd, te, gg.TILE_M, li))
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_int8_wgmma_rehearsal_single_tile(cuda_device, rows):
+    """One tile of one expert through the down kernel (one n64 pass at 64
+    rows, one n128 pass at 128; 64 of the block's 256 columns, the rest
+    past the ragged edge): the int8 A widened in registers (every
+    int8 value, -128 included), x as the K-major B, against torch.matmul on
+    the widened tile.  Exact sums with unit scales, so bit-equal."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = (torch.randint(-8, 9, (rows, 64), generator=g, device=dev) * 2 ** -7).to(torch.bfloat16)
+    q = torch.randint(-128, 128, (1, 64, 64), generator=g, device=dev, dtype=torch.int8)
+    q[0, 0, 0] = -128
+    w = {"q": q, "s": torch.ones((1, 64), device=dev)}
+    te = torch.zeros(rows // 64, dtype=torch.int32, device=dev)
+    out = gg.grouped_down_q(x, w, te, 64)
+    assert torch.equal(out, torch.matmul(x.float(), q[0].float()).to(torch.bfloat16))
+
+
+def test_int8_ffn_hands_kernels_tile_valid(cuda_device, monkeypatch):
+    """The int8 expert FFN gives both kernels the pad-skip vector; its output
+    is the same as with none."""
+    dev, e = cuda_device, 8
+    x, idx, g = _routing(dev, 150, 256, e, 2, 11)
+    probs = torch.rand(idx.shape, generator=g, device=dev)
+    ws = [_int8_experts(g, dev, (), e, 256, 128), _int8_experts(g, dev, (), e, 256, 128),
+          _int8_experts(g, dev, (), e, 128, 256)]
+    seen = []
+
+    def recording(kernel, keep):
+        def run(*args):
+            seen.append(args[-1])
+            return kernel(*args[:-1], args[-1] if keep else None)
+        return run
+
+    gateup, down = gg.grouped_gateup_q, gg.grouped_down_q
+    monkeypatch.setattr(gg, "grouped_gateup_q", recording(gateup, False))
+    monkeypatch.setattr(gg, "grouped_down_q", recording(down, False))
+    want = gg.grouped_expert_ffn_cuda(x, probs, idx, *ws)
+    monkeypatch.setattr(gg, "grouped_gateup_q", recording(gateup, True))
+    monkeypatch.setattr(gg, "grouped_down_q", recording(down, True))
+    assert torch.equal(gg.grouped_expert_ffn_cuda(x, probs, idx, *ws), want)
+    assert all(v is not None for v in seen) and bool((seen[0] == 0).any())
+
+
+def test_int8_wrappers_refuse_bad_tile_valid(cuda_device):
+    dev = cuda_device
+    x = torch.zeros((128, 64), device=dev, dtype=torch.bfloat16)
+    w = quantize_tensor(torch.randn((2, 64, 64), device=dev))
+    te = torch.zeros(2, dtype=torch.int32, device=dev)
+    for bad in (torch.ones(2, dtype=torch.int64, device=dev),
+                torch.ones(3, dtype=torch.int32, device=dev)):
+        with pytest.raises(ValueError, match="tile_valid"):
+            gg.grouped_gateup_q(x, w, w, te, 64, None, bad)
+        with pytest.raises(ValueError, match="tile_valid"):
+            gg.grouped_down_q(x, w, te, 64, None, bad)
+
+
 def test_int8_ffn_and_tiny_model_against_plain(cuda_device, monkeypatch):
     """The int8 expert FFN and an aligned tiny int8 model: kernels against
     plain versions, and a greedy decode through the int8 pair only."""

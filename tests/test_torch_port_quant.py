@@ -200,6 +200,90 @@ def test_int8_grouped_expert_ffn_matches_jax(layers):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **GROUPED_TOL)
 
 
+def _reference_tile_valid(sizes, tile_expert, tile_m, m_pad):
+    """``tile_valid`` as ``grouped_expert_ffn_pallas`` builds it under
+    ``CTDB_GROUPED_SKIP_PAD=1``."""
+    padded = jgg._round_up_arr(sizes, tile_m)
+    pend_real = jnp.cumsum(padded) - padded + sizes
+    tile_start = jnp.arange(m_pad // tile_m, dtype=jnp.int32) * tile_m
+    return (tile_start < jnp.take(pend_real, tile_expert)).astype(jnp.int32)
+
+
+@pytest.mark.parametrize("layers,last_empty", [(None, False), (2, True)])
+def test_int8_grouped_kernels_plain_pad_skip_match_jax(layers, last_empty):
+    """The plain versions of K6/K7 with ``tile_valid`` against JAX's manual
+    int8 kernels with it (interpret mode).  The reference zero-fills a tile
+    marked 0 unless it starts an expert run: that one it still multiplies,
+    to keep its weight-DMA semaphores balanced.  No real row lies there, the
+    combine reads none of it, and the port zero-fills it too.  With the last
+    expert empty, the trailing padding tiles form such a run."""
+    x, probs, idx, (qg, qu, qd) = _moe_inputs(3, 48, 2, 4, 128, 128, layers)
+    if last_empty:
+        idx = np.where(idx == 3, 2, idx)
+    li = None if layers is None else 1
+    jli = None if li is None else jnp.int32(li)
+    n, k = idx.shape
+    tile = 16
+    dest_t, te_t, sizes_t, m_pad = tgg.counting_layout(_t(idx), 4, tile)
+    valid_t = tgg.valid_tiles(sizes_t, te_t, tile, m_pad)
+    te_j = jnp.asarray(te_t.numpy())
+    valid_j = _reference_tile_valid(jnp.asarray(sizes_t.numpy()), te_j, tile, m_pad)
+    np.testing.assert_array_equal(valid_t.numpy(), np.asarray(valid_j))
+    assert int((valid_t == 0).sum()) > 0
+    starts = np.r_[True, te_t.numpy()[1:] != te_t.numpy()[:-1]]
+    skipped = (valid_t.numpy() == 0) & ~starts          # the reference's zero tiles
+    run_start = (valid_t.numpy() == 0) & starts
+    assert run_start.any() == last_empty
+    rows = lambda m: np.repeat(m, tile)                  # noqa: E731
+    xs_t = tgg.gather_rows(_t(x), dest_t, k, m_pad)
+    xs_j = jnp.asarray(xs_t.numpy())
+
+    def check(got, want):
+        got, want = got.numpy(), np.asarray(want)
+        real = rows(valid_t.numpy() == 1)
+        np.testing.assert_allclose(got[real], want[real], **GROUPED_TOL)
+        assert not got[~real].any() and not want[rows(skipped)].any()
+        return want[rows(run_start)]
+
+    h_t = tgg.grouped_gateup_q(xs_t, _bridge(qg), _bridge(qu), te_t, tile, li, valid_t)
+    h_run_start = check(h_t, jgg.grouped_gateup_manual_q(
+        xs_j, qg, qu, te_j, tile, layer_index=jli, tile_valid=valid_j))
+    assert h_run_start.any() == last_empty              # multiplied there
+    o_t = tgg.grouped_down_q(h_t, _bridge(qd), te_t, tile, li, valid_t)
+    check(o_t, jgg.grouped_matmul_manual_q(jnp.asarray(h_t.numpy()), qd, te_j, tile,
+                                           layer_index=jli, tile_valid=valid_j))
+
+
+@pytest.mark.parametrize("layers", [None, 2])
+def test_int8_grouped_expert_ffn_skip_pad_matches_jax(monkeypatch, layers):
+    """``grouped_expert_ffn_cuda`` hands both int8 kernels the reference's
+    ``tile_valid`` on every call; its output matches
+    ``grouped_expert_ffn_pallas`` with ``CTDB_GROUPED_SKIP_PAD=1`` and
+    without it."""
+    x, probs, idx, ws = _moe_inputs(0, 48, 2, 4, 128, 128, layers)
+    li = None if layers is None else 1
+    seen = []
+
+    def recording(kernel):
+        def run(*args):
+            seen.append(args[-1])
+            return kernel(*args)
+        return run
+
+    monkeypatch.setattr(tgg, "grouped_gateup_q", recording(tgg.grouped_gateup_q))
+    monkeypatch.setattr(tgg, "grouped_down_q", recording(tgg.grouped_down_q))
+    got = tgg.grouped_expert_ffn_cuda(_t(x), _t(probs), _t(idx),
+                                      *[_bridge(w) for w in ws], layer_index=li)
+    assert len(seen) == 2 and seen[0] is seen[1]
+    assert bool((seen[0] == 0).any())
+    for skip in ("0", "1"):
+        monkeypatch.setenv("CTDB_GROUPED_SKIP_PAD", skip)
+        want = jgg.grouped_expert_ffn_pallas(
+            jnp.asarray(x), jnp.asarray(probs), jnp.asarray(idx), *ws,
+            layer_index=None if li is None else jnp.int32(li))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **GROUPED_TOL)
+
+
 def test_int8_grouped_expert_ffn_refuses_unaligned():
     x, probs, idx, ws = _moe_inputs(1, 8, 2, 4, 64, 32)
     with pytest.raises(ValueError, match="% 128"):
