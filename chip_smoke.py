@@ -8,14 +8,21 @@ Phases, in order:
 1. card name and power limit (nvidia-smi), then build of every CUDA kernel
    from ``ct_diffusionmodelbench_tpu_torch/csrc`` (one nvcc per source, all
    started together); ptxas's registers, spills and warnings per kernel, and
-   whether the flash forward and dk/dv kernels at head dim 128 and the two
-   int8 grouped kernels spill.
+   whether the flash forward and dk/dv kernels at head dim 128 and the bf16
+   and int8 grouped pairs spill.
 2. kernels: each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs, timed with CUDA events beside the plain
    version, one PyTorch library call where one exists, and its bound.  The
-   flash kernels and their SDPA yardsticks are timed in turns (kernel,
-   SDPA, kernel, SDPA, ...; medians), with their achieved TFLOP/s and share
-   of the bound.
+   bf16 grouped pair (K1/K4, K2/K5) runs on a random routing through layer
+   1's router with the stacked [18, 64, ...] weights, with the pad-skip
+   vector ``tile_valid`` the main path hands it (real rows against the plain
+   versions, the rest zero) and without it; it is timed in turns (medians
+   of 5), with and without ``tile_valid``, beside ``torch._grouped_mm``,
+   with its achieved TFLOP/s and share of the bound, and its host
+   microseconds per launch (the TMA maps are built on the host) are
+   printed.  The flash kernels and their SDPA yardsticks are timed in turns
+   (kernel, SDPA, kernel, SDPA, ...; medians), with their achieved TFLOP/s
+   and share of the bound.
 3. slice: full-width, full-depth ``llada-moe-7b`` (random weights from a
    seeded generator) decoding greedily through ``llada_generate`` at batch 8,
    prompt 64, gen 256, steps 128, block 32; launch counts read around that
@@ -72,8 +79,8 @@ Phases, in order:
 
 The bf16 MoE weights are freed before phase 8, the int8 ones before
 phase 11, Dream's before phase 12.  Prints the first designs' times of the
-redesigned flash and int8 grouped kernels (constants from PERF.md, on a
-line of their own),
+redesigned flash and grouped kernels (constants from PERF.md, on a line of
+their own),
 the ``{"kernels": [...]}`` line and, last, the
 ``{"ok": true, ...}`` line.  Exits 2, printing no result, without a card or
 without the port's package beside it (the script run on its own); exits 1
@@ -170,12 +177,14 @@ LOSS_RTOL = 2 ** -7
 # Times of the first designs of the redesigned kernels, copied from PERF.md's
 # kernel table (the WMMA designs: the flash kernels with their accumulators
 # in shared memory, the int8 grouped pair widening int8 through shared
-# memory; on an H100 80GB HBM3 at 700 W); constants, not measured here.
+# memory, the bf16 grouped pair on cp.async and mma.sync; on an H100 80GB
+# HBM3 at 700 W); constants, not measured here.
 FIRST_DESIGN_MS = {"flash_attention_fwd": 0.3158, "flash_attention_fwd T": 2.7245,
                    "flash_attention_fwd chat": 0.1324,
                    "flash_attention_fwd Dream geometry": 0.1455,
                    "flash_attention_bwd_dkv": 1.7452,
-                   "grouped_gateup_q": 1.3266, "grouped_down_q": 0.7082}
+                   "grouped_gateup_q": 1.3266, "grouped_down_q": 0.7082,
+                   "grouped_gateup": 1.1576, "grouped_down": 0.5802}
 # Rounds of the in-turn timings; the median of each is reported.
 TURNS = 5
 
@@ -228,10 +237,12 @@ def report_rate(label: str, flops: float, ms: float, bound: float) -> dict:
 def ptxas_report(libs) -> None:
     """Print ptxas's entry, register, spill and warning lines (a warning
     names, among others, wgmma products it had to serialize), and the spill
-    bytes of the flash forward and dk/dv kernels at head dim 128 and of both
-    int8 grouped kernels (found by their mangled names)."""
+    bytes of the flash forward and dk/dv kernels at head dim 128 and of the
+    bf16 and int8 grouped kernels (found by their mangled names)."""
     watch = {"flash_fwd_kernel<128>": "16flash_fwd_kernelILi128E",
              "flash_bwd_dkv_kernel<128>": "20flash_bwd_dkv_kernelILi128E",
+             "grouped_gemm_kernel<2> (gate/up)": "19grouped_gemm_kernelILi2E",
+             "grouped_gemm_kernel<1> (down)": "19grouped_gemm_kernelILi1E",
              "grouped_gemm_q_kernel<2> (gate/up)": "21grouped_gemm_q_kernelILi2E",
              "grouped_gemm_q_kernel<1> (down)": "21grouped_gemm_q_kernelILi1E"}
     spills = {}
@@ -273,6 +284,16 @@ def compare(name, got, want, rtol, atol):
     return max_err
 
 
+def skip_pad_check(name, got, want, real):
+    """A grouped kernel's output with ``tile_valid``: the rows of ``real``
+    tiles against the plain version, every other row zero."""
+    err = compare(f"{name} with tile_valid, real rows", got[real], want[real],
+                  **GROUPED_TOL)
+    if got[~real].any():
+        raise AssertionError(f"{name}: a tile that tile_valid marks empty is not zero")
+    return err
+
+
 def kernel_phase(cfg, params, dev):
     """Each kernel at the main path's shapes against its plain version."""
     from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rope_angles
@@ -302,60 +323,89 @@ def kernel_phase(cfg, params, dev):
     results = []
     pend = torch.cumsum(gg._round_up(sizes, gg.TILE_M), 0, dtype=torch.int32)
     grouped_mm = getattr(torch, "_grouped_mm", None)
+    L = wg.shape[0]
+    bf16 = xs.element_size()
+    src = "ct_diffusionmodelbench_tpu_torch/csrc/grouped_gemm.cu"
+    ref = "ct_diffusionmodelbench_tpu/ops/grouped_gemm_pallas.py"
+
+    # The pad-skip vector grouped_expert_ffn_cuda hands the pair: tiles with
+    # no real row, zero-filled instead of multiplied.
+    valid = gg.valid_tiles(sizes, tile_expert, gg.TILE_M, m_pad)
+    real = valid.repeat_interleave(gg.TILE_M) != 0
+    print(f"  pad-skip: {int((valid == 0).sum())} of {valid.numel()} tiles hold no "
+          f"real row", flush=True)
 
     # gate/up
     h_k = gg.grouped_gateup(xs, wg, wu, tile_expert, gg.TILE_M, li)
     h_p = gg.grouped_gateup_plain(xs, wg, wu, tile_expert, gg.TILE_M, li)
     torch.cuda.synchronize()
-    err = compare("grouped_gateup", h_k, h_p, **GROUPED_TOL)
+    err = max(compare("grouped_gateup", h_k, h_p, **GROUPED_TOL), skip_pad_check(
+        "grouped_gateup",
+        gg.grouped_gateup(xs, wg, wu, tile_expert, gg.TILE_M, li, valid), h_p, real))
     h_out = torch.empty_like(h_k)
-    k_ms = time_ms(lambda: gg.GATEUP_KERNEL(
-        xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), h_out.data_ptr(),
-        tile_expert.data_ptr(), m_pad, D, Fm, E, li, gg.TILE_M, stream), 20)
+
+    def gateup(tile_valid):
+        return lambda: gg.GATEUP_KERNEL(
+            xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), h_out.data_ptr(),
+            tile_expert.data_ptr(), m_pad, D, Fm, E, L, li, gg.TILE_M, tile_valid, stream)
+
     p_ms = time_ms(lambda: gg.grouped_gateup_plain(
-        xs, wg, wu, tile_expert, gg.TILE_M, li), 3, warmup=1)
-    lib_ms = None
+        xs, wg, wu, tile_expert, gg.TILE_M, li, valid), 3, warmup=1)
+    fns = {"kernel": gateup(valid.data_ptr()), "no_skip": gateup(None)}
     if grouped_mm is not None:
         w_gu = torch.cat([wg[li], wu[li]], dim=-1)
-        lib_ms = time_ms(lambda: grouped_mm(xs, w_gu, offs=pend), 20)
-        del w_gu
+        fns["library"] = lambda: grouped_mm(xs, w_gu, offs=pend)
+    turns = time_turns(fns, 20)
     # Work and bytes of the m routed rows only: the m_pad - m padding rows
     # copy token 0 and carry combine weight 0.
-    bf16 = xs.element_size()
-    b_ms, b_by = bound_ms(4.0 * m * D * Fm,
-                          m * (D + Fm) * bf16 + nbytes(tile_expert)
+    flops = 4.0 * m * D * Fm
+    b_ms, b_by = bound_ms(flops, m * (D + Fm) * bf16 + nbytes(tile_expert)
                           + used * 2 * D * Fm * bf16)
+    rate = report_rate("grouped_gateup", flops, turns["kernel"], b_ms)
     results.append(dict(
-        name="grouped_gateup", route="cuda",
-        source="ct_diffusionmodelbench_tpu_torch/csrc/grouped_gemm.cu",
-        replaces="ct_diffusionmodelbench_tpu/ops/grouped_gemm_pallas.py:901",
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms))
+        name="grouped_gateup", route="cuda", source=src, replaces=f"{ref}:901",
+        max_abs_err=err, ms=turns["kernel"], plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=turns.get("library"), no_skip_ms=turns["no_skip"],
+        **rate))
 
-    # down projection, on the plain gate/up output for both
+    # down, on the plain gate/up output for both
     o_k = gg.grouped_down(h_p, wd, tile_expert, gg.TILE_M, li)
     o_p = gg.grouped_down_plain(h_p, wd, tile_expert, gg.TILE_M, li)
     torch.cuda.synchronize()
-    err = compare("grouped_down", o_k, o_p, **GROUPED_TOL)
+    err = max(compare("grouped_down", o_k, o_p, **GROUPED_TOL), skip_pad_check(
+        "grouped_down", gg.grouped_down(h_p, wd, tile_expert, gg.TILE_M, li, valid), o_p,
+        real))
     o_out = torch.empty_like(o_k)
-    k_ms = time_ms(lambda: gg.DOWN_KERNEL(
-        h_p.data_ptr(), wd.data_ptr(), o_out.data_ptr(), tile_expert.data_ptr(),
-        m_pad, Fm, D, E, li, gg.TILE_M, stream), 20)
+
+    def down(tile_valid):
+        return lambda: gg.DOWN_KERNEL(
+            h_p.data_ptr(), wd.data_ptr(), o_out.data_ptr(), tile_expert.data_ptr(),
+            m_pad, Fm, D, E, L, li, gg.TILE_M, tile_valid, stream)
+
     p_ms = time_ms(lambda: gg.grouped_down_plain(
-        h_p, wd, tile_expert, gg.TILE_M, li), 3, warmup=1)
-    lib_ms = None
+        h_p, wd, tile_expert, gg.TILE_M, li, valid), 3, warmup=1)
+    fns = {"kernel": down(valid.data_ptr()), "no_skip": down(None)}
     if grouped_mm is not None:
         wd_l = wd[li]
-        lib_ms = time_ms(lambda: grouped_mm(h_p, wd_l, offs=pend), 20)
-    b_ms, b_by = bound_ms(2.0 * m * Fm * D,
-                          m * (Fm + D) * bf16 + nbytes(tile_expert)
+        fns["library"] = lambda: grouped_mm(h_p, wd_l, offs=pend)
+    turns = time_turns(fns, 20)
+    flops = 2.0 * m * Fm * D
+    b_ms, b_by = bound_ms(flops, m * (Fm + D) * bf16 + nbytes(tile_expert)
                           + used * Fm * D * bf16)
+    rate = report_rate("grouped_down", flops, turns["kernel"], b_ms)
     results.append(dict(
-        name="grouped_down", route="cuda",
-        source="ct_diffusionmodelbench_tpu_torch/csrc/grouped_gemm.cu",
-        replaces="ct_diffusionmodelbench_tpu/ops/grouped_gemm_pallas.py:969",
-        max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-        library_ms=lib_ms))
+        name="grouped_down", route="cuda", source=src, replaces=f"{ref}:969",
+        max_abs_err=err, ms=turns["kernel"], plain_ms=p_ms, bound_ms=b_ms,
+        bound_by=b_by, library_ms=turns.get("library"), no_skip_ms=turns["no_skip"],
+        **rate))
+    for r in results:
+        print(f"  {r['name']}: kernel (with tile_valid, as on the main path) "
+              f"{r['ms']:.4f} ms, without {r['no_skip_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library (torch._grouped_mm; in turns with "
+              f"the kernel) {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
+              f"({r['bound_by']})", flush=True)
+    host_us_per_launch({"grouped_gateup": gateup(valid.data_ptr()),
+                        "grouped_down": down(valid.data_ptr())})
     del h_k, h_p, o_k, o_p, h_out, o_out, xs
 
     # flash attention: B 8, S 320, H 16, KV 4, Dh 128, RoPE, left padding
@@ -396,12 +446,30 @@ def kernel_phase(cfg, params, dev):
         replaces="ct_diffusionmodelbench_tpu/ops/flash_attention.py:312",
         max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
         library_ms=lib_ms, **rate))
+    r = results[-1]
+    print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+          f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
+          f"({r['bound_by']})", flush=True)
     for r in results:
         r["kernel_ms"] = r["ms"]
-        print(f"  {r['name']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-              f"library {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
-              f"({r['bound_by']})", flush=True)
     return results
+
+
+def host_us_per_launch(fns, n: int = 200) -> None:
+    """Print the host microseconds of one launch of each kernel in ``fns``
+    (name → launch): the ctypes call, the tensor maps encoded on the host,
+    the launch.  n launches stay under the launch queue's depth, so the host
+    never waits for the card."""
+    out = {}
+    for name, fn in fns.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        out[name] = (time.perf_counter() - t0) / n * 1e6
+        torch.cuda.synchronize()
+    print("  host us per launch: " + ", ".join(f"{k} {v:.2f}" for k, v in out.items()),
+          flush=True)
 
 
 def slice_phase(cfg, params, dev):
@@ -690,11 +758,15 @@ def single_prompt_kernel_phase(cfg, params, dev):
         xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), buf.data_ptr(),
         tile_expert.data_ptr(), m_pad, D, Fm, E, li, gg.TILE_M, stream), 20)
 
+    L = wg.shape[0]
+
     def pair():
         gg.GATEUP_KERNEL(xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), h_buf.data_ptr(),
-                         tile_expert.data_ptr(), m_pad, D, Fm, E, li, gg.TILE_M, stream)
+                         tile_expert.data_ptr(), m_pad, D, Fm, E, L, li, gg.TILE_M, None,
+                         stream)
         gg.DOWN_KERNEL(h_buf.data_ptr(), wd.data_ptr(), buf.data_ptr(),
-                       tile_expert.data_ptr(), m_pad, Fm, D, E, li, gg.TILE_M, stream)
+                       tile_expert.data_ptr(), m_pad, Fm, D, E, L, li, gg.TILE_M, None,
+                       stream)
 
     pair_ms = time_ms(pair, 20)
     p_ms = time_ms(lambda: gg.grouped_ffn_fused_plain(
@@ -969,20 +1041,13 @@ def int8_kernel_phase(runner, dev):
     print(f"  pad-skip: {int((valid == 0).sum())} of {valid.numel()} tiles hold no "
           f"real row", flush=True)
 
-    def skip_pad_check(name, got, want):
-        err = compare(f"{name} with tile_valid, real rows", got[real], want[real],
-                      **GROUPED_TOL)
-        if got[~real].any():
-            raise AssertionError(f"{name}: a tile that tile_valid marks empty is not zero")
-        return err
-
     # gate/up
     h_k = gg.grouped_gateup_q(xs, qg, qu, tile_expert, gg.TILE_M, li)
     h_p = gg.grouped_gateup_q_plain(xs, qg, qu, tile_expert, gg.TILE_M, li)
     torch.cuda.synchronize()
     err = max(compare("grouped_gateup_q", h_k, h_p, **GROUPED_TOL), skip_pad_check(
         "grouped_gateup_q",
-        gg.grouped_gateup_q(xs, qg, qu, tile_expert, gg.TILE_M, li, valid), h_p))
+        gg.grouped_gateup_q(xs, qg, qu, tile_expert, gg.TILE_M, li, valid), h_p, real))
     h_out = torch.empty_like(h_k)
 
     def gateup(tile_valid):
@@ -1016,7 +1081,7 @@ def int8_kernel_phase(runner, dev):
     torch.cuda.synchronize()
     err = max(compare("grouped_down_q", o_k, o_p, **GROUPED_TOL), skip_pad_check(
         "grouped_down_q",
-        gg.grouped_down_q(h_p, qd, tile_expert, gg.TILE_M, li, valid), o_p))
+        gg.grouped_down_q(h_p, qd, tile_expert, gg.TILE_M, li, valid), o_p, real))
     o_out = torch.empty_like(o_k)
 
     def down(tile_valid):

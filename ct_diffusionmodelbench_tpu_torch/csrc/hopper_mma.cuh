@@ -1,13 +1,18 @@
 // Hopper building blocks shared by the wgmma kernels (flash_attention.cu:
-// the forward; flash_attention_bwd.cu: dk/dv; grouped_gemm_q.cu: the int8
-// grouped expert GEMMs).
+// the forward; flash_attention_bwd.cu: dk/dv; grouped_gemm.cu: the bf16
+// grouped expert GEMMs; grouped_gemm_q.cu: the int8 grouped expert GEMMs).
 //
 // - cp.async copies from device memory into shared memory, 16 bytes (or 4)
 //   per thread, zero-filling rows past the sequence end;
+// - TMA loads (cp.async.bulk.tensor, 2-D and 3-D, one thread for a whole
+//   box) that report their bytes to an mbarrier, the mbarrier operations of
+//   a producer / consumer ring, and setmaxnreg for warp specialisation;
 // - the canonical swizzled layout of a bf16 [ROWS, Dh] tile that wgmma
 //   reads, and the matrix descriptors that name it: one layout serves as a
 //   K-major operand (Q, K as the A / B of Q K^T) and as an MN-major one (V as
-//   the B of P V), so every tile is stored the same way;
+//   the B of P V; a weight tile W[k, n] as the A of W^T x^T), so every tile
+//   is stored the same way; a TMA box of 64 bf16 columns with the 128-byte
+//   swizzle lands in exactly this layout;
 // - the wgmma instructions the kernels issue, with their fence / commit /
 //   wait and the register fences that keep the compiler from touching an
 //   operand while an asynchronous wgmma still owns it;
@@ -39,7 +44,8 @@
 //   of K (8 * SW), the leading byte offset steps to the next SW-byte column
 //   block of N (ROWS * SW); k-step kk starts 16 rows further down.
 // wgmma reads an A operand from registers with B in either major
-// (imm-trans-b 1: MN-major, 0: K-major).
+// (imm-trans-b 1: MN-major, 0: K-major), or both from shared memory, where
+// A too may be MN-major (imm-trans-a 1) for 16-bit types.
 //
 // Register layouts (wgmma m64nNk16, per warp w of the warpgroup, lane =
 // 4 * g + t): accumulator element d[4 i + 2 h + e] is row 16 w + g + 8 h,
@@ -101,6 +107,77 @@ __device__ __forceinline__ void named_sync(int id, int threads) {
 }
 __device__ __forceinline__ void named_arrive(int id, int threads) {
   asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// mbarriers (8 bytes of shared memory each).  A phase completes when the
+// expected arrivals have arrived and the expected transaction bytes (TMA
+// copies) have landed; waiters name the parity of the phase they wait for.
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t arrivals) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(arrivals)
+               : "memory");
+}
+// After mbar_init and before a barrier that publishes it to the block: makes
+// the initialised barriers visible to the async proxy (TMA) too.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+// One arrival that also expects `bytes` more transaction bytes this phase.
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+// Spin until the phase of parity `parity` has completed (on a fresh barrier
+// parity 1 counts as completed, so a producer's first wait on an empty
+// stage passes).
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  asm volatile(
+      "{\n.reg .pred done;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 done, [%0], %1;\n"
+      "@!done bra WAIT;\n}\n" ::"r"(bar),
+      "r"(parity)
+      : "memory");
+}
+
+// TMA: the box at coordinates (c0 innermost, c1[, c2]) of the tensor map at
+// `map` (a __grid_constant__ kernel parameter) into shared memory at dst,
+// its bytes reported to the mbarrier bar; elements outside the tensor are
+// zero-filled.  With the 128-byte swizzle and a 1024-byte aligned dst, a box
+// of 64 bf16 columns lands as SwTile<64, ROWS>.
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c0, int c1,
+                                            uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3}], [%4];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int c0, int c1,
+                                            int c2, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.tile.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%2, %3, %4}], [%5];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(bar)
+      : "memory");
+}
+__device__ __forceinline__ void tma_prefetch_map(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
+               : "memory");
+}
+
+// Warp specialisation: every warp of a warpgroup lowers (a producer) or
+// raises (a consumer) its register budget to N together.
+template <int N>
+__device__ __forceinline__ void regs_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void regs_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 __device__ __forceinline__ uint64_t smem_desc(uint32_t addr, uint32_t lbo, uint32_t sbo,
@@ -286,6 +363,56 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
 }
 
 
+// D[64 x N] (+)= A[64 x 16] B[16 x N], both in shared memory; B K-major, A
+// K-major (TRANS_A 0) or MN-major (TRANS_A 1: A^T's rows are K, e.g. a
+// weight tile W[k, n] read as the A of W^T x^T).
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_ss_m64n64_a(float (&d)[32], uint64_t desc_a,
+                                                  uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, %35, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A));
+}
+
+template <int TRANS_A>
+__device__ __forceinline__ void wgmma_ss_m64n128_a(float (&d)[64], uint64_t desc_a,
+                                                   uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, %67, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TRANS_A));
+}
+
+template <int N, int TRANS_A>
+__device__ __forceinline__ void wgmma_ss(float (&d)[N / 2], uint64_t desc_a, uint64_t desc_b,
+                                         int scale_d) {
+  static_assert(N == 64 || N == 128, "wgmma width");
+  static_assert(TRANS_A == 0 || TRANS_A == 1, "imm-trans-a");
+  if constexpr (N == 64) wgmma_ss_m64n64_a<TRANS_A>(d, desc_a, desc_b, scale_d);
+  if constexpr (N == 128) wgmma_ss_m64n128_a<TRANS_A>(d, desc_a, desc_b, scale_d);
+}
+
 // ---------------------------------------------------------------------------
 // Transposed tiles of the grouped GEMMs (out^T = W^T x^T: x rows as N)
 // ---------------------------------------------------------------------------
@@ -326,6 +453,11 @@ struct StagedTile {
   __device__ static __forceinline__ void put(unsigned char* base, int row, int col,
                                              uint32_t pair) {
     *reinterpret_cast<uint32_t*>(base + row * PITCH + col * 2) = pair;
+  }
+  // One bf16 value of row `row`, column `col`.
+  __device__ static __forceinline__ void put_one(unsigned char* base, int row, int col,
+                                                 bf16 v) {
+    *reinterpret_cast<bf16*>(base + row * PITCH + col * 2) = v;
   }
   // Rows [0, ROWS) to out[row0 + r][col0 + c] (row stride ldo) for the
   // columns below n; col0 and n are multiples of 8.

@@ -15,12 +15,13 @@ Their int8 forms (``csrc/grouped_gemm_q.cu``), :func:`grouped_gateup_q` and
 :func:`grouped_down_q`, take quantized ``{"q": int8 [(L,) E, K, N], "s": f32
 [(L,) E, N]}`` weights and compute ``silu((x @ q_g) * s_g) * ((x @ q_u) *
 s_u)`` and ``(h @ q_d) * s_d``: the scale on the f32 product, as
-``ops/quant.py::qdot``.  Both take the reference's optional pad-skip
+``ops/quant.py::qdot``.  All four take the reference's optional pad-skip
 vector ``tile_valid`` (a tile marked 0 holds no real row: zeros, no
-product); :func:`grouped_expert_ffn_cuda` always hands it to the int8
-pair (the reference builds it only under ``CTDB_GROUPED_SKIP_PAD=1``, since
-a conditional write costs its TPU kernel the pipelining; on the card the
-pad-skip is faster), and the FFN output is the same as without it.
+product); :func:`grouped_expert_ffn_cuda` always hands it to the bf16 and
+the int8 pair (the reference builds it only under
+``CTDB_GROUPED_SKIP_PAD=1``, since a conditional write costs its TPU kernel
+the pipelining; on the card the pad-skip is faster), and the FFN output is
+the same as without it.
 :func:`grouped_ffn_fused` (``csrc/grouped_ffn_fused.cu``) computes the
 whole FFN, ``bf16(silu(x @ Wg[e]) * (x @ Wu[e])) @ Wd[e]``, in one kernel
 with h kept in shared memory; :func:`grouped_expert_ffn_cuda` takes it
@@ -49,9 +50,9 @@ KERNEL_ROWS = 64  # rows per CUDA block; tile_m must be a multiple
 
 LIBRARY = Library("grouped_gemm.cu")
 GATEUP_KERNEL = Kernel("grouped_gateup", LIBRARY, "ctdb_grouped_gateup",
-                       [PTR] * 5 + [INT] * 6 + [PTR])
+                       [PTR] * 5 + [INT] * 7 + [PTR] * 2)
 DOWN_KERNEL = Kernel("grouped_down", LIBRARY, "ctdb_grouped_down",
-                     [PTR] * 4 + [INT] * 6 + [PTR])
+                     [PTR] * 4 + [INT] * 7 + [PTR] * 2)
 LIBRARY_Q = Library("grouped_gemm_q.cu")
 GATEUP_Q_KERNEL = Kernel("grouped_gateup_q", LIBRARY_Q, "ctdb_grouped_gateup_q",
                          [PTR] * 7 + [INT] * 6 + [PTR] * 2)
@@ -124,24 +125,37 @@ def _tiles_times_experts(x_padded, w, tile_expert, tile_m):
     return torch.bmm(xt, w[tile_expert.long()].float())
 
 
+def _zero_invalid_tiles(out, tile_valid):
+    """Zero the [tiles, tile_m, N] products of the tiles ``tile_valid``
+    marks 0 (none when it is None)."""
+    if tile_valid is None:
+        return out
+    return out.masked_fill((tile_valid == 0)[:, None, None], 0.0)
+
+
 def grouped_gateup_plain(x_padded, we_gate, we_up, tile_expert,
                          tile_m: int = TILE_M,
-                         layer_index: Optional[int] = None) -> torch.Tensor:
-    """The gate/up kernel's function in PyTorch (f32 products)."""
+                         layer_index: Optional[int] = None,
+                         tile_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The gate/up kernel's function in PyTorch (f32 products); zero rows
+    in the tiles ``tile_valid`` marks 0."""
     wg = _layer(we_gate, layer_index)
     wu = _layer(we_up, layer_index)
     gate = _tiles_times_experts(x_padded, wg, tile_expert, tile_m)
     up = _tiles_times_experts(x_padded, wu, tile_expert, tile_m)
-    h = (F.silu(gate) * up).to(x_padded.dtype)
+    h = _zero_invalid_tiles(F.silu(gate) * up, tile_valid).to(x_padded.dtype)
     return h.reshape(x_padded.shape[0], wg.shape[-1])
 
 
 def grouped_down_plain(h_padded, we_down, tile_expert, tile_m: int = TILE_M,
-                       layer_index: Optional[int] = None) -> torch.Tensor:
-    """The down kernel's function in PyTorch (f32 product)."""
+                       layer_index: Optional[int] = None,
+                       tile_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The down kernel's function in PyTorch (f32 product); zero rows in
+    the tiles ``tile_valid`` marks 0."""
     wd = _layer(we_down, layer_index)
     out = _tiles_times_experts(h_padded, wd, tile_expert, tile_m)
-    return out.to(h_padded.dtype).reshape(h_padded.shape[0], wd.shape[-1])
+    out = _zero_invalid_tiles(out, tile_valid).to(h_padded.dtype)
+    return out.reshape(h_padded.shape[0], wd.shape[-1])
 
 
 def _refuse_grad(name: str, *tensors) -> None:
@@ -173,7 +187,8 @@ def _check_kernel_args(x, ws, tile_expert, tile_m, layer_index,
         raise ValueError("gate and up weights differ in shape")
     if wk != k:
         raise ValueError(f"x has K={k}, weights K={wk}")
-    # One 16-byte cp.async carries 8 bf16 or 16 int8 values of a row.
+    # One 16-byte copy carries 8 bf16 or 16 int8 values of a row (TMA's
+    # global strides, too, are multiples of 16 bytes).
     n_align = 16 // w.element_size()
     if k % 8 or n % n_align:
         raise ValueError(f"K and N must be multiples of 8 and {n_align}, "
@@ -195,36 +210,61 @@ def _check_kernel_args(x, ws, tile_expert, tile_m, layer_index,
     return m_pad, k, n, e, layer
 
 
+def _tile_valid_ptr(tile_valid, tile_expert) -> Optional[int]:
+    """The kernel's ``tile_valid`` pointer: None (null) for none, else the
+    checked vector's address; it must match ``tile_expert`` in device, type
+    and shape."""
+    if tile_valid is None:
+        return None
+    if (tile_valid.device != tile_expert.device or tile_valid.dtype != torch.int32
+            or tile_valid.shape != tile_expert.shape or not tile_valid.is_contiguous()):
+        raise ValueError("tile_valid must be contiguous int32 "
+                         f"{tuple(tile_expert.shape)} on {tile_expert.device}")
+    return tile_valid.data_ptr()
+
+
+def _num_layers(w: torch.Tensor) -> int:
+    """Layers of a bf16 expert stack: L of [L, E, K, N], 1 of [E, K, N]."""
+    return w.shape[0] if w.ndim == 4 else 1
+
+
 def grouped_gateup(x_padded, we_gate, we_up, tile_expert, tile_m: int = TILE_M,
-                   layer_index: Optional[int] = None) -> torch.Tensor:
-    """h [M_pad, F] = silu(x @ Wg[e]) * (x @ Wu[e]) per row tile."""
+                   layer_index: Optional[int] = None,
+                   tile_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """h [M_pad, F] = silu(x @ Wg[e]) * (x @ Wu[e]) per row tile; zeros in
+    the tiles ``tile_valid`` marks 0."""
     if x_padded.device.type == "cpu":
         return grouped_gateup_plain(x_padded, we_gate, we_up, tile_expert,
-                                    tile_m, layer_index)
+                                    tile_m, layer_index, tile_valid)
     _refuse_grad("grouped_gateup", x_padded, we_gate, we_up)
     m_pad, d, f, e, layer = _check_kernel_args(
         x_padded, (we_gate, we_up), tile_expert, tile_m, layer_index)
+    valid = _tile_valid_ptr(tile_valid, tile_expert)
     h = torch.empty((m_pad, f), dtype=x_padded.dtype, device=x_padded.device)
     stream = torch.cuda.current_stream(x_padded.device).cuda_stream
     GATEUP_KERNEL(x_padded.data_ptr(), we_gate.data_ptr(), we_up.data_ptr(),
-                  h.data_ptr(), tile_expert.data_ptr(), m_pad, d, f, e, layer,
-                  tile_m, stream)
+                  h.data_ptr(), tile_expert.data_ptr(), m_pad, d, f, e,
+                  _num_layers(we_gate), layer, tile_m, valid, stream)
     return h
 
 
 def grouped_down(h_padded, we_down, tile_expert, tile_m: int = TILE_M,
-                 layer_index: Optional[int] = None) -> torch.Tensor:
-    """out [M_pad, D] = h @ Wd[e] per row tile."""
+                 layer_index: Optional[int] = None,
+                 tile_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """out [M_pad, D] = h @ Wd[e] per row tile; zeros in the tiles
+    ``tile_valid`` marks 0."""
     if h_padded.device.type == "cpu":
         return grouped_down_plain(h_padded, we_down, tile_expert, tile_m,
-                                  layer_index)
+                                  layer_index, tile_valid)
     _refuse_grad("grouped_down", h_padded, we_down)
     m_pad, f, d, e, layer = _check_kernel_args(
         h_padded, (we_down,), tile_expert, tile_m, layer_index)
+    valid = _tile_valid_ptr(tile_valid, tile_expert)
     out = torch.empty((m_pad, d), dtype=h_padded.dtype, device=h_padded.device)
     stream = torch.cuda.current_stream(h_padded.device).cuda_stream
     DOWN_KERNEL(h_padded.data_ptr(), we_down.data_ptr(), out.data_ptr(),
-                tile_expert.data_ptr(), m_pad, f, d, e, layer, tile_m, stream)
+                tile_expert.data_ptr(), m_pad, f, d, e, _num_layers(we_down),
+                layer, tile_m, valid, stream)
     return out
 
 
@@ -305,14 +345,6 @@ def _tiles_times_experts_q(x_padded, w, tile_expert, tile_m, layer_index):
     return acc * s.float()[tile_expert.long()][:, None, :]
 
 
-def _zero_invalid_tiles(out, tile_valid):
-    """Zero the [tiles, tile_m, N] products of the tiles ``tile_valid``
-    marks 0 (none when it is None)."""
-    if tile_valid is None:
-        return out
-    return out.masked_fill((tile_valid == 0)[:, None, None], 0.0)
-
-
 def grouped_gateup_q_plain(x_padded, we_gate: dict, we_up: dict, tile_expert,
                            tile_m: int = TILE_M,
                            layer_index: Optional[int] = None,
@@ -344,19 +376,6 @@ def _check_scales(ws, n):
                 or not s.is_contiguous() or tuple(s.shape) != q.shape[:-2] + (n,)):
             raise ValueError(f"s{i} must be contiguous f32 {q.shape[:-2] + (n,)} "
                              f"on {q.device}, got {s.dtype} {tuple(s.shape)}")
-
-
-def _tile_valid_ptr(tile_valid, tile_expert) -> Optional[int]:
-    """The kernel's ``tile_valid`` pointer: None (null) for none, else the
-    checked vector's address; it must match ``tile_expert`` in device, type
-    and shape."""
-    if tile_valid is None:
-        return None
-    if (tile_valid.device != tile_expert.device or tile_valid.dtype != torch.int32
-            or tile_valid.shape != tile_expert.shape or not tile_valid.is_contiguous()):
-        raise ValueError("tile_valid must be contiguous int32 "
-                         f"{tuple(tile_expert.shape)} on {tile_expert.device}")
-    return tile_valid.data_ptr()
 
 
 def grouped_gateup_q(x_padded, we_gate: dict, we_up: dict, tile_expert,
@@ -445,11 +464,11 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
     """Full expert FFN on the padded layout: x [N, D] → [N, D].
 
     Counterpart of ``grouped_expert_ffn_pallas``: counting layout, one row
-    gather, the gate/up and down kernels (their int8 forms for quantized
-    ``{"q", "s"}`` weights, which need D and F to be multiples of 128, as
-    the reference's, with the pad-skip vector; the fused kernel instead under
-    ``CTDB_GROUPED_FUSED=1`` for plain weights with D and F multiples of
-    128), the weighted combine."""
+    gather, the gate/up and down kernels with the pad-skip vector (their
+    int8 forms for quantized ``{"q", "s"}`` weights, which need D and F to
+    be multiples of 128, as the reference's; the fused kernel instead, with
+    no pad-skip, under ``CTDB_GROUPED_FUSED=1`` for plain weights with D and
+    F multiples of 128), the weighted combine."""
     quantized = is_quantized(we_gate)
     if x.is_cuda:
         plain = [] if quantized else [we_gate, we_up, we_down]
@@ -465,16 +484,13 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
         tile_m = 128
     dest, tile_expert, sizes, m_pad = counting_layout(topk_idx, e, tile_m)
     xs = gather_rows(x, dest, k, m_pad)
-    if quantized:
-        valid = valid_tiles(sizes, tile_expert, tile_m, m_pad)
-        h = grouped_gateup_q(xs, we_gate, we_up, tile_expert, tile_m, layer_index,
-                             valid)
-        out_padded = grouped_down_q(h, we_down, tile_expert, tile_m, layer_index,
-                                    valid)
-    elif aligned and fused_mode():
+    if not quantized and aligned and fused_mode():
         out_padded = grouped_ffn_fused(xs, we_gate, we_up, we_down, tile_expert,
                                        tile_m, layer_index)
     else:
-        h = grouped_gateup(xs, we_gate, we_up, tile_expert, tile_m, layer_index)
-        out_padded = grouped_down(h, we_down, tile_expert, tile_m, layer_index)
+        gateup, down = (grouped_gateup_q, grouped_down_q) if quantized else (
+            grouped_gateup, grouped_down)
+        valid = valid_tiles(sizes, tile_expert, tile_m, m_pad)
+        h = gateup(xs, we_gate, we_up, tile_expert, tile_m, layer_index, valid)
+        out_padded = down(h, we_down, tile_expert, tile_m, layer_index, valid)
     return combine(out_padded, dest, topk_probs, n, k, x.dtype)

@@ -25,6 +25,7 @@ import pytest
 import torch
 
 from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params, make_forward_fn
+from ct_diffusionmodelbench_tpu_torch.models import moe
 from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rope_angles
 from ct_diffusionmodelbench_tpu_torch.models.transformer import token_positions
 from ct_diffusionmodelbench_tpu_torch.ops import attention
@@ -79,6 +80,185 @@ def test_grouped_kernels_match_plain(cuda_device, d, f, layers):
         o, gg.grouped_down_plain(h, wd, te, gg.TILE_M, li), **GROUPED_TOL)
 
 
+# The grouped pairs' schedule (csrc/grouped_gemm.cu, csrc/grouped_gemm_q.cu):
+# a block takes the 64-row tiles 2y, 2y + 1 as one n128 pass when one expert
+# owns both, else one n64 pass each, or zeros for a tile that tile_valid
+# marks empty.  The bf16 pair runs it on TMA loads and shared-memory wgmma
+# (the weight box an MN-major A, x the K-major B), the int8 pair on
+# cp.async and register-A wgmma.
+
+def _routing_of_sizes(dev, sizes, d, seed):
+    """Top-1 routing with exactly sizes[e] rows on expert e, seeded order."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    flat = torch.repeat_interleave(torch.arange(len(sizes), device=dev),
+                                   torch.tensor(sizes, device=dev))
+    idx = flat[torch.randperm(flat.numel(), generator=g, device=dev)][:, None]
+    x = torch.randn((flat.numel(), d), generator=g, device=dev, dtype=torch.bfloat16)
+    return x, idx, g
+
+
+
+def _bf16_experts(g, dev, lead, e, k_dim, n_dim):
+    return torch.randn(lead + (e, k_dim, n_dim), generator=g, device=dev,
+                       dtype=torch.bfloat16) / k_dim ** 0.5
+
+
+@pytest.mark.parametrize("with_valid", [False, True])
+@pytest.mark.parametrize("d,f,layers,tile_m,sizes", [
+    (256, 384, 3, 64, [30, 100, 0, 64, 130, 1, 65, 10]),
+    (128, 256, None, 128, [200, 30, 0, 300, 10, 0, 0, 90]),
+    (128, 128, 2, 64, [0, 0, 0, 0, 0, 300, 0, 0]),
+], ids=["odd_runs_last_layer", "tile_m_128", "one_expert"])
+def test_grouped_kernel_schedule_edges(cuda_device, d, f, layers, tile_m, sizes,
+                                       with_valid):
+    """The int8 pair's schedule edges for the bf16 pair: tile pairs split
+    across experts, an odd tile count, tile_m 128, one expert, the last of
+    3 layers; with the pad-skip vector the real rows match and the rest is
+    zero."""
+    dev, e = cuda_device, len(sizes)
+    x, idx, g = _routing_of_sizes(dev, sizes, d, d + f + tile_m)
+    lead = () if layers is None else (layers,)
+    wg, wu = (_bf16_experts(g, dev, lead, e, d, f) for _ in range(2))
+    wd = _bf16_experts(g, dev, lead, e, f, d)
+    li = None if layers is None else layers - 1
+    dest, te, got_sizes, m_pad = gg.counting_layout(idx, e, tile_m)
+    assert got_sizes.tolist() == sizes
+    valid = gg.valid_tiles(got_sizes, te, tile_m, m_pad)
+    assert bool((valid[-1] == 0).item())
+    tv = valid if with_valid else None
+    xs = gg.gather_rows(x, dest, 1, m_pad)
+    reset_launch_counts()
+    h = gg.grouped_gateup(xs, wg, wu, te, tile_m, li, tv)
+    h_p = gg.grouped_gateup_plain(xs, wg, wu, te, tile_m, li, tv)
+    torch.testing.assert_close(h, h_p, **GROUPED_TOL)
+    o = gg.grouped_down(h_p, wd, te, tile_m, li, tv)
+    torch.testing.assert_close(
+        o, gg.grouped_down_plain(h_p, wd, te, tile_m, li, tv), **GROUPED_TOL)
+    assert KERNELS["grouped_gateup"].launches == KERNELS["grouped_down"].launches == 1
+    if with_valid:
+        empty = valid.repeat_interleave(tile_m) == 0
+        assert not h[empty].any() and not o[empty].any()
+        real = ~empty
+        assert torch.equal(h[real], gg.grouped_gateup(xs, wg, wu, te, tile_m, li)[real])
+
+
+def _ints(g, dev, shape, lo, hi, scale):
+    """bf16 integers in [lo, hi) times ``scale`` (a power of two)."""
+    return (torch.randint(lo, hi, shape, generator=g, device=dev) * scale).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("d,f,layers,e", [(256, 384, None, 8), (2048, 896, 2, 64)])
+def test_grouped_kernels_exact_arithmetic(cuda_device, d, f, layers, e):
+    """Integers in [-8, 8] times 2**-7 (x, h) and times 2**-5 (weights):
+    every sum over K <= 2048 stays below 2**18 units of 2**-12, exact in f32
+    in any order, so a wrong descriptor, swizzle or box gives a wrong number,
+    never a rounding.  The down kernel is bit-equal to its plain version;
+    gate/up within one bf16 ulp (the SiLU's exp)."""
+    dev = cuda_device
+    _, idx, g = _routing(dev, 300, d, e, 2, d + f + e)
+    lead = () if layers is None else (layers,)
+    x = _ints(g, dev, (300, d), -8, 9, 2 ** -7)
+    wg, wu = (_ints(g, dev, lead + (e, d, f), -8, 9, 2 ** -5) for _ in range(2))
+    wd = _ints(g, dev, lead + (e, f, d), -8, 9, 2 ** -5)
+    li = None if layers is None else layers - 1
+    dest, te, _, m_pad = gg.counting_layout(idx, e, gg.TILE_M)
+    xs = gg.gather_rows(x, dest, 2, m_pad)
+    h = gg.grouped_gateup(xs, wg, wu, te, gg.TILE_M, li)
+    torch.testing.assert_close(
+        h, gg.grouped_gateup_plain(xs, wg, wu, te, gg.TILE_M, li), rtol=2 ** -7, atol=0.0)
+    h_in = _ints(g, dev, (m_pad, f), -8, 9, 2 ** -7)
+    assert torch.equal(gg.grouped_down(h_in, wd, te, gg.TILE_M, li),
+                       gg.grouped_down_plain(h_in, wd, te, gg.TILE_M, li))
+
+
+@pytest.mark.parametrize("layers", [None, 2])
+def test_grouped_kernels_k_tail_reads_no_neighbour(cuda_device, layers):
+    """K = 200 (three full 64-deep steps and a tail of 8): the rows k >= K
+    of an expert's box must be zeros, not the next expert's first rows.
+    Experts 1, 3 and 5 (and, stacked, the layer after the one used) hold
+    +inf and own no row (the trailing padding tiles belong to the last
+    expert, which has rows), so a read past an expert's end turns 0 * inf
+    into NaN; with exact inputs the outputs equal the plain versions'."""
+    dev, d, f = cuda_device, 200, 200
+    sizes = [100, 0, 70, 0, 130, 0, 10, 40]
+    e = len(sizes)
+    x, idx, g = _routing_of_sizes(dev, sizes, d, 17)
+    lead = () if layers is None else (layers,)
+    x = _ints(g, dev, x.shape, -8, 9, 2 ** -7)
+    wg, wu = (_ints(g, dev, lead + (e, d, f), -8, 9, 2 ** -5) for _ in range(2))
+    wd = _ints(g, dev, lead + (e, f, d), -8, 9, 2 ** -5)
+    for w in (wg, wu, wd):
+        w[..., 1:6:2, :, :] = float("inf")
+        if layers is not None:
+            w[1:] = float("inf")
+    li = None if layers is None else 0
+    dest, te, _, m_pad = gg.counting_layout(idx, e, gg.TILE_M)
+    xs = gg.gather_rows(x, dest, 1, m_pad)
+    h = gg.grouped_gateup(xs, wg, wu, te, gg.TILE_M, li)
+    assert bool(torch.isfinite(h).all())
+    torch.testing.assert_close(
+        h, gg.grouped_gateup_plain(xs, wg, wu, te, gg.TILE_M, li), rtol=2 ** -7, atol=0.0)
+    h_in = _ints(g, dev, (m_pad, f), -8, 9, 2 ** -7)
+    o = gg.grouped_down(h_in, wd, te, gg.TILE_M, li)
+    assert bool(torch.isfinite(o).all())
+    assert torch.equal(o, gg.grouped_down_plain(h_in, wd, te, gg.TILE_M, li))
+
+
+@pytest.mark.parametrize("rows", [64, 128])
+def test_grouped_wgmma_rehearsal_single_tile(cuda_device, rows):
+    """One tile of one expert through the down kernel (one n64 pass at 64
+    rows, one n128 pass at 128; 64 of the block's 256 columns, the rest
+    past the ragged edge): the weight box as the MN-major A of a
+    shared-memory wgmma, x as the K-major B, against torch.matmul.  Exact
+    sums, so bit-equal."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(rows)
+    x = _ints(g, dev, (rows, 64), -8, 9, 2 ** -7)
+    w = _ints(g, dev, (1, 64, 64), -8, 9, 2 ** -5)
+    te = torch.zeros(rows // 64, dtype=torch.int32, device=dev)
+    out = gg.grouped_down(x, w, te, 64)
+    assert torch.equal(out, torch.matmul(x.float(), w[0].float()).to(torch.bfloat16))
+
+
+def test_bf16_ffn_hands_kernels_tile_valid(cuda_device, monkeypatch):
+    """The bf16 expert FFN gives both kernels the pad-skip vector; its output
+    is the same as with none."""
+    dev, e = cuda_device, 8
+    x, idx, g = _routing(dev, 150, 256, e, 2, 12)
+    probs = torch.rand(idx.shape, generator=g, device=dev)
+    ws = [_bf16_experts(g, dev, (), e, 256, 128), _bf16_experts(g, dev, (), e, 256, 128),
+          _bf16_experts(g, dev, (), e, 128, 256)]
+    seen = []
+
+    def recording(kernel, keep):
+        def run(*args):
+            seen.append(args[-1])
+            return kernel(*args[:-1], args[-1] if keep else None)
+        return run
+
+    gateup, down = gg.grouped_gateup, gg.grouped_down
+    monkeypatch.setattr(gg, "grouped_gateup", recording(gateup, False))
+    monkeypatch.setattr(gg, "grouped_down", recording(down, False))
+    want = gg.grouped_expert_ffn_cuda(x, probs, idx, *ws)
+    monkeypatch.setattr(gg, "grouped_gateup", recording(gateup, True))
+    monkeypatch.setattr(gg, "grouped_down", recording(down, True))
+    assert torch.equal(gg.grouped_expert_ffn_cuda(x, probs, idx, *ws), want)
+    assert all(v is not None for v in seen) and bool((seen[0] == 0).any())
+
+
+def test_bf16_wrappers_refuse_bad_tile_valid(cuda_device):
+    dev = cuda_device
+    x = torch.zeros((128, 64), device=dev, dtype=torch.bfloat16)
+    w = torch.zeros((2, 64, 64), device=dev, dtype=torch.bfloat16)
+    te = torch.zeros(2, dtype=torch.int32, device=dev)
+    for bad in (torch.ones(2, dtype=torch.int64, device=dev),
+                torch.ones(3, dtype=torch.int32, device=dev)):
+        with pytest.raises(ValueError, match="tile_valid"):
+            gg.grouped_gateup(x, w, w, te, 64, None, bad)
+        with pytest.raises(ValueError, match="tile_valid"):
+            gg.grouped_down(x, w, te, 64, None, bad)
+
+
 def _int8_experts(g, dev, lead, e, k_dim, n_dim):
     w = torch.randn(lead + (e, k_dim, n_dim), generator=g, device=dev) / k_dim ** 0.5
     return quantize_tensor(w)
@@ -112,20 +292,6 @@ def test_int8_grouped_kernels_match_plain(cuda_device, d, f, layers, e, skew):
     assert KERNELS["grouped_gateup_q"].launches == 1
     assert KERNELS["grouped_down_q"].launches == 1
     assert KERNELS["grouped_gateup"].launches == 0
-
-
-# The int8 pair's schedule (csrc/grouped_gemm_q.cu): a block takes the 64-row
-# tiles 2y, 2y + 1 as one n128 pass when one expert owns both, else one n64
-# pass each, or zeros for a tile that tile_valid marks empty.
-
-def _routing_of_sizes(dev, sizes, d, seed):
-    """Top-1 routing with exactly sizes[e] rows on expert e, seeded order."""
-    g = torch.Generator(device=dev).manual_seed(seed)
-    flat = torch.repeat_interleave(torch.arange(len(sizes), device=dev),
-                                   torch.tensor(sizes, device=dev))
-    idx = flat[torch.randperm(flat.numel(), generator=g, device=dev)][:, None]
-    x = torch.randn((flat.numel(), d), generator=g, device=dev, dtype=torch.bfloat16)
-    return x, idx, g
 
 
 @pytest.mark.parametrize("with_valid", [False, True])
@@ -255,6 +421,40 @@ def test_int8_wrappers_refuse_bad_tile_valid(cuda_device):
             gg.grouped_down_q(x, w, te, 64, None, bad)
 
 
+def _kernels_against_plain(cfg, params, ids, dev, monkeypatch, seams):
+    """Logits of a forward through the kernels and of the same forward with
+    ``seams`` ((module, name, plain version) swapped in).  The second run
+    takes the first one's expert choice in every layer: a one-ulp
+    difference at a router input decides a near-tie of the top-k-th and the
+    next expert now and then, which moves that token's logits by far more
+    than any kernel error (chip_smoke.py's 2-layer checks do the same)."""
+    router_probs, chosen = moe.router_probs, []
+
+    def recording_router(x, w, top_k, norm_topk):
+        out = router_probs(x, w, top_k, norm_topk)
+        chosen.append(out[1])
+        return out
+
+    def pinned_router(x, w, top_k, norm_topk):
+        _, _, probs = router_probs(x, w, top_k, norm_topk)
+        idx = chosen.pop(0)
+        topk_probs = probs.gather(-1, idx)
+        if norm_topk:
+            topk_probs = topk_probs / topk_probs.sum(dim=-1, keepdim=True)
+        return topk_probs, idx, probs
+
+    with monkeypatch.context() as m:
+        m.setattr(moe, "router_probs", recording_router)
+        lk, _ = make_forward_fn(cfg, device=dev)(params, ids)
+    with monkeypatch.context() as m:
+        m.setattr(moe, "router_probs", pinned_router)
+        for module, name, plain in seams:
+            m.setattr(module, name, plain)
+        lp, _ = make_forward_fn(cfg, device=dev)(params, ids)
+    assert not chosen
+    return lk, lp
+
+
 def test_int8_ffn_and_tiny_model_against_plain(cuda_device, monkeypatch):
     """The int8 expert FFN and an aligned tiny int8 model: kernels against
     plain versions, and a greedy decode through the int8 pair only."""
@@ -263,12 +463,10 @@ def test_int8_ffn_and_tiny_model_against_plain(cuda_device, monkeypatch):
                      head_dim=32)                               # bf16
     params = init_params(cfg, seed=6, device=dev, leaf_transform=quantized_leaf_transform)
     ids = torch.randint(3, 400, (2, 40), device=dev)
-    lk, _ = make_forward_fn(cfg, device=dev)(params, ids)
-    with monkeypatch.context() as m:
-        m.setattr(attention, "flash_attention", fa.flash_attention_plain)
-        m.setattr(gg, "grouped_gateup_q", gg.grouped_gateup_q_plain)
-        m.setattr(gg, "grouped_down_q", gg.grouped_down_q_plain)
-        lp, _ = make_forward_fn(cfg, device=dev)(params, ids)
+    lk, lp = _kernels_against_plain(cfg, params, ids, dev, monkeypatch, [
+        (attention, "flash_attention", fa.flash_attention_plain),
+        (gg, "grouped_gateup_q", gg.grouped_gateup_q_plain),
+        (gg, "grouped_down_q", gg.grouped_down_q_plain)])
     assert (lk - lp).abs().max() <= 2 ** -4 * lp.abs().max()
     reset_launch_counts()
     out = llada_generate(make_forward_fn(cfg, device=dev), params, ids[:, :8],
@@ -332,12 +530,10 @@ def test_tiny_model_kernels_against_plain(cuda_device, monkeypatch):
     cfg = get_config("llada-moe-tiny")  # bf16
     params = init_params(cfg, seed=3, device=cuda_device)
     ids = torch.randint(3, 400, (2, 40), device=cuda_device)
-    lk, _ = make_forward_fn(cfg, device=cuda_device)(params, ids)
-    with monkeypatch.context() as m:  # each wrapper → its plain version
-        m.setattr(attention, "flash_attention", fa.flash_attention_plain)
-        m.setattr(gg, "grouped_gateup", gg.grouped_gateup_plain)
-        m.setattr(gg, "grouped_down", gg.grouped_down_plain)
-        lp, _ = make_forward_fn(cfg, device=cuda_device)(params, ids)
+    lk, lp = _kernels_against_plain(cfg, params, ids, cuda_device, monkeypatch, [
+        (attention, "flash_attention", fa.flash_attention_plain),
+        (gg, "grouped_gateup", gg.grouped_gateup_plain),
+        (gg, "grouped_down", gg.grouped_down_plain)])
     assert (lk - lp).abs().max() <= 2 ** -4 * lp.abs().max()
     reset_launch_counts()
     out = llada_generate(make_forward_fn(cfg, device=cuda_device), params,
@@ -712,11 +908,9 @@ def test_tiny_model_single_prompt_kernels(cuda_device, monkeypatch):
                      head_dim=32)                               # bf16
     params = init_params(cfg, seed=7, device=dev)
     ids = torch.randint(3, 400, (1, 40), device=dev)
-    lk, _ = make_forward_fn(cfg, device=dev)(params, ids)
-    with monkeypatch.context() as m:
-        m.setattr(attention, "flash_attention", fa.flash_attention_plain)
-        m.setattr(gg, "grouped_ffn_fused", gg.grouped_ffn_fused_plain)
-        lp, _ = make_forward_fn(cfg, device=dev)(params, ids)
+    lk, lp = _kernels_against_plain(cfg, params, ids, dev, monkeypatch, [
+        (attention, "flash_attention", fa.flash_attention_plain),
+        (gg, "grouped_ffn_fused", gg.grouped_ffn_fused_plain)])
     assert (lk - lp).abs().max() <= 2 ** -4 * lp.abs().max()
     reset_launch_counts()
     out = llada_generate(make_forward_fn(cfg, device=dev), params, ids[:, :8],
