@@ -8,8 +8,8 @@ Phases, in order:
 1. card name and power limit (nvidia-smi), then build of every CUDA kernel
    from ``ct_diffusionmodelbench_tpu_torch/csrc`` (one nvcc per source, all
    started together); ptxas's registers, spills and warnings per kernel, and
-   whether the flash forward and dk/dv kernels at head dim 128 and the bf16
-   and int8 grouped pairs spill.
+   whether the flash forward, dq and dk/dv kernels at head dim 128, the bf16
+   and int8 grouped pairs and the fused expert FFN spill.
 2. kernels: each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs, timed with CUDA events beside the plain
    version, one PyTorch library call where one exists, and its bound.  The
@@ -35,7 +35,11 @@ Phases, in order:
    (K9, with and without lse, at llada-moe-7b's H 16 / KV 4 and at Dream's
    H 28 / KV 4) against their plain versions, timed beside them, beside one
    PyTorch call for the same function, beside their bounds and beside the
-   pair (K1 + K2) and K8 at the same inputs.
+   pair (K1 + K2) and K8 at the same inputs.  K3 runs with the pad-skip
+   vector ``tile_valid`` the chat path hands it (real rows against the plain
+   version, the rest zero) and without it, timed in turns (medians of 5)
+   with and without it beside the pair (with it) and ``torch._grouped_mm``;
+   the count of tiles with a real row is printed.
 6. chat slice: with ``CTDB_GROUPED_FUSED=1`` and ``CTDB_FLASH_DIRECT=1``,
    ``cli/chat.py``'s ``build_parser`` → a ``ModelRunner`` on phase 3's
    weights (those of ``--preset llada-moe-7b``) → ``run_chat`` at the chat
@@ -68,8 +72,9 @@ Phases, in order:
 12. training kernels: the flash forward with lse and the two backward kernels
    at the training shape (B 1, S 2048, H = KV = 32, Dh 128, RoPE) against
    their plain versions, timed beside them and beside SDPA's forward and
-   backward, and the forward beside itself without RoPE; also a GQA case
-   (H 16, KV 4) and a padded-mask case.
+   backward (dq, dk/dv and SDPA's backward in turns, each kernel with its
+   share of the bound), and the forward beside itself without RoPE; also a
+   GQA case (H 16, KV 4) and a padded-mask case.
 13. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
    5 optimizer steps by ``Trainer`` (seq 2048, micro-batch 1, grad-accum 4,
    remat, CE chunk 512, AdamW) on seeded token rows; s/step over steps 2-5,
@@ -177,14 +182,16 @@ LOSS_RTOL = 2 ** -7
 # Times of the first designs of the redesigned kernels, copied from PERF.md's
 # kernel table (the WMMA designs: the flash kernels with their accumulators
 # in shared memory, the int8 grouped pair widening int8 through shared
-# memory, the bf16 grouped pair on cp.async and mma.sync; on an H100 80GB
-# HBM3 at 700 W); constants, not measured here.
+# memory, the bf16 grouped pair and the fused expert FFN on cp.async and
+# mma.sync; dq at T after its unused shared tile went; on an H100 80GB HBM3
+# at 700 W); constants, not measured here.
 FIRST_DESIGN_MS = {"flash_attention_fwd": 0.3158, "flash_attention_fwd T": 2.7245,
                    "flash_attention_fwd chat": 0.1324,
                    "flash_attention_fwd Dream geometry": 0.1455,
-                   "flash_attention_bwd_dkv": 1.7452,
+                   "flash_attention_bwd_dkv": 1.7452, "flash_attention_bwd_dq": 0.9744,
                    "grouped_gateup_q": 1.3266, "grouped_down_q": 0.7082,
-                   "grouped_gateup": 1.1576, "grouped_down": 0.5802}
+                   "grouped_gateup": 1.1576, "grouped_down": 0.5802,
+                   "grouped_ffn_fused": 0.8177}
 # Rounds of the in-turn timings; the median of each is reported.
 TURNS = 5
 
@@ -237,10 +244,13 @@ def report_rate(label: str, flops: float, ms: float, bound: float) -> dict:
 def ptxas_report(libs) -> None:
     """Print ptxas's entry, register, spill and warning lines (a warning
     names, among others, wgmma products it had to serialize), and the spill
-    bytes of the flash forward and dk/dv kernels at head dim 128 and of the
-    bf16 and int8 grouped kernels (found by their mangled names)."""
+    bytes of the flash forward, dq and dk/dv kernels at head dim 128, of the
+    bf16 and int8 grouped kernels and of the fused expert FFN (found by
+    their mangled names)."""
     watch = {"flash_fwd_kernel<128>": "16flash_fwd_kernelILi128E",
+             "flash_bwd_dq_kernel<128>": "19flash_bwd_dq_kernelILi128E",
              "flash_bwd_dkv_kernel<128>": "20flash_bwd_dkv_kernelILi128E",
+             "grouped_ffn_fused_kernel": "24grouped_ffn_fused_kernel",
              "grouped_gemm_kernel<2> (gate/up)": "19grouped_gemm_kernelILi2E",
              "grouped_gemm_kernel<1> (down)": "19grouped_gemm_kernelILi1E",
              "grouped_gemm_q_kernel<2> (gate/up)": "21grouped_gemm_q_kernelILi2E",
@@ -740,38 +750,52 @@ def single_prompt_kernel_phase(cfg, params, dev):
     stream = torch.cuda.current_stream(dev).cuda_stream
     results = []
 
-    # K3: the fused expert FFN on layer 1's routing, stacked weights
-    out_k = gg.grouped_ffn_fused(xs, wg, wu, wd, tile_expert, gg.TILE_M, li)
+    # K3: the fused expert FFN on layer 1's routing, stacked weights, with
+    # the pad-skip vector grouped_expert_ffn_cuda hands it and without it
+    valid = gg.valid_tiles(sizes, tile_expert, gg.TILE_M, m_pad)
+    real = valid.repeat_interleave(gg.TILE_M) != 0
+    n_valid = int(valid.sum())
+    print(f"  pad-skip: {n_valid} of {valid.numel()} tiles hold a real row", flush=True)
+    out_k = gg.grouped_ffn_fused(xs, wg, wu, wd, tile_expert, gg.TILE_M, li, valid)
+    out_all = gg.grouped_ffn_fused(xs, wg, wu, wd, tile_expert, gg.TILE_M, li)
     h_p = gg.grouped_gateup_plain(xs, wg, wu, tile_expert, gg.TILE_M, li)
     out_p = gg.grouped_down_plain(h_p, wd, tile_expert, gg.TILE_M, li)
     torch.cuda.synchronize()
     flip = H_FLIP * float(h_p.abs().max()) * float(wd[li].abs().max())
     atol = max(GROUPED_TOL["atol"], flip)
-    over = int(((out_k.float() - out_p.float()).abs()
+    over = int(((out_all.float() - out_p.float()).abs()
                 > GROUPED_TOL["atol"] + GROUPED_TOL["rtol"] * out_p.float().abs()).sum())
     print(f"  grouped_ffn_fused: {over}/{out_p.numel()} elements past one bf16 ulp "
           f"(GROUPED_TOL); the flipped-h term adds atol {flip:.3e}", flush=True)
-    err = compare("grouped_ffn_fused", out_k, out_p, GROUPED_TOL["rtol"], atol)
+    err = max(compare("grouped_ffn_fused", out_all, out_p, GROUPED_TOL["rtol"], atol),
+              compare("grouped_ffn_fused with tile_valid, real rows", out_k[real],
+                      out_p[real], GROUPED_TOL["rtol"], atol))
+    if out_k[~real].any():
+        raise AssertionError("grouped_ffn_fused: a tile that tile_valid marks empty is "
+                             "not zero")
+    if not torch.equal(out_k, gg.grouped_ffn_fused(xs, wg, wu, wd, tile_expert, gg.TILE_M,
+                                                   li, valid)):
+        raise AssertionError("grouped_ffn_fused: two calls on the same input differ")
     buf = torch.empty_like(out_k)
     h_buf = torch.empty_like(h_p)
-    k_ms = time_ms(lambda: gg.FUSED_KERNEL(
-        xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), buf.data_ptr(),
-        tile_expert.data_ptr(), m_pad, D, Fm, E, li, gg.TILE_M, stream), 20)
-
     L = wg.shape[0]
+
+    def fused(tile_valid):
+        return lambda: gg.FUSED_KERNEL(
+            xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), wd.data_ptr(), buf.data_ptr(),
+            tile_expert.data_ptr(), m_pad, D, Fm, E, L, li, gg.TILE_M, tile_valid, stream)
 
     def pair():
         gg.GATEUP_KERNEL(xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), h_buf.data_ptr(),
-                         tile_expert.data_ptr(), m_pad, D, Fm, E, L, li, gg.TILE_M, None,
-                         stream)
+                         tile_expert.data_ptr(), m_pad, D, Fm, E, L, li, gg.TILE_M,
+                         valid.data_ptr(), stream)
         gg.DOWN_KERNEL(h_buf.data_ptr(), wd.data_ptr(), buf.data_ptr(),
-                       tile_expert.data_ptr(), m_pad, Fm, D, E, L, li, gg.TILE_M, None,
-                       stream)
+                       tile_expert.data_ptr(), m_pad, Fm, D, E, L, li, gg.TILE_M,
+                       valid.data_ptr(), stream)
 
-    pair_ms = time_ms(pair, 20)
     p_ms = time_ms(lambda: gg.grouped_ffn_fused_plain(
-        xs, wg, wu, wd, tile_expert, gg.TILE_M, li), 3, warmup=1)
-    lib_ms = None
+        xs, wg, wu, wd, tile_expert, gg.TILE_M, li, valid), 3, warmup=1)
+    fns = {"kernel": fused(valid.data_ptr()), "no_skip": fused(None), "pair": pair}
     grouped_mm = getattr(torch, "_grouped_mm", None)
     if grouped_mm is not None:
         pend = torch.cumsum(gg._round_up(sizes, gg.TILE_M), 0, dtype=torch.int32)
@@ -784,24 +808,30 @@ def single_prompt_kernel_phase(cfg, params, dev):
                  ).to(xs.dtype)
             return grouped_mm(h, wd_l, offs=pend)
 
-        lib_ms = time_ms(library, 20)
-        del w_gu
+        fns["library"] = library
+    turns = time_turns(fns, 20)
+    k_ms, pair_ms, lib_ms = turns["kernel"], turns["pair"], turns.get("library")
     bf16 = xs.element_size()
     # The m routed rows' x and out once (padding rows copy token 0 and carry
     # combine weight 0), each used expert's three matrices once; h stays on
     # chip.
-    b_ms, b_by = bound_ms(6.0 * m * D * Fm,
-                          2 * m * D * bf16 + nbytes(tile_expert) + used * 3 * D * Fm * bf16)
-    print(f"  grouped_ffn_fused: kernel {k_ms:.4f} ms, pair (K1 + K2) {pair_ms:.4f} ms, "
-          f"plain {p_ms:.4f} ms, library (torch._grouped_mm, silu * up, "
-          f"torch._grouped_mm) {lib_ms}, bound {b_ms:.4f} ms ({b_by})", flush=True)
+    flops = 6.0 * m * D * Fm
+    b_ms, b_by = bound_ms(flops, 2 * m * D * bf16 + nbytes(tile_expert)
+                          + used * 3 * D * Fm * bf16)
+    rate = report_rate("grouped_ffn_fused", flops, k_ms, b_ms)
+    print(f"  grouped_ffn_fused: kernel (with tile_valid, as on the chat path) "
+          f"{k_ms:.4f} ms, without {turns['no_skip']:.4f} ms, pair (K1 + K2 with "
+          f"tile_valid) {pair_ms:.4f} ms, library (torch._grouped_mm, silu * up, "
+          f"torch._grouped_mm) {lib_ms}, all in turns; plain {p_ms:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})", flush=True)
     results.append(dict(
         name="grouped_ffn_fused", route="cuda",
         source="ct_diffusionmodelbench_tpu_torch/csrc/grouped_ffn_fused.cu",
         replaces="ct_diffusionmodelbench_tpu/ops/grouped_gemm_pallas.py:670",
         max_abs_err=err, ms=k_ms, kernel_ms=k_ms, plain_ms=p_ms, bound_ms=b_ms,
-        bound_by=b_by, library_ms=lib_ms, pair_ms=pair_ms))
-    del out_k, out_p, h_p, buf, h_buf, xs
+        bound_by=b_by, library_ms=lib_ms, pair_ms=pair_ms, no_skip_ms=turns["no_skip"],
+        valid_tiles=n_valid, **rate))
+    del out_k, out_all, out_p, h_p, buf, h_buf, xs
 
     # K9: layer 1's attention inputs (H 16, KV 4), then Dream's geometry
     chat = direct_case("chat", q, k, v, amask, rope, dev, stream)
@@ -1300,6 +1330,10 @@ def train_kernel_phase(dev):
     dkv_bound = bound_ms(dkv_flops, ins + nbytes(dk, dv))
     dq_rate = report_rate("flash_attention_bwd_dq (training shape)", dq_flops, dq_ms,
                           dq_bound[0])
+    print(f"  flash_attention_bwd_dq: {dq_ms:.4f} ms against dk/dv {dkv_ms:.4f} ms and "
+          f"SDPA's whole backward {sdpa_bwd_ms:.4f} ms in the same turns; "
+          f"{dq_rate['bound_share']:.4f} of its bound; first design "
+          f"{FIRST_DESIGN_MS['flash_attention_bwd_dq']} ms (PERF.md)", flush=True)
     dkv_rate = report_rate("flash_attention_bwd_dkv (training shape)", dkv_flops, dkv_ms,
                            dkv_bound[0])
     print(f"  training shape B {B}, S {S}, H {H}, KV {KV}, Dh {Dh}: "
@@ -1569,7 +1603,7 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",
-            "k8_ms", "dream_geometry", "dream_launches", "no_skip_ms")
+            "k8_ms", "dream_geometry", "dream_launches", "no_skip_ms", "valid_tiles")
     print("first designs' ms (constants from PERF.md, not measured in this run): "
           + json.dumps(FIRST_DESIGN_MS), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -25,12 +25,36 @@
 // at 989 TFLOP/s), dkv 4 (1.37e11 FLOP, 0.139 ms); each moves ~85 MB
 // (0.025 ms at 3.35 TB/s).  Both are bound by operations.
 //
-// Design, dq: one block of 8 warps per (64-row q tile, head, batch) loops
-// over 64-key tiles; warps 0-3 compute the 16-row slices of S = Q K^T, warps
-// 4-7 those of dP = dO V^T (WMMA bf16, f32 accumulators), both go through
-// shared memory for the elementwise dS, then each warp adds dS K into half
-// of its 16 rows' dQ columns, kept in registers for the whole key loop.
-//
+// Design, dq (Hopper; hopper_mma.cuh has the layouts and instructions): K8's
+// structure with a second score product.  A unit is 64 query rows of one
+// query head; a block holds two consumer warpgroups, each with one unit of
+// the same kv head (its rep query heads times the 64-row query tiles, head
+// fastest, as in K8), so every K / V tile brought from L2 serves both; for
+// rep 1 the two units are neighbouring row tiles of one head.  Per 64-key
+// tile a consumer warpgroup runs
+// - S = Q K^T and dP = dO V^T, wgmma m64n64k16 with both operands K-major in
+//   shared memory, issued together; both score tiles stay in registers;
+// - dS = P (dP - D) scale in registers, P = exp(S scale + bias - lse) from
+//   the unrounded S, packed to bf16 in the A-fragment layout;
+// - dQ += dS K, wgmma m64n{Dh}k16 with dS from registers and K the MN-major
+//   B (as V is in K8's P V).  dQ (64 x Dh f32, Dh/2 registers a thread)
+//   stays in registers over the whole key loop and is written once, in f32.
+//   The warpgroup waits for dS K before it releases the stage: issuing the
+//   next tile's S and dP first made ptxas serialize the products (C7515)
+//   and measured slower.  The two warpgroups' products and elementwise
+//   work interleave instead.
+// A producer warpgroup, of which one thread works, brings Q and dO of each
+// unit once and K and V through a 4-stage ring by TMA (3-D maps [B, S,
+// heads * Dh], so rows past S read zeros), guarded by full / empty
+// mbarriers: no block-wide barrier runs in the key loop.  Each thread loads
+// the bias of its 16 keys itself while its products run (a TMA box must
+// start 16-byte aligned in device memory, and a row of bias starts at any
+// multiple of 4 bytes).  Keys past S carry p = 0.  setmaxnreg leaves the
+// producer 40 registers and gives the consumers 232 (dQ 64, S 32, dP 32,
+// dS 16 at Dh 128).
+// Shared memory at Dh 128: two units' Q and dO (64 KB) and four stages of
+// K and V (4 x 32 KB): 193 KB, one block per SM.
+
 // Design, dk/dv (Hopper; hopper_mma.cuh has the layouts and instructions):
 // one block of two warpgroups per (64-key tile, kv head, batch) loops over
 // the rep query heads of the kv head and their 64-row query tiles, so the
@@ -57,9 +81,9 @@
 // lse and D (2 x 33 KB): 115 KB, one block per SM.
 // Deterministic: every block sums its query tiles in one fixed order.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
 
 #include "hopper_mma.cuh"
@@ -67,196 +91,243 @@
 namespace {
 
 using namespace ctdb;
-using namespace nvcuda;
 
 constexpr int TILE = 64;     // query rows and keys per tile
-constexpr int THREADS = 256;  // dq: 8 warps
 constexpr float NEG_INF = -1e30f;
+constexpr float LOG2E = 1.4426950408889634f;
+
+// ---------------------------------------------------------------------------
+// dq (K10); see the design note at the top.
+constexpr int DQ_NWG = 2;                      // consumer warpgroups, one unit each
+constexpr int DQ_THREADS = 128 * (DQ_NWG + 1);  // warpgroup 0 is the producer
+constexpr int DQ_STAGES = 4;
+constexpr int DQ_PRODUCER_REGS = 40;
+constexpr int DQ_CONSUMER_REGS = 232;
 
 template <int DH>
-struct Smem {
-  static constexpr int LDH = DH + 8;    // bf16 [64, Dh] tiles
-  static constexpr int LDS = TILE + 4;  // f32 [64, 64] tiles
-  static constexpr int LDP = TILE + 8;  // bf16 [64, 64] tiles
-  static constexpr int LDO = DH + 4;    // f32 [64, Dh] output staging
-  static constexpr int TILE_H = TILE * LDH * 2;
-  static constexpr int TILE_S = TILE * LDS * 4;
-  static constexpr int TILE_P = TILE * LDP * 2;
-  static constexpr int H0 = 0;
-  static constexpr int H1 = H0 + TILE_H;
-  static constexpr int H2 = H1 + TILE_H;
-  static constexpr int H3 = H2 + TILE_H;
-  static constexpr int S0 = H3 + TILE_H;
-  static constexpr int S1 = S0 + TILE_S;
-  static constexpr int P0 = S1 + TILE_S;
-  static constexpr int BIAS = P0 + TILE_P;
-  static constexpr int LSE = BIAS + TILE * 4;
-  static constexpr int DSUM = LSE + TILE * 4;
-  static constexpr int BYTES = DSUM + TILE * 4;
-  // dq stages its [64, Dh] f32 result over the two score tiles.
-  static_assert(TILE * LDO * 4 <= 2 * TILE_S, "dq staging does not fit");
+struct DqLayout {
+  using Tile = SwTile<DH>;
+  static constexpr int Q = 0;                          // DQ_NWG units' Q
+  static constexpr int DO = Q + DQ_NWG * Tile::BYTES;  // and dO
+  static constexpr int RING = DO + DQ_NWG * Tile::BYTES;
+  // Offsets inside a stage; every tile starts on a 1024-byte boundary.
+  static constexpr int K = 0;
+  static constexpr int V = K + Tile::BYTES;
+  static constexpr int STAGE_BYTES = 2 * Tile::BYTES;
+  static constexpr int BARS = RING + DQ_STAGES * STAGE_BYTES;
+  static constexpr int BYTES = BARS + (2 * DQ_STAGES + DQ_NWG) * 8 + 1024;  // + alignment
+  // The mbarriers, after the ring: a stage's full and empty, a unit's Q / dO.
+  __device__ static __forceinline__ uint32_t full_bar(uint32_t base, int s) {
+    return base + BARS + 8 * s;
+  }
+  __device__ static __forceinline__ uint32_t empty_bar(uint32_t base, int s) {
+    return base + BARS + 8 * (DQ_STAGES + s);
+  }
+  __device__ static __forceinline__ uint32_t unit_bar(uint32_t base, int w) {
+    return base + BARS + 8 * (2 * DQ_STAGES + w);
+  }
+  // TMA boxes per tile: Dh / (SW / 2) column blocks of SW / 2 bf16 columns.
+  static constexpr int BOX_COLS = Tile::SW / 2;
+  static constexpr int BOXES = DH / BOX_COLS;
 };
 
-// Rows [r0, r0 + 64) of one head (row stride `stride`) into a bf16 tile;
-// rows >= S are zero.
+// The 64-row tile of `map` ([B, S, heads * Dh]) at rows [row0, row0 + 64)
+// of batch b, columns [col0, col0 + Dh), into the swizzled tile at dst.
 template <int DH>
-__device__ __forceinline__ void load_tile(bf16* dst, const bf16* src,
-                                          size_t stride, int r0, int S) {
-  constexpr int LDH = Smem<DH>::LDH;
-  for (int p = threadIdx.x; p < TILE * DH / 8; p += THREADS) {
-    const int r = p / (DH / 8);
-    const int c = (p % (DH / 8)) * 8;
-    const int i = r0 + r;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (i < S) val = *reinterpret_cast<const uint4*>(src + i * stride + c);
-    *reinterpret_cast<uint4*>(dst + r * LDH + c) = val;
-  }
+__device__ __forceinline__ void tma_tile(uint32_t dst, const CUtensorMap* map, int col0,
+                                         int row0, int b, uint32_t bar) {
+  using L = DqLayout<DH>;
+#pragma unroll
+  for (int blk = 0; blk < L::BOXES; ++blk)
+    tma_load_3d(dst + blk * L::Tile::BLOCK, map, col0 + blk * L::BOX_COLS, row0, b, bar);
 }
 
-// out[16 x 64] (f32, ld LDS) = A[16 x DH] . B^T, B a [64 x DH] tile: the
-// scores of one warp's 16 rows against the 64 rows of B.
+// The consumer warpgroup w's unit: dQ of 64 query rows of one head over
+// every key tile of the ring.
 template <int DH>
-__device__ __forceinline__ void rows_times_tile_t(float* out, const bf16* a,
-                                                  const bf16* b) {
-  constexpr int LDH = Smem<DH>::LDH;
-  constexpr int LDS = Smem<DH>::LDS;
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[TILE / 16];
-#pragma unroll
-  for (int n = 0; n < TILE / 16; ++n) wmma::fill_fragment(acc[n], 0.0f);
-#pragma unroll
-  for (int kk = 0; kk < DH; kk += 16) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-    wmma::load_matrix_sync(af, a + kk, LDH);
-#pragma unroll
-    for (int n = 0; n < TILE / 16; ++n) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> bf;
-      wmma::load_matrix_sync(bf, b + n * 16 * LDH + kk, LDH);
-      wmma::mma_sync(acc[n], af, bf, acc[n]);
-    }
-  }
-#pragma unroll
-  for (int n = 0; n < TILE / 16; ++n)
-    wmma::store_matrix_sync(out + n * 16, acc[n], LDS, wmma::mem_row_major);
-}
+__device__ __forceinline__ void dq_unit(unsigned char* smem, const float* __restrict__ bias,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ dsum,
+                                        float* __restrict__ dq, int unit, int w, int g, int b,
+                                        int S, int H, int rep, int nkt, float scale) {
+  using L = DqLayout<DH>;
+  using Tile = typename L::Tile;
+  const uint32_t base = smem_u32(smem);
 
-template <int DH>
-__global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const float* __restrict__ bias,
-                    const bf16* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ dsum, float* __restrict__ dq,
-                    int S, int H, int KV, float scale) {
-  using L = Smem<DH>;
-  constexpr int NF = DH / 16;          // 16-column fragments of a row slice
-  constexpr int NACC = (NF + 1) / 2;   // this warp's half of them
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem + L::H0);
-  bf16* dOs = reinterpret_cast<bf16*>(smem + L::H1);
-  bf16* Ks = reinterpret_cast<bf16*>(smem + L::H2);
-  bf16* Vs = reinterpret_cast<bf16*>(smem + L::H3);
-  float* Ss = reinterpret_cast<float*>(smem + L::S0);
-  float* dPs = reinterpret_cast<float*>(smem + L::S1);
-  bf16* dSs = reinterpret_cast<bf16*>(smem + L::P0);
-  float* bias_s = reinterpret_cast<float*>(smem + L::BIAS);
-  float* lse_s = reinterpret_cast<float*>(smem + L::LSE);
-  float* dsum_s = reinterpret_cast<float*>(smem + L::DSUM);
+  const int h = g * rep + unit % rep;
+  const int q0 = unit / rep * TILE;
+  const int wtid = threadIdx.x % 128;
+  const int warp = wtid / 32;
+  const int lane = threadIdx.x % 32;
+  const int gid = lane / 4;
+  const int tig = lane % 4;
+  // This thread's query rows and their lse and D (rows >= S: zeros, never
+  // written back).
+  const int r0 = q0 + warp * 16 + gid;
+  const int r1 = r0 + 8;
+  const size_t lrow = (static_cast<size_t>(b) * H + h) * S;
+  const float l0 = r0 < S ? lse[lrow + r0] : 0.0f;
+  const float l1 = r1 < S ? lse[lrow + r1] : 0.0f;
+  const float d0 = r0 < S ? dsum[lrow + r0] : 0.0f;
+  const float d1 = r1 < S ? dsum[lrow + r1] : 0.0f;
+  const uint32_t q_addr = base + L::Q + w * Tile::BYTES;
+  const uint32_t do_addr = base + L::DO + w * Tile::BYTES;
 
-  const int q0 = blockIdx.x * TILE;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kvh = h / (H / KV);
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int rw = warp % 4;    // 16-row slice of the tile
-  const int half = warp / 4;  // which product / which output columns
+  float acc[DH / 2];  // dQ [64 x Dh]
+  float s[32];        // S [64 x 64 keys]
+  float dp[32];       // dP
+  uint32_t fa[4][4];  // dS as the bf16 A operand
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.0f;
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.0f;
+  mbar_wait(L::unit_bar(base, w), 0);
 
-  const size_t q_stride = static_cast<size_t>(H) * DH;
-  const size_t kv_stride = static_cast<size_t>(KV) * DH;
-  const size_t head_row = (static_cast<size_t>(b) * H + h) * S;
-  const bf16* qb = q + static_cast<size_t>(b) * S * q_stride + h * DH;
-  const bf16* dob = dout + static_cast<size_t>(b) * S * q_stride + h * DH;
-  const bf16* kb = k + static_cast<size_t>(b) * S * kv_stride + kvh * DH;
-  const bf16* vb = v + static_cast<size_t>(b) * S * kv_stride + kvh * DH;
   const float* biasb = bias + static_cast<size_t>(b) * S;
-
-  load_tile<DH>(Qs, qb, q_stride, q0, S);
-  load_tile<DH>(dOs, dob, q_stride, q0, S);
-  if (tid < TILE) {
-    const int i = q0 + tid;
-    lse_s[tid] = i < S ? lse[head_row + i] : 0.0f;
-    dsum_s[tid] = i < S ? dsum[head_row + i] : 0.0f;
-  }
-
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc[NACC];
+  for (int t = 0; t < nkt; ++t) {
+    const int stage = t % DQ_STAGES;
+    const uint32_t st = base + L::RING + stage * L::STAGE_BYTES;
+    const int j0 = t * TILE;
+    // The bias of this thread's 16 keys, loaded while the products run
+    // (keys past S: any value, their p is set to 0).
+    float bk[16];
 #pragma unroll
-  for (int a = 0; a < NACC; ++a) wmma::fill_fragment(acc[a], 0.0f);
-
-  const int nkt = (S + TILE - 1) / TILE;
-  for (int kt = 0; kt < nkt; ++kt) {
-    const int j0 = kt * TILE;
-    __syncthreads();  // every warp is done with the previous K, V and dS
-    load_tile<DH>(Ks, kb, kv_stride, j0, S);
-    load_tile<DH>(Vs, vb, kv_stride, j0, S);
-    if (tid < TILE) {
-      const int j = j0 + tid;
-      bias_s[tid] = j < S ? biasb[j] : NEG_INF;
-    }
-    __syncthreads();
-
-    // S = Q K^T (warps 0-3) and dP = dO V^T (warps 4-7), 16 rows each.
-    if (half == 0)
-      rows_times_tile_t<DH>(Ss + rw * 16 * L::LDS, Qs + rw * 16 * L::LDH, Ks);
-    else
-      rows_times_tile_t<DH>(dPs + rw * 16 * L::LDS, dOs + rw * 16 * L::LDH, Vs);
-    __syncthreads();
-
-    // dS = P * (dP - D) * scale, rounded to bf16 for the dS K product.
-    for (int p = tid; p < TILE * TILE; p += THREADS) {
-      const int r = p / TILE;
-      const int c = p % TILE;
-      const float s = Ss[r * L::LDS + c] * scale + bias_s[c];
-      const float pr = expf(s - lse_s[r]);
-      const float ds = pr * (dPs[r * L::LDS + c] - dsum_s[r]) * scale;
-      dSs[r * L::LDP + c] = __float2bfloat16(ds);
-    }
-    __syncthreads();
-
-    // dQ[rows of rw, columns of this half] += dS K.
+    for (int i = 0; i < 8; ++i)
 #pragma unroll
-    for (int kk = 0; kk < TILE; kk += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> af;
-      wmma::load_matrix_sync(af, dSs + rw * 16 * L::LDP + kk, L::LDP);
-#pragma unroll
-      for (int a = 0; a < NACC; ++a) {
-        const int n = 2 * a + half;
-        if (n < NF) {
-          wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> bf;
-          wmma::load_matrix_sync(bf, Ks + kk * L::LDH + n * 16, L::LDH);
-          wmma::mma_sync(acc[a], af, bf, acc[a]);
-        }
+      for (int e = 0; e < 2; ++e) {
+        const int j = j0 + 8 * i + 2 * tig + e;
+        bk[2 * i + e] = j < S ? biasb[j] : 0.0f;
       }
+    mbar_wait(L::full_bar(base, stage), (t / DQ_STAGES) & 1);
+    // S = Q K^T and dP = dO V^T, one group.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_m64n64(s, Tile::k_major(q_addr, kk), Tile::k_major(st + L::K, kk), kk > 0);
+#pragma unroll
+    for (int kk = 0; kk < DH / 16; ++kk)
+      wgmma_ss_m64n64(dp, Tile::k_major(do_addr, kk), Tile::k_major(st + L::V, kk), kk > 0);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+    fence_regs(dp);
+
+    // dS = P (dP - D) scale; keys past S carry p = 0.
+    const bool ragged = j0 + TILE > S;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int col = 8 * i + 2 * tig;
+      float p00 = exp2f((fmaf(s[4 * i], scale, bk[2 * i]) - l0) * LOG2E);
+      float p01 = exp2f((fmaf(s[4 * i + 1], scale, bk[2 * i + 1]) - l0) * LOG2E);
+      float p10 = exp2f((fmaf(s[4 * i + 2], scale, bk[2 * i]) - l1) * LOG2E);
+      float p11 = exp2f((fmaf(s[4 * i + 3], scale, bk[2 * i + 1]) - l1) * LOG2E);
+      if (ragged) {
+        if (j0 + col >= S) p00 = p10 = 0.0f;
+        if (j0 + col + 1 >= S) p01 = p11 = 0.0f;
+      }
+      const float s00 = __fmul_rn(__fmul_rn(p00, __fsub_rn(dp[4 * i], d0)), scale);
+      const float s01 = __fmul_rn(__fmul_rn(p01, __fsub_rn(dp[4 * i + 1], d0)), scale);
+      const float s10 = __fmul_rn(__fmul_rn(p10, __fsub_rn(dp[4 * i + 2], d1)), scale);
+      const float s11 = __fmul_rn(__fmul_rn(p11, __fsub_rn(dp[4 * i + 3], d1)), scale);
+      fa[i / 2][(i % 2) * 2] = pack_bf16(s00, s01);
+      fa[i / 2][(i % 2) * 2 + 1] = pack_bf16(s10, s11);
     }
+    // dQ += dS K; once it has retired, the stage may be refilled.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk)
+      wgmma_rs<DH>(acc, fa[kk], Tile::mn_major(st + L::K, kk), 1);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+#pragma unroll
+    for (int kk = 0; kk < TILE / 16; ++kk) fence_regs(fa[kk]);
+    if (wtid == 0) mbar_arrive(L::empty_bar(base, stage));
   }
 
-  // Stage dQ through shared memory (over the score tiles) and write the
-  // rows < S.
-  __syncthreads();
-  float* stage = reinterpret_cast<float*>(smem + L::S0);
+  // dQ in f32, rows < S.
+  const size_t q_stride = static_cast<size_t>(H) * DH;
+  float* dst = dq + static_cast<size_t>(b) * S * q_stride + h * DH + 2 * tig;
+  if (r0 < S) {
+    float* row = dst + static_cast<size_t>(r0) * q_stride;
 #pragma unroll
-  for (int a = 0; a < NACC; ++a) {
-    const int n = 2 * a + half;
-    if (n < NF)
-      wmma::store_matrix_sync(stage + rw * 16 * L::LDO + n * 16, acc[a], L::LDO,
-                              wmma::mem_row_major);
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<float2*>(row + 8 * i) = make_float2(acc[4 * i], acc[4 * i + 1]);
+  }
+  if (r1 < S) {
+    float* row = dst + static_cast<size_t>(r1) * q_stride;
+#pragma unroll
+    for (int i = 0; i < DH / 8; ++i)
+      *reinterpret_cast<float2*>(row + 8 * i) = make_float2(acc[4 * i + 2], acc[4 * i + 3]);
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(DQ_THREADS, 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const float* __restrict__ bias, const float* __restrict__ lse,
+                    const float* __restrict__ dsum, float* __restrict__ dq, int S,
+                    int H, int KV, float scale) {
+  using L = DqLayout<DH>;
+  using Tile = typename L::Tile;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  const uint32_t base = smem_u32(smem);
+
+  const int g = blockIdx.y;
+  const int b = blockIdx.z;
+  const int rep = H / KV;
+  const int nt = (S + TILE - 1) / TILE;  // 64-row query tiles, and 64-key tiles
+  const int first_unit = blockIdx.x * DQ_NWG;
+  const int active = min(DQ_NWG, rep * nt - first_unit);  // units of this block
+  const int tid = threadIdx.x;
+  const int wg = tid / 128;
+
+  if (tid == 0) {
+    for (int s = 0; s < DQ_STAGES; ++s) {
+      mbar_init(L::full_bar(base, s), 1);
+      mbar_init(L::empty_bar(base, s), active);
+    }
+    for (int w = 0; w < DQ_NWG; ++w) mbar_init(L::unit_bar(base, w), 1);
+    mbar_fence_init();
   }
   __syncthreads();
-  float* dqb = dq + static_cast<size_t>(b) * S * q_stride + h * DH;
-  for (int p = tid; p < TILE * DH; p += THREADS) {
-    const int r = p / DH;
-    const int c = p % DH;
-    const int i = q0 + r;
-    if (i < S) dqb[i * q_stride + c] = stage[r * L::LDO + c];
+
+  if (wg == 0) {
+    regs_dec<DQ_PRODUCER_REGS>();
+    if (tid != 0) return;
+    tma_prefetch_map(&qmap);
+    tma_prefetch_map(&domap);
+    tma_prefetch_map(&kmap);
+    tma_prefetch_map(&vmap);
+    for (int w = 0; w < active; ++w) {
+      const int unit = first_unit + w;
+      const int h = g * rep + unit % rep;
+      const int q0 = unit / rep * TILE;
+      const uint32_t bar = L::unit_bar(base, w);
+      mbar_arrive_expect_tx(bar, 2 * Tile::BYTES);
+      tma_tile<DH>(base + L::Q + w * Tile::BYTES, &qmap, h * DH, q0, b, bar);
+      tma_tile<DH>(base + L::DO + w * Tile::BYTES, &domap, h * DH, q0, b, bar);
+    }
+    for (int t = 0; t < nt; ++t) {
+      const int s = t % DQ_STAGES;
+      mbar_wait(L::empty_bar(base, s), ((t / DQ_STAGES) & 1) ^ 1);
+      const uint32_t st = base + L::RING + s * L::STAGE_BYTES;
+      const uint32_t full = L::full_bar(base, s);
+      mbar_arrive_expect_tx(full, L::STAGE_BYTES);
+      tma_tile<DH>(st + L::K, &kmap, g * DH, t * TILE, b, full);
+      tma_tile<DH>(st + L::V, &vmap, g * DH, t * TILE, b, full);
+    }
+    return;
   }
+
+  regs_inc<DQ_CONSUMER_REGS>();
+  const int w = wg - 1;
+  if (w < active)
+    dq_unit<DH>(smem, bias, lse, dsum, dq, first_unit + w, w, g, b, S, H, rep, nt, scale);
 }
 
 // ---------------------------------------------------------------------------
@@ -318,7 +389,6 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   using L = DkvLayout<DH>;
   using Tile = typename L::Tile;
   constexpr int CH = DH / 8;
-  constexpr float LOG2E = 1.4426950408889634f;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   float* pbuf = reinterpret_cast<float*>(smem + L::P);
@@ -491,19 +561,37 @@ flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
+// The 3-D map [B, S, heads * Dh] of a bf16 q / k / v / dO tensor, read in
+// boxes of 64 rows by SW / 2 columns with the tile's swizzle.
+template <int DH>
+int head_map(CUtensorMap* map, const void* t, int B, int S, int heads) {
+  using L = DqLayout<DH>;
+  const cuuint64_t row = static_cast<cuuint64_t>(heads) * DH;
+  const cuuint64_t dims[3] = {row, static_cast<cuuint64_t>(S), static_cast<cuuint64_t>(B)};
+  const cuuint64_t strides[2] = {row * 2, row * 2 * S};
+  const cuuint32_t box[3] = {L::BOX_COLS, TILE, 1};
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, t, 3, dims, strides, box,
+                    swizzle_mode(L::Tile::SW));
+}
+
 template <int DH>
 int launch_dq(const void* q, const void* k, const void* v, const float* bias,
               const void* dout, const float* lse, const float* dsum, float* dq,
               int B, int S, int H, int KV, float scale, cudaStream_t stream) {
-  constexpr int bytes = Smem<DH>::BYTES;
-  cudaError_t err = cudaFuncSetAttribute(
+  CUtensorMap qmap, domap, kmap, vmap;
+  int err = head_map<DH>(&qmap, q, B, S, H);
+  if (!err) err = head_map<DH>(&domap, dout, B, S, H);
+  if (!err) err = head_map<DH>(&kmap, k, B, S, KV);
+  if (!err) err = head_map<DH>(&vmap, v, B, S, KV);
+  if (err) return err;
+  constexpr int bytes = DqLayout<DH>::BYTES;
+  cudaError_t cerr = cudaFuncSetAttribute(
       flash_bwd_dq_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dim3 grid((S + TILE - 1) / TILE, H, B);
-  flash_bwd_dq_kernel<DH><<<grid, THREADS, bytes, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), bias, static_cast<const bf16*>(dout), lse,
-      dsum, dq, S, H, KV, scale);
+  if (cerr != cudaSuccess) return static_cast<int>(cerr);
+  const int units = (H / KV) * ((S + TILE - 1) / TILE);
+  dim3 grid((units + DQ_NWG - 1) / DQ_NWG, KV, B);
+  flash_bwd_dq_kernel<DH><<<grid, DQ_THREADS, bytes, stream>>>(
+      qmap, domap, kmap, vmap, bias, lse, dsum, dq, S, H, KV, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

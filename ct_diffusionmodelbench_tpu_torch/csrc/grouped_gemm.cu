@@ -59,8 +59,7 @@
 //   on an epilogue barrier that the producer waits for before the block's
 //   second pass refills the ring.
 // - Host: the entry points build the CUtensorMaps with
-//   cuTensorMapEncodeTiled, found through the runtime's driver entry-point
-//   query (so nothing links the driver library): x's map on every call, a
+//   cuTensorMapEncodeTiled (hopper_mma.cuh): x's map on every call, a
 //   weight tensor's once per (pointer, shape) in a small cache, since the
 //   layer and expert are a coordinate.  The maps are __grid_constant__
 //   kernel parameters.
@@ -70,8 +69,6 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <mutex>
 
 #include "hopper_mma.cuh"
 
@@ -316,77 +313,8 @@ grouped_gemm_kernel(const __grid_constant__ CUtensorMap xmap,
 }
 
 // ---------------------------------------------------------------------------
-// Host: tensor maps and launch
+// Host: launch
 // ---------------------------------------------------------------------------
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static const EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
-#else
-    const cudaError_t err =
-        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
-#endif
-    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A bf16 map of rank 2 or 3 (dims innermost first, strides in bytes of
-// dims 1..) read in boxes of `box` with the 128-byte swizzle; elements
-// outside the tensor read as zeros.  A box row is 128 bytes, so L2 fills
-// 128-byte lines (256-byte promotion measured a few percent slower).
-int encode_map(CUtensorMap* map, const void* base, cuuint32_t rank, const cuuint64_t* dims,
-               const cuuint64_t* strides, const cuuint32_t* box) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
-  const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r =
-      fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base), dims, strides,
-         box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-         CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
-}
-
-// The 3-D map [L * E, K, N] of a weight tensor, cached by (pointer, shape):
-// a map holds nothing else, so a cached one is right for as long as the
-// same pointer names a tensor of the same shape.
-struct CachedMap {
-  const void* ptr;
-  uint64_t le, k, n;
-  CUtensorMap map;
-};
-constexpr int CACHE = 32;
-std::mutex cache_mutex;
-CachedMap cache[CACHE];
-int cache_next = 0;
-
-int weight_map(CUtensorMap* map, const void* w, uint64_t le, uint64_t k, uint64_t n) {
-  std::lock_guard<std::mutex> lock(cache_mutex);
-  for (const CachedMap& c : cache)
-    if (c.ptr == w && c.le == le && c.k == k && c.n == n) {
-      *map = c.map;
-      return 0;
-    }
-  const cuuint64_t dims[3] = {n, k, le};
-  const cuuint64_t strides[2] = {n * 2, k * n * 2};
-  const cuuint32_t box[3] = {BOX, BK, 1};
-  const int err = encode_map(map, w, 3, dims, strides, box);
-  if (err) return err;
-  cache[cache_next] = CachedMap{w, le, k, n, *map};
-  cache_next = (cache_next + 1) % CACHE;
-  return 0;
-}
 
 template <int NMAT>
 int launch(const void* x, const void* w0, const void* w1, const Args& a, int num_layers,
@@ -399,7 +327,7 @@ int launch(const void* x, const void* w0, const void* w1, const Args& a, int num
   const cuuint64_t xdims[2] = {static_cast<cuuint64_t>(a.K), static_cast<cuuint64_t>(a.m_pad)};
   const cuuint64_t xstrides[1] = {static_cast<cuuint64_t>(a.K) * 2};
   const cuuint32_t xbox[2] = {BK, TILE_ROWS};
-  int err = encode_map(&xmap, x, 2, xdims, xstrides, xbox);
+  int err = encode_bf16_map(&xmap, x, 2, xdims, xstrides, xbox);
   const uint64_t le = static_cast<uint64_t>(num_layers) * a.num_experts;
   if (!err) err = weight_map(&wmap0, w0, le, a.K, a.N);
   if (!err && NMAT == 2) err = weight_map(&wmap1, w1, le, a.K, a.N);

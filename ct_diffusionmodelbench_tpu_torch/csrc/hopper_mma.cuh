@@ -1,6 +1,7 @@
 // Hopper building blocks shared by the wgmma kernels (flash_attention.cu:
-// the forward; flash_attention_bwd.cu: dk/dv; grouped_gemm.cu: the bf16
-// grouped expert GEMMs; grouped_gemm_q.cu: the int8 grouped expert GEMMs).
+// the forward; flash_attention_bwd.cu: dq and dk/dv; grouped_gemm.cu: the
+// bf16 grouped expert GEMMs; grouped_gemm_q.cu: the int8 grouped expert
+// GEMMs; grouped_ffn_fused.cu: the fused expert FFN).
 //
 // - cp.async copies from device memory into shared memory, 16 bytes (or 4)
 //   per thread, zero-filling rows past the sequence end;
@@ -16,12 +17,17 @@
 // - the wgmma instructions the kernels issue, with their fence / commit /
 //   wait and the register fences that keep the compiler from touching an
 //   operand while an asynchronous wgmma still owns it;
+// - thread block clusters: the cluster barrier, a CTA's rank, and stores
+//   into another CTA's shared memory (distributed shared memory);
 // - rotate-half RoPE rounded as PyTorch's separate elementwise ops round it;
 // - for the grouped GEMMs, which compute a transposed output tile
 //   out^T = W^T x^T (the weight as the 64-row A operand, the rows of x as
 //   N): the copy of 64 or 128 rows of x, 64 values deep, into a K-major B
 //   tile, and the epilogue that stages such a transposed tile in shared
-//   memory and writes it back as 16-byte rows.
+//   memory and writes it back as 16-byte rows;
+// - on the host: the CUtensorMaps that name TMA boxes, encoded through the
+//   runtime's driver entry-point query (so nothing links the driver
+//   library), and a cache of the expert weights' maps.
 //
 // Layout.  A tile has ROWS rows (64; 128 for the grouped GEMMs' B tile),
 // each Dh * 2 bytes.  A row is cut into column blocks
@@ -57,8 +63,12 @@
 
 #pragma once
 
+#include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace ctdb {
 
@@ -167,6 +177,41 @@ __device__ __forceinline__ void tma_load_3d(uint32_t dst, const void* map, int c
 __device__ __forceinline__ void tma_prefetch_map(const void* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map))
                : "memory");
+}
+
+// Thread block clusters.  The barrier counts every thread of the cluster
+// that has not exited; each thread alternates arrive and wait.  arrive
+// releases this thread's earlier writes (to any CTA's shared memory) to the
+// threads that return from the matching wait.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// The address in CTA `rank`'s shared memory of this CTA's shared address
+// `addr` (both CTAs lay their shared memory out alike).
+__device__ __forceinline__ uint32_t cluster_map(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(r) : "r"(addr), "r"(rank));
+  return r;
+}
+// 16 bytes into the shared memory of a CTA of the cluster (an address from
+// cluster_map).
+__device__ __forceinline__ void st_cluster16(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+// Orders this thread's shared-memory writes, to any CTA of the cluster,
+// before later reads through the async proxy (wgmma, TMA).
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
 }
 
 // Warp specialisation: every warp of a warpgroup lowers (a producer) or
@@ -488,5 +533,98 @@ struct StagedTile {
     }
   }
 };
+
+// ---------------------------------------------------------------------------
+// Host: tensor maps for TMA
+// ---------------------------------------------------------------------------
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found = cudaDriverEntryPointSymbolNotFound;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err =
+        cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// The swizzle mode whose span is `bytes` (the SW of an SwTile); none for
+// any other width.
+inline CUtensorMapSwizzle swizzle_mode(int bytes) {
+  return bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+                      : bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                    : bytes == 32 ? CU_TENSOR_MAP_SWIZZLE_32B
+                                                  : CU_TENSOR_MAP_SWIZZLE_NONE;
+}
+
+// A map of rank 1 to 3 (dims innermost first, strides in bytes of dims 1..)
+// read in boxes of `box`; elements outside the tensor read as zeros.  L2
+// fills 128-byte lines (a box row of the grouped GEMMs is 128 bytes;
+// 256-byte promotion measured a few percent slower there).  Returns 0 or a
+// cudaError_t code.
+inline int encode_map(CUtensorMap* map, CUtensorMapDataType type, const void* base,
+                      cuuint32_t rank, const cuuint64_t* dims, const cuuint64_t* strides,
+                      const cuuint32_t* box, CUtensorMapSwizzle swizzle) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return static_cast<int>(cudaErrorSymbolNotFound);
+  const cuuint32_t unit[3] = {1, 1, 1};
+  const CUresult r =
+      fn(map, type, rank, const_cast<void*>(base), dims, strides, box, unit,
+         CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A bf16 map read in boxes of 64 columns (128 bytes, the 128-byte swizzle):
+// each box lands as an SwTile<64, rows>.
+inline int encode_bf16_map(CUtensorMap* map, const void* base, cuuint32_t rank,
+                           const cuuint64_t* dims, const cuuint64_t* strides,
+                           const cuuint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, base, rank, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_128B);
+}
+
+// The 3-D map [L * E, K, N] of a bf16 expert weight tensor, read in boxes
+// of 64 columns by 64 k rows (each box an MN-major SwTile<64, 64>), cached
+// by (pointer, shape): a map holds nothing else, so a cached one is right
+// for as long as the same pointer names a tensor of the same shape.
+inline int weight_map(CUtensorMap* map, const void* w, uint64_t le, uint64_t k, uint64_t n) {
+  struct Cached {
+    const void* ptr;
+    uint64_t le, k, n;
+    CUtensorMap map;
+  };
+  constexpr int SLOTS = 32;
+  static std::mutex mutex;
+  static Cached cache[SLOTS];
+  static int next = 0;
+  std::lock_guard<std::mutex> lock(mutex);
+  for (const Cached& c : cache)
+    if (c.ptr == w && c.le == le && c.k == k && c.n == n) {
+      *map = c.map;
+      return 0;
+    }
+  const cuuint64_t dims[3] = {n, k, le};
+  const cuuint64_t strides[2] = {n * 2, k * n * 2};
+  const cuuint32_t box[3] = {64, 64, 1};
+  const int err = encode_bf16_map(map, w, 3, dims, strides, box);
+  if (err) return err;
+  cache[next] = Cached{w, le, k, n, *map};
+  next = (next + 1) % SLOTS;
+  return 0;
+}
 
 }  // namespace ctdb

@@ -97,6 +97,9 @@ def flash_attention_bwd_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         check_operand(name, t, (b, s, kv, dh), torch.bfloat16, dev)
     check_operand("bias", bias, (b, s), torch.float32, dev)
     check_operand("lse", lse, (b, h, s), torch.float32, dev)
+    for name, t in (("q", q), ("k", k), ("v", v), ("do", do)):
+        if t.data_ptr() % 16:  # the dq kernel reads them by TMA
+            raise ValueError(f"{name} must be 16-byte aligned")
     dsum = row_dot(o, do)
     dq = torch.empty((b, s, h, dh), dtype=torch.float32, device=dev)
     dk = torch.empty((b, s, kv, dh), dtype=torch.float32, device=dev)

@@ -17,16 +17,18 @@ Their int8 forms (``csrc/grouped_gemm_q.cu``), :func:`grouped_gateup_q` and
 s_u)`` and ``(h @ q_d) * s_d``: the scale on the f32 product, as
 ``ops/quant.py::qdot``.  All four take the reference's optional pad-skip
 vector ``tile_valid`` (a tile marked 0 holds no real row: zeros, no
-product); :func:`grouped_expert_ffn_cuda` always hands it to the bf16 and
-the int8 pair (the reference builds it only under
-``CTDB_GROUPED_SKIP_PAD=1``, since a conditional write costs its TPU kernel
-the pipelining; on the card the pad-skip is faster), and the FFN output is
-the same as without it.
-:func:`grouped_ffn_fused` (``csrc/grouped_ffn_fused.cu``) computes the
-whole FFN, ``bf16(silu(x @ Wg[e]) * (x @ Wu[e])) @ Wd[e]``, in one kernel
-with h kept in shared memory; :func:`grouped_expert_ffn_cuda` takes it
-instead of the bf16 pair under ``CTDB_GROUPED_FUSED=1`` (read per call)
-when D and F are multiples of 128, as ``grouped_expert_ffn_pallas`` does.
+product), and so does :func:`grouped_ffn_fused` (``csrc/grouped_ffn_fused.cu``),
+which computes the whole FFN, ``bf16(silu(x @ Wg[e]) * (x @ Wu[e])) @
+Wd[e]``, in one kernel with h kept in shared memory.
+:func:`grouped_expert_ffn_cuda` takes the fused kernel instead of the bf16
+pair under ``CTDB_GROUPED_FUSED=1`` (read per call) when D and F are
+multiples of 128, as ``grouped_expert_ffn_pallas`` does, and F is at most
+1024 (the kernel's cluster holds F / 128 CTAs, at most 8; wider experts take
+the pair, which computes the same function), and always hands
+the fused kernel, the bf16 and the int8 pair ``tile_valid`` (the reference
+builds it only under ``CTDB_GROUPED_SKIP_PAD=1``, since a conditional write
+costs its TPU kernel the pipelining; on the card the pad-skip is faster);
+the FFN output is the same as without it.
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
 raises.  The kernels have no backward yet: on the card the wrappers raise
 when grad is enabled and an input requires it, rather than return an output
@@ -60,16 +62,10 @@ DOWN_Q_KERNEL = Kernel("grouped_down_q", LIBRARY_Q, "ctdb_grouped_down_q",
                        [PTR] * 5 + [INT] * 6 + [PTR] * 2)
 LIBRARY_FUSED = Library("grouped_ffn_fused.cu")
 FUSED_KERNEL = Kernel("grouped_ffn_fused", LIBRARY_FUSED, "ctdb_grouped_ffn_fused",
-                      [PTR] * 6 + [INT] * 6 + [PTR])
-# Shared memory of one fused block, as csrc/grouped_ffn_fused.cu lays it out:
-# its cp.async ring (reused as the f32 staging tile), then the 64-row h tile
-# with rows of F + 8 bf16.  A block may have at most 227 KB.
-FUSED_RING_BYTES = 55296
-MAX_BLOCK_SMEM = 232448
-
-
-def fused_smem_bytes(f: int) -> int:
-    return FUSED_RING_BYTES + KERNEL_ROWS * (f + 8) * 2
+                      [PTR] * 6 + [INT] * 7 + [PTR] * 2)
+# The fused kernel spreads one row tile's FFN over a thread block cluster of
+# F / 128 CTAs; 8 is the portable cluster size, so F is at most 1024.
+FUSED_MAX_F = 8 * 128
 
 
 def _round_up(x, m):
@@ -280,23 +276,28 @@ def fused_mode() -> bool:
 
 def grouped_ffn_fused_plain(x_padded, we_gate, we_up, we_down, tile_expert,
                             tile_m: int = TILE_M,
-                            layer_index: Optional[int] = None) -> torch.Tensor:
+                            layer_index: Optional[int] = None,
+                            tile_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The fused kernel's function in PyTorch: the gate/up pair's plain
     version (h rounded to x's dtype, the reference's ``.astype(x.dtype)``)
-    and then the down one's."""
+    and then the down one's; zero rows in the tiles ``tile_valid`` marks 0."""
     h = grouped_gateup_plain(x_padded, we_gate, we_up, tile_expert, tile_m,
                              layer_index)
-    return grouped_down_plain(h, we_down, tile_expert, tile_m, layer_index)
+    return grouped_down_plain(h, we_down, tile_expert, tile_m, layer_index,
+                              tile_valid)
 
 
 def grouped_ffn_fused(x_padded, we_gate, we_up, we_down, tile_expert,
                       tile_m: int = TILE_M,
-                      layer_index: Optional[int] = None) -> torch.Tensor:
+                      layer_index: Optional[int] = None,
+                      tile_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
     """out [M_pad, D] = bf16(silu(x @ Wg[e]) * (x @ Wu[e])) @ Wd[e] per row
-    tile, in one kernel; D and F multiples of 128."""
+    tile, in one kernel; zeros in the tiles ``tile_valid`` marks 0.  D and F
+    multiples of 128, F at most 1024."""
     if x_padded.device.type == "cpu":
         return grouped_ffn_fused_plain(x_padded, we_gate, we_up, we_down,
-                                       tile_expert, tile_m, layer_index)
+                                       tile_expert, tile_m, layer_index,
+                                       tile_valid)
     if is_quantized(we_gate):
         raise ValueError("the fused FFN kernel takes bf16 weights; int8 experts "
                          "go through grouped_gateup_q / grouped_down_q")
@@ -312,15 +313,16 @@ def grouped_ffn_fused(x_padded, we_gate, we_up, we_down, tile_expert,
                          f"{we_down.dtype} {tuple(we_down.shape)}")
     if d % 128 or f % 128:
         raise ValueError(f"fused FFN needs D, F % 128 == 0, got {d}, {f}")
-    if fused_smem_bytes(f) > MAX_BLOCK_SMEM:
-        raise ValueError(f"fused FFN: the 64-row h tile at F={f} needs "
-                         f"{fused_smem_bytes(f)} bytes of shared memory, more "
-                         f"than a block's {MAX_BLOCK_SMEM}")
+    if f > FUSED_MAX_F:
+        raise ValueError(f"fused FFN: F={f} needs a cluster of {f // 128} CTAs of "
+                         f"128 columns of h, more than the portable cluster size 8 "
+                         f"(F at most {FUSED_MAX_F})")
+    valid = _tile_valid_ptr(tile_valid, tile_expert)
     out = torch.empty((m_pad, d), dtype=x_padded.dtype, device=x_padded.device)
     stream = torch.cuda.current_stream(x_padded.device).cuda_stream
     FUSED_KERNEL(x_padded.data_ptr(), we_gate.data_ptr(), we_up.data_ptr(),
                  we_down.data_ptr(), out.data_ptr(), tile_expert.data_ptr(),
-                 m_pad, d, f, e, layer, tile_m, stream)
+                 m_pad, d, f, e, _num_layers(we_gate), layer, tile_m, valid, stream)
     return out
 
 
@@ -464,11 +466,12 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
     """Full expert FFN on the padded layout: x [N, D] → [N, D].
 
     Counterpart of ``grouped_expert_ffn_pallas``: counting layout, one row
-    gather, the gate/up and down kernels with the pad-skip vector (their
-    int8 forms for quantized ``{"q", "s"}`` weights, which need D and F to
-    be multiples of 128, as the reference's; the fused kernel instead, with
-    no pad-skip, under ``CTDB_GROUPED_FUSED=1`` for plain weights with D and
-    F multiples of 128), the weighted combine."""
+    gather, the gate/up and down kernels (their int8 forms for quantized
+    ``{"q", "s"}`` weights, which need D and F to be multiples of 128, as
+    the reference's; the fused kernel instead under ``CTDB_GROUPED_FUSED=1``
+    for plain weights with D and F multiples of 128 and F at most
+    ``FUSED_MAX_F``, a cluster's reach), each with the pad-skip vector, then
+    the weighted combine."""
     quantized = is_quantized(we_gate)
     if x.is_cuda:
         plain = [] if quantized else [we_gate, we_up, we_down]
@@ -484,13 +487,13 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
         tile_m = 128
     dest, tile_expert, sizes, m_pad = counting_layout(topk_idx, e, tile_m)
     xs = gather_rows(x, dest, k, m_pad)
-    if not quantized and aligned and fused_mode():
+    valid = valid_tiles(sizes, tile_expert, tile_m, m_pad)
+    if not quantized and aligned and fm <= FUSED_MAX_F and fused_mode():
         out_padded = grouped_ffn_fused(xs, we_gate, we_up, we_down, tile_expert,
-                                       tile_m, layer_index)
+                                       tile_m, layer_index, valid)
     else:
         gateup, down = (grouped_gateup_q, grouped_down_q) if quantized else (
             grouped_gateup, grouped_down)
-        valid = valid_tiles(sizes, tile_expert, tile_m, m_pad)
         h = gateup(xs, we_gate, we_up, tile_expert, tile_m, layer_index, valid)
         out_padded = down(h, we_down, tile_expert, tile_m, layer_index, valid)
     return combine(out_padded, dest, topk_probs, n, k, x.dtype)

@@ -649,6 +649,67 @@ def test_flash_backward_kernels_head_dims(cuda_device, dh):
     _bwd_close(got, fab.flash_attention_bwd_plain(q, k, v, bias, out, do, lse))
 
 
+@pytest.mark.parametrize("dh", fa.HEAD_DIMS)
+def test_flash_dq_kernel_single_tile_exact(cuda_device, dh):
+    """One 64-row tile of one head against 64 keys on inputs where every
+    step is exact: q = 0 and lse = 0 make p = 1; dO, V, K are integers in
+    [-1, 1], D integers in [-64, 64] and the scale 2**-3, so dP, dS =
+    (dP - D) / 8 (exact in bf16) and dQ = dS K are exact in f32 in any
+    order.  The kernel's dq equals the formula bit for bit: a wrong
+    descriptor, swizzle or TMA box gives a wrong number, not a rounding."""
+    dev, s = cuda_device, 64
+    g = torch.Generator(device=dev).manual_seed(dh)
+    k, v, do = (torch.randint(-1, 2, (1, s, 1, dh), generator=g, device=dev)
+                .to(torch.bfloat16) for _ in range(3))
+    q = torch.zeros_like(k)
+    bias = torch.zeros((1, s), device=dev)
+    lse = torch.zeros((1, 1, s), device=dev)
+    dsum = torch.randint(-64, 65, (1, 1, s), generator=g, device=dev).float()
+    dq = torch.empty((1, s, 1, dh), device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    fab.DQ_KERNEL(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), do.data_ptr(),
+                  lse.data_ptr(), dsum.data_ptr(), dq.data_ptr(), 1, s, 1, 1, dh, 2 ** -3,
+                  stream)
+    dp = do[0, :, 0].float() @ v[0, :, 0].float().T
+    ds = ((dp - dsum[0, 0][:, None]) * 2 ** -3).to(torch.bfloat16).float()
+    assert torch.equal(dq[0, :, 0], ds @ k[0, :, 0].float())
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (8, 2)])   # GQA rep 1 and 4
+@pytest.mark.parametrize("s", [63, 64, 65, 127, 129, 1025])
+def test_flash_dq_kernel_tile_edges(cuda_device, h, kv, s):
+    """dq where its 64-row query tiles and 64-key tiles end (a block's two
+    units are two row tiles of one head at rep 1, two heads of one kv head
+    at rep 4), with the all-masked row (batch 2); two calls bit-identical."""
+    dev = cuda_device
+    q, k, v, do, mask = _attn_case(dev, 3, s, h, kv, 128, 11 * s + h)
+    out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, with_lse=True)
+    bias = fa.mask_bias(mask, 3, s, dev)
+    got = fab.flash_attention_bwd(q, k, v, bias, out, do, lse)
+    _bwd_close(got, fab.flash_attention_bwd_plain(q, k, v, bias, out, do, lse))
+    assert torch.equal(got[0], fab.flash_attention_bwd(q, k, v, bias, out, do, lse)[0])
+
+
+@pytest.mark.parametrize("name", ["q", "k", "v", "do"])
+def test_flash_backward_refuses_unaligned_operands(cuda_device, name):
+    """The dq kernel reads q, k, v and dO by TMA, whose boxes start on
+    16-byte boundaries: a contiguous view 8 bytes into its buffer is refused
+    with a message before any map is encoded."""
+    dev = cuda_device
+    q, k, v, do, mask = _attn_case(dev, 3, 130, 8, 2, 64, 9)
+    out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, with_lse=True)
+    bias = fa.mask_bias(mask, 3, 130, dev)
+    ops = {"q": q, "k": k, "v": v, "do": do}
+    t = ops[name]
+    buf = torch.empty(t.numel() + 4, dtype=t.dtype, device=dev)
+    shifted = buf[4:].view(t.shape)                           # 8 bytes in, contiguous
+    shifted.copy_(t)
+    assert shifted.is_contiguous() and shifted.data_ptr() % 16 == 8
+    ops[name] = shifted
+    with pytest.raises(ValueError, match=f"^{name} must be 16-byte aligned"):
+        fab.flash_attention_bwd(ops["q"], ops["k"], ops["v"], bias, out, ops["do"], lse)
+
+
 def test_flash_function_carries_gradients_on_card(cuda_device, monkeypatch):
     dev = cuda_device
     q, k, v, do, mask = _attn_case(dev, 3, 130, 8, 2, 128, 5)
@@ -779,6 +840,89 @@ def test_fused_ffn_kernel_matches_plain(cuda_device, d, f, layers, e, routing, e
     assert torch.equal(got, gg.grouped_ffn_fused(xs, wg, wu, wd, te, gg.TILE_M, li))
 
 
+def _fused_experts(g, dev, lead, e, d, f, exact):
+    """Gate, up and down weights: integers in [-2, 2] times 2**-7 (exact
+    arithmetic, as in _fused_inputs) or scaled normals."""
+    if exact:
+        return (_ints(g, dev, lead + (e, d, f), -2, 3, 2 ** -7),
+                _ints(g, dev, lead + (e, d, f), -2, 3, 2 ** -7),
+                _ints(g, dev, lead + (e, f, d), -2, 3, 2 ** -7))
+    return (_bf16_experts(g, dev, lead, e, d, f), _bf16_experts(g, dev, lead, e, d, f),
+            _bf16_experts(g, dev, lead, e, f, d))
+
+
+@pytest.mark.parametrize("exact", [True, False])
+@pytest.mark.parametrize("d,f,layers,sizes", [
+    (256, 384, None, [30, 40, 20, 63, 1, 50, 10, 33]),
+    (128, 256, 2, [0, 0, 0, 0, 0, 300, 0, 0]),
+    (256, 1024, 2, [100, 0, 70, 0, 130, 0, 10, 40]),
+    (2048, 896, 2, [(37 * i) % 90 if i % 3 else 0 for i in range(64)]),
+], ids=["expert_per_tile", "one_expert", "f_1024", "llada_moe_7b"])
+def test_fused_ffn_kernel_pad_skip(cuda_device, d, f, layers, sizes, exact):
+    """K3 with the pad-skip vector: the tiles it marks 0 are zero, every
+    other row equals the call without it bit for bit, both hold to the plain
+    version, and the FFN output after the combine is the same with and
+    without it.  Routings: the expert changes at every tile; one expert owns
+    every tile; F at the limit (a cluster of 8 CTAs) with empty experts
+    between used ones; llada-moe-7b's D, F and 64 experts.  Two calls are
+    bit-identical."""
+    dev, e = cuda_device, len(sizes)
+    x, idx, g = _routing_of_sizes(dev, sizes, d, d + f + e)
+    if exact:
+        x = _ints(g, dev, x.shape, -2, 3, 1.0)
+    lead = () if layers is None else (layers,)
+    wg, wu, wd = _fused_experts(g, dev, lead, e, d, f, exact)
+    li = None if layers is None else layers - 1
+    dest, te, got_sizes, m_pad = gg.counting_layout(idx, e, gg.TILE_M)
+    assert got_sizes.tolist() == sizes
+    valid = gg.valid_tiles(got_sizes, te, gg.TILE_M, m_pad)
+    empty = valid.repeat_interleave(gg.TILE_M) == 0
+    assert bool(empty.any())
+    xs = gg.gather_rows(x, dest, 1, m_pad)
+    reset_launch_counts()
+    got = gg.grouped_ffn_fused(xs, wg, wu, wd, te, gg.TILE_M, li, valid)
+    whole = gg.grouped_ffn_fused(xs, wg, wu, wd, te, gg.TILE_M, li)
+    assert KERNELS["grouped_ffn_fused"].launches == 2
+    assert not got[empty].any()
+    assert torch.equal(got[~empty], whole[~empty])
+    h_p = gg.grouped_gateup_plain(xs, wg, wu, te, gg.TILE_M, li)
+    want = gg.grouped_down_plain(h_p, wd, te, gg.TILE_M, li, valid)
+    assert torch.equal(want, gg.grouped_ffn_fused_plain(xs, wg, wu, wd, te, gg.TILE_M, li,
+                                                        valid))
+    tol = GROUPED_TOL if exact else fused_tol(h_p, wd if li is None else wd[li])
+    torch.testing.assert_close(got, want, **tol)
+    assert torch.equal(got, gg.grouped_ffn_fused(xs, wg, wu, wd, te, gg.TILE_M, li, valid))
+    n = x.shape[0]
+    probs = torch.rand((n, 1), generator=g, device=dev)
+    assert torch.equal(gg.combine(got, dest, probs, n, 1, x.dtype),
+                       gg.combine(whole, dest, probs, n, 1, x.dtype))
+
+
+def test_fused_ffn_hands_kernel_tile_valid(cuda_device, monkeypatch):
+    """Under CTDB_GROUPED_FUSED=1 the expert FFN hands K3 the pad-skip
+    vector; its output is the same as with none."""
+    monkeypatch.setenv("CTDB_GROUPED_FUSED", "1")
+    dev, e = cuda_device, 8
+    x, idx, g = _routing(dev, 150, 256, e, 2, 13)
+    probs = torch.rand(idx.shape, generator=g, device=dev)
+    ws = _fused_experts(g, dev, (), e, 256, 128, False)
+    seen = []
+    fused = gg.grouped_ffn_fused
+
+    def recording(keep):
+        def run(*args):
+            seen.append(args[-1])
+            return fused(*args[:-1], args[-1] if keep else None)
+        return run
+
+    monkeypatch.setattr(gg, "grouped_ffn_fused", recording(False))
+    want = gg.grouped_expert_ffn_cuda(x, probs, idx, *ws)
+    monkeypatch.setattr(gg, "grouped_ffn_fused", recording(True))
+    assert torch.equal(gg.grouped_expert_ffn_cuda(x, probs, idx, *ws), want)
+    assert len(seen) == 2 and all(v is not None for v in seen)
+    assert bool((seen[0] == 0).any())
+
+
 def test_fused_ffn_wrapper_refuses(cuda_device):
     dev = cuda_device
     te = torch.zeros(1, dtype=torch.int32, device=dev)
@@ -789,8 +933,13 @@ def test_fused_ffn_wrapper_refuses(cuda_device):
                 torch.zeros((2, f, d), device=dev, dtype=dtype))
 
     x = torch.zeros((64, 128), device=dev, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="shared memory"):
-        gg.grouped_ffn_fused(x, *experts(128, 1408), te)     # h tile too large
+    with pytest.raises(ValueError, match="cluster"):
+        gg.grouped_ffn_fused(x, *experts(128, 1408), te)     # past a cluster of 8
+    with pytest.raises(ValueError, match="cluster"):
+        gg.grouped_ffn_fused(x, *experts(128, 1152), te)
+    with pytest.raises(ValueError, match="tile_valid"):
+        gg.grouped_ffn_fused(x, *experts(128, 128), te, 64, None,
+                             torch.ones(2, dtype=torch.int32, device=dev))
     with pytest.raises(ValueError, match="% 128"):
         gg.grouped_ffn_fused(x, *experts(128, 192), te)
     with pytest.raises(ValueError, match="% 128"):

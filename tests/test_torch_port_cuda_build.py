@@ -42,13 +42,15 @@ def test_library_path_changes_with_an_included_header(tmp_path):
     assert lib.path.name.startswith("k-") and lib.path.parent == cuda_build.BUILD_DIR
 
 
-@pytest.mark.parametrize("library", [fa.LIBRARY, fab.LIBRARY, gg.LIBRARY_Q, gg.LIBRARY])
+@pytest.mark.parametrize("library", [fa.LIBRARY, fab.LIBRARY, gg.LIBRARY_Q, gg.LIBRARY,
+                                     gg.LIBRARY_FUSED])
 def test_flash_sources_hash_the_shared_header(library):
     """Every source that includes the shared Hopper header (the flash
-    kernels and the bf16 and int8 grouped pairs) hashes it."""
+    kernels, the bf16 and int8 grouped pairs and the fused expert FFN)
+    hashes it."""
     assert [h.name for h in cuda_build.local_headers(library.source)] == ["hopper_mma.cuh"]
 
 
-@pytest.mark.parametrize("library", [gg.LIBRARY_FUSED, fa.LIBRARY_DIRECT])
+@pytest.mark.parametrize("library", [fa.LIBRARY_DIRECT])
 def test_sources_without_local_headers_hash_only_themselves(library):
     assert cuda_build.local_headers(library.source) == []

@@ -104,6 +104,54 @@ def test_fused_ffn_plain_matches_jax_megakernel(switches, monkeypatch, layers):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **GROUPED_TOL)
 
 
+@pytest.mark.parametrize("layers", [None, 2])
+def test_fused_ffn_plain_pad_skip_matches_jax(switches, monkeypatch, layers):
+    """The fused plain version with ``tile_valid`` against the reference's
+    fused kernel under ``CTDB_GROUPED_SKIP_PAD=1`` (interpret mode), on the
+    layout and pad-skip vector ``grouped_expert_ffn_pallas`` builds: equal on
+    the real tiles, zero on the tiles marked 0 (the reference zero-fills them
+    too, except a run's first tile, whose weight copy it still waits for);
+    and the port's FFN, which always hands K3 the vector, against the
+    reference's; 3-D and stacked."""
+    monkeypatch.setenv("CTDB_GROUPED_SKIP_PAD", "1")
+    n, d, e, f, k = 40, 128, 6, 128, 2
+    ks = jax.random.split(jax.random.key(7 + (layers or 0)), 5)
+    lead = () if layers is None else (layers,)
+    x = jax.random.normal(ks[0], (n, d))
+    wg = jax.random.normal(ks[1], lead + (e, d, f)) / np.sqrt(d)
+    wu = jax.random.normal(ks[2], lead + (e, d, f)) / np.sqrt(d)
+    wd = jax.random.normal(ks[3], lead + (e, f, d)) / np.sqrt(f)
+    probs, idx, _ = j_router_probs(x, jax.random.normal(ks[4], (d, e)) / np.sqrt(d),
+                                   k, True)
+    li = None if layers is None else 1
+    seen = {}
+    fused = jgg.grouped_ffn_fused_padded
+
+    def recording(xs, we_gate, we_up, we_down, te, tile_m, layer_index=None,
+                  tile_valid=None):
+        out = fused(xs, we_gate, we_up, we_down, te, tile_m, layer_index=layer_index,
+                    tile_valid=tile_valid)
+        seen.update(xs=xs, te=te, valid=tile_valid, out=out)
+        return out
+
+    monkeypatch.setattr(jgg, "grouped_ffn_fused_padded", recording)
+    want = jgg.grouped_expert_ffn_pallas(
+        x, probs, idx, wg, wu, wd, tile_m=8,
+        layer_index=None if li is None else jnp.int32(li))
+    valid = np.asarray(seen["valid"])
+    assert (valid == 0).any() and (valid == 1).any()
+    got = tgg.grouped_ffn_fused_plain(_t(seen["xs"]), _t(wg), _t(wu), _t(wd),
+                                      _t(seen["te"]), 8, li, _t(valid))
+    real = np.repeat(valid, 8) == 1
+    np.testing.assert_allclose(got.numpy()[real], np.asarray(seen["out"])[real],
+                               **GROUPED_TOL)
+    assert not got.numpy()[~real].any()
+    np.testing.assert_allclose(
+        tgg.grouped_expert_ffn_cuda(_t(x), _t(probs), _t(idx), _t(wg), _t(wu), _t(wd),
+                                    tile_m=8, layer_index=li).numpy(),
+        np.asarray(want), **GROUPED_TOL)
+
+
 def test_fused_ffn_plain_is_the_pair():
     """The fused plain version is the pair's plain versions with h rounded
     to x's dtype between them (bf16 here)."""
@@ -118,7 +166,9 @@ def test_fused_ffn_plain_is_the_pair():
     want = tgg.grouped_down_plain(h, wd, te, 64, 1)
     got = tgg.grouped_ffn_fused_plain(xs, wg, wu, wd, te, 64, 1)
     assert torch.equal(got, want) and got.dtype == torch.bfloat16
-    assert tgg.fused_smem_bytes(896) <= tgg.MAX_BLOCK_SMEM < tgg.fused_smem_bytes(1408)
+    # The kernel reaches F 1024, a cluster of 8 CTAs of 128 columns of h:
+    # llada-moe-7b's 896 fits, 1408 does not.
+    assert 896 <= tgg.FUSED_MAX_F == 8 * 128 < 1408
 
 
 def test_fused_switch_takes_only_aligned_plain_weights(monkeypatch):
@@ -130,6 +180,10 @@ def test_fused_switch_takes_only_aligned_plain_weights(monkeypatch):
     monkeypatch.setenv("CTDB_GROUPED_FUSED", "1")
     tgg.grouped_expert_ffn_cuda(x, probs, idx, *w)            # D, F not % 128
     assert not calls
+    wide = [torch.randn((4, 128, 1152)), torch.randn((4, 128, 1152)),
+            torch.randn((4, 1152, 128))]
+    tgg.grouped_expert_ffn_cuda(torch.randn((10, 128)), probs, idx, *wide)
+    assert not calls                                          # F past a cluster of 8
     monkeypatch.setenv("CTDB_GROUPED_FUSED", "0")
     a = [torch.randn((4, 128, 128)), torch.randn((4, 128, 128)), torch.randn((4, 128, 128))]
     tgg.grouped_expert_ffn_cuda(torch.randn((10, 128)), probs, idx, *a)
