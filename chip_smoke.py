@@ -8,8 +8,9 @@ Phases, in order:
 1. card name and power limit (nvidia-smi), then build of every CUDA kernel
    from ``ct_diffusionmodelbench_tpu_torch/csrc`` (one nvcc per source, all
    started together); ptxas's registers, spills and warnings per kernel, and
-   whether the flash forward, dq and dk/dv kernels at head dim 128, the bf16
-   and int8 grouped pairs and the fused expert FFN spill.
+   whether the flash forward, dq and dk/dv kernels at head dim 128, the
+   direct flash kernel's three head-dim-128 configurations, the bf16 and int8
+   grouped pairs and the fused expert FFN spill.
 2. kernels: each kernel at the main path's shapes against its plain PyTorch
    version on the same inputs, timed with CUDA events beside the plain
    version, one PyTorch library call where one exists, and its bound.  The
@@ -183,15 +184,19 @@ LOSS_RTOL = 2 ** -7
 # kernel table (the WMMA designs: the flash kernels with their accumulators
 # in shared memory, the int8 grouped pair widening int8 through shared
 # memory, the bf16 grouped pair and the fused expert FFN on cp.async and
-# mma.sync; dq at T after its unused shared tile went; on an H100 80GB HBM3
-# at 700 W); constants, not measured here.
+# mma.sync; dq at T after its unused shared tile went; the direct flash
+# kernel with its score rows in shared memory, as timed in the final run
+# before its redesign; on an H100 80GB HBM3 at 700 W); constants, not
+# measured here.
 FIRST_DESIGN_MS = {"flash_attention_fwd": 0.3158, "flash_attention_fwd T": 2.7245,
                    "flash_attention_fwd chat": 0.1324,
                    "flash_attention_fwd Dream geometry": 0.1455,
                    "flash_attention_bwd_dkv": 1.7452, "flash_attention_bwd_dq": 0.9744,
                    "grouped_gateup_q": 1.3266, "grouped_down_q": 0.7082,
                    "grouped_gateup": 1.1576, "grouped_down": 0.5802,
-                   "grouped_ffn_fused": 0.8177}
+                   "grouped_ffn_fused": 0.8177,
+                   "flash_attention_direct chat": 0.0664,
+                   "flash_attention_direct Dream geometry": 0.1296}
 # Rounds of the in-turn timings; the median of each is reported.
 TURNS = 5
 
@@ -245,11 +250,17 @@ def ptxas_report(libs) -> None:
     """Print ptxas's entry, register, spill and warning lines (a warning
     names, among others, wgmma products it had to serialize), and the spill
     bytes of the flash forward, dq and dk/dv kernels at head dim 128, of the
-    bf16 and int8 grouped kernels and of the fused expert FFN (found by
-    their mangled names)."""
+    direct flash kernel at head dim 128 (one or two warpgroups with K
+    resident, two with K streamed), of the bf16 and int8 grouped kernels and
+    of the fused expert FFN (found by their mangled names)."""
     watch = {"flash_fwd_kernel<128>": "16flash_fwd_kernelILi128E",
              "flash_bwd_dq_kernel<128>": "19flash_bwd_dq_kernelILi128E",
              "flash_bwd_dkv_kernel<128>": "20flash_bwd_dkv_kernelILi128E",
+             "flash_direct_kernel<128, 1, resident> (chat)":
+                 "19flash_direct_kernelILi128ELi1ELb1E",
+             "flash_direct_kernel<128, 2, resident> (Dream)":
+                 "19flash_direct_kernelILi128ELi2ELb1E",
+             "flash_direct_kernel<128, 2, streamed>": "19flash_direct_kernelILi128ELi2ELb0E",
              "grouped_ffn_fused_kernel": "24grouped_ffn_fused_kernel",
              "grouped_gemm_kernel<2> (gate/up)": "19grouped_gemm_kernelILi2E",
              "grouped_gemm_kernel<1> (down)": "19grouped_gemm_kernelILi1E",
@@ -716,13 +727,17 @@ def direct_case(name, q, k, v, mask, rope, dev, stream):
                         "sdpa": lambda: sdpa(qr, kr, vt, attn_mask=keep, enable_gqa=True)},
                        50)
     k_ms, k8_ms, lib_ms = turns["K9"], turns["K8"], turns["sdpa"]
-    b_ms, b_by = bound_ms(4.0 * b * h * s * s * dh, nbytes(q, k, v, out, bias, cos, sin))
+    flops = 4.0 * b * h * s * s * dh
+    b_ms, b_by = bound_ms(flops, nbytes(q, k, v, out, bias, cos, sin))
+    rate = report_rate(f"flash_attention_direct {name}", flops, k_ms, b_ms)
     print(f"  flash_attention_direct {name} (B {b}, S {s}, H {h}, KV {kv}, Dh {dh}): "
-          f"kernel {k_ms:.4f} ms, K8 {k8_ms:.4f} ms, plain {p_ms:.4f} ms, SDPA "
-          f"{lib_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by})", flush=True)
+          f"kernel {k_ms:.4f} ms, K8 {k8_ms:.4f} ms, SDPA {lib_ms:.4f} ms in the same "
+          f"turns; plain {p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}); "
+          f"{rate['bound_share']:.4f} of its bound; before its redesign "
+          f"{FIRST_DESIGN_MS[f'flash_attention_direct {name}']} ms (PERF.md)", flush=True)
     return dict(shape=f"B {b}, S {s}, H {h}, KV {kv}, Dh {dh}, RoPE, left padding",
                 max_abs_err=err, ms=k_ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=lib_ms, k8_ms=k8_ms)
+                library_ms=lib_ms, k8_ms=k8_ms, **rate)
 
 
 def single_prompt_kernel_phase(cfg, params, dev):
@@ -850,7 +865,7 @@ def single_prompt_kernel_phase(cfg, params, dev):
         max_abs_err=max(chat["max_abs_err"], dream["max_abs_err"]), ms=chat["ms"],
         kernel_ms=chat["ms"], plain_ms=chat["plain_ms"], bound_ms=chat["bound_ms"],
         bound_by=chat["bound_by"], library_ms=chat["library_ms"], k8_ms=chat["k8_ms"],
-        dream_geometry=dream))
+        tflops=chat["tflops"], bound_share=chat["bound_share"], dream_geometry=dream))
     return results, runner
 
 

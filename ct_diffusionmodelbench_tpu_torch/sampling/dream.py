@@ -155,8 +155,12 @@ def _filter_and_sample(logits: torch.Tensor, sc: DreamSamplerConfig,
 def _timesteps(steps: int, eps: float) -> torch.Tensor:
     """linspace(1, eps, steps + 1) in f32 as XLA evaluates the reference's
     ``jnp.linspace``: r = f32(1/n), c = f32(eps * r), t_i = (1 - i*r) + i*c
-    with the last sum fused (one rounding), t_n = eps.  Equal to it bit for
-    bit for every step count below 352 (checked against ``jnp.linspace``)."""
+    with the last sum fused (one rounding), t_n = eps.  Equal bit for bit to
+    eager ``jnp.linspace`` for every step count below 352 (a test checks).
+    The reference's sampler evaluates it under ``jax.jit``, where the values
+    differ from the eager ones by an ulp at some step counts (52, 82, 104,
+    333 and 351 among them) without changing how many tokens a step
+    unmasks (a test checks that count at 256 and 512 steps)."""
     i = torch.arange(steps, dtype=torch.float32)
     r = torch.tensor(1.0 / steps, dtype=torch.float32)
     stop = torch.tensor(eps, dtype=torch.float32)

@@ -771,7 +771,13 @@ def test_tiny_train_step_launches_kernels(cuda_device, remat):
 # The single-prompt serving kernels: the fused expert FFN (K3) and the
 # direct-softmax flash attention (K9).  K9 takes the softmax against the same
 # max over all keys as the plain version, so it holds to the grouped kernels'
-# one-ulp tolerance, tighter than K8's two.  K3's h stays in shared memory:
+# one-ulp tolerance, tighter than K8's two.  Both round P to bf16 from f32
+# scores whose dot products they sum in different orders, so where a p lies
+# at a bf16 rounding boundary the plain version itself is ambiguous: summed
+# in float64 instead, its dots may round that P the other way, which moves
+# out past one ulp where the key weighs much in its row.  There, and only
+# where those two plain versions differ past GROUPED_TOL, K9 may match the
+# float64 one instead.  K3's h stays in shared memory:
 # kernel and plain version round it to bf16 from f32 sums taken in different
 # orders, so now and then one h element differs by one bf16 ulp (2**-8
 # relative), which moves out[row, j] by up to 2**-8 * |h_i| * |Wd[i, j]|
@@ -785,6 +791,41 @@ def fused_tol(h_plain, wd):
     through the largest down weight."""
     flip = 2 ** -8 * float(h_plain.abs().max()) * float(wd.abs().max())
     return dict(rtol=GROUPED_TOL["rtol"], atol=max(GROUPED_TOL["atol"], flip))
+
+
+def direct_plain_f64_dots(q, k, v, mask, rope):
+    """``fa.flash_attention_plain``'s out with its q.k dot products summed in
+    float64 and rounded to f32 once; every other step as the plain version."""
+    b, s, h, dh = q.shape
+    if rope is not None:
+        q, k = apply_rope(q, *rope), apply_rope(k, *rope)
+    sk, rep = fa.kv_tile_len(s), h // k.shape[2]
+    bias = torch.full((b, sk), fa.NEG_INF, dtype=torch.float32, device=q.device)
+    bias[:, :s] = fa.mask_bias(mask, b, s, q.device)
+    kp, vp = (torch.zeros((b, sk) + t.shape[2:], dtype=t.dtype, device=t.device)
+              for t in (k, v))
+    kp[:, :s], vp[:, :s] = k, v
+    dots = torch.einsum("bqhd,bkhd->bhqk", q.double(),
+                        kp.repeat_interleave(rep, dim=2).double())
+    scores = dots.float() * dh ** -0.5 + bias[:, None, None, :]
+    m = torch.clamp_min(scores.amax(dim=-1, keepdim=True), fa.NEG_INF)
+    p = torch.exp(scores - m)
+    l = torch.clamp_min(p.sum(dim=-1), 1e-30)
+    pv = torch.einsum("bhqk,bkhd->bqhd", p.to(v.dtype).float(),
+                      vp.repeat_interleave(rep, dim=2).float())
+    return (pv / l.permute(0, 2, 1)[..., None]).to(q.dtype)
+
+
+def assert_direct_close(got, want, want_f64_dots):
+    """K9's out within GROUPED_TOL of the plain version's at every element,
+    or, where the plain version and its float64-dot twin differ past
+    GROUPED_TOL, within GROUPED_TOL of the twin."""
+    def close(a, b):
+        return ((a.float() - b.float()).abs()
+                <= GROUPED_TOL["atol"] + GROUPED_TOL["rtol"] * b.float().abs())
+    ok = close(got, want) | (~close(want, want_f64_dots) & close(got, want_f64_dots))
+    assert ok.all(), (f"{int((~ok).sum())} of {ok.numel()} elements past GROUPED_TOL "
+                      f"of both plain versions")
 
 
 def _fused_inputs(dev, d, f, layers, e, routing, seed, exact=False):
@@ -990,9 +1031,21 @@ def test_fused_switch_selects_kernel(cuda_device, monkeypatch):
     assert n["grouped_ffn_fused"] == 0 and n["grouped_gateup_q"] == 1
 
 
-@pytest.mark.parametrize("h,kv", [(4, 4), (16, 4), (28, 4)])   # rep 1, 4, 7
-@pytest.mark.parametrize("s", [24, 200, 320, 1024])
+# S at K9's tile edges (64 keys, 64 query rows) and residency edges (K stays
+# in shared memory up to 512 keys at Dh 128: S 512 pads to 512 keys, 513 to
+# 640).  A block takes two warpgroups when K is streamed (S > 512) or when
+# B * H * ceil(S / 64) exceeds the card's SMs; one of them is idle where
+# rep * ceil(S / 64) is odd (rep 1 at S 513 and 641, and at H 12 also at
+# S 320; rep 7 at S 320, 513 and 641).
+DIRECT_S = [1, 24, 63, 64, 65, 200, 320, 511, 512, 513, 640, 641, 1024]
+
+
+@pytest.mark.parametrize("h,kv", [(4, 4), (12, 12), (16, 4), (28, 4)])   # rep 1, 1, 4, 7
+@pytest.mark.parametrize("s", DIRECT_S)
 def test_direct_flash_kernel_matches_plain(cuda_device, monkeypatch, h, kv, s):
+    """K9 with and without RoPE, with lse, on the fully masked row (batch
+    2), against its plain version (see above where a P is ambiguous); a
+    repeated call is bit-identical."""
     monkeypatch.setenv("CTDB_FLASH_DIRECT", "1")
     dev, dh = cuda_device, 128
     q, k, v, _, mask = _attn_case(dev, 3, s, h, kv, dh, h + s)
@@ -1002,13 +1055,42 @@ def test_direct_flash_kernel_matches_plain(cuda_device, monkeypatch, h, kv, s):
         out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope, with_lse=True)
         out_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask, rope=rope,
                                                 with_lse=True)
-        torch.testing.assert_close(out, out_p, **GROUPED_TOL)
+        assert_direct_close(out, out_p, direct_plain_f64_dots(q, k, v, mask, rope))
         torch.testing.assert_close(lse, lse_p, **LSE_TOL)
         # the fully masked row (batch 2) averages every padded key, as plain
         torch.testing.assert_close(out[2], out_p[2], **GROUPED_TOL)
         assert torch.equal(out, fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope))
         assert KERNELS["flash_attention_direct"].launches == 2
         assert KERNELS["flash_attention_fwd"].launches == 0
+
+
+@pytest.mark.parametrize("s,h,kv", [(512, 16, 4), (512, 28, 4), (1024, 8, 2), (640, 28, 4)])
+def test_direct_flash_kernel_exact_scores(cuda_device, monkeypatch, s, h, kv):
+    """K9 where every score is exact in f32: q, k and v integers in [-1, 1],
+    no RoPE, B 1 (one and two warpgroups, K resident and streamed).  Each
+    score is then q.k (exact) times the scale, rounded once, in the kernel
+    and in a float64 reference alike (the padded keys' bias of -1e30 makes
+    their exp 0), so lse may differ from the reference only by the f32
+    rounding of exp, of the sum (taken in another order) and of the log:
+    far inside LSE_TOL, where a wrong wgmma descriptor or swizzle, which
+    changes scores, is not."""
+    monkeypatch.setenv("CTDB_FLASH_DIRECT", "1")
+    dev, dh = cuda_device, 128
+    g = torch.Generator(device=dev).manual_seed(s + h)
+    q = torch.randint(-1, 2, (1, s, h, dh), generator=g, device=dev).to(torch.bfloat16)
+    k, v = (torch.randint(-1, 2, (1, s, kv, dh), generator=g, device=dev)
+            .to(torch.bfloat16) for _ in range(2))
+    reset_launch_counts()
+    out, lse = fa.flash_attention_cuda(q, k, v, with_lse=True)
+    assert torch.equal(out, fa.flash_attention_cuda(q, k, v))
+    assert KERNELS["flash_attention_direct"].launches == 2
+    kr = k.double().repeat_interleave(h // kv, dim=2)
+    dots = torch.einsum("bqhd,bkhd->bhqk", q.double(), kr)             # exact
+    scores = (dots.float() * torch.tensor(dh ** -0.5, dtype=torch.float32)).double()
+    m = scores.amax(dim=-1)
+    want = m + torch.log(torch.exp(scores - m[..., None]).sum(dim=-1))
+    torch.testing.assert_close(lse.double(), want, rtol=2 ** -20, atol=2e-5)
+    torch.testing.assert_close(out, fa.flash_attention_plain(q, k, v), **GROUPED_TOL)
 
 
 @pytest.mark.parametrize("dh", [16, 32, 64])

@@ -43,7 +43,7 @@ def test_library_path_changes_with_an_included_header(tmp_path):
 
 
 @pytest.mark.parametrize("library", [fa.LIBRARY, fab.LIBRARY, gg.LIBRARY_Q, gg.LIBRARY,
-                                     gg.LIBRARY_FUSED])
+                                     gg.LIBRARY_FUSED, fa.LIBRARY_DIRECT])
 def test_flash_sources_hash_the_shared_header(library):
     """Every source that includes the shared Hopper header (the flash
     kernels, the bf16 and int8 grouped pairs and the fused expert FFN)
@@ -51,6 +51,13 @@ def test_flash_sources_hash_the_shared_header(library):
     assert [h.name for h in cuda_build.local_headers(library.source)] == ["hopper_mma.cuh"]
 
 
-@pytest.mark.parametrize("library", [fa.LIBRARY_DIRECT])
-def test_sources_without_local_headers_hash_only_themselves(library):
-    assert cuda_build.local_headers(library.source) == []
+def test_sources_without_local_headers_hash_only_themselves(tmp_path):
+    """A source that includes only system headers (every kernel source now
+    includes the shared Hopper header, so a written one stands in)."""
+    src = _write(tmp_path / "k.cu", "#include <cuda_runtime.h>\nint f() { return 0; }\n")
+    assert cuda_build.local_headers(src) == []
+    lib = cuda_build.Library("flash_attention.cu")
+    lib.source = src
+    before = lib.path
+    src.write_text("#include <cuda_runtime.h>\nint f() { return 1; }\n")
+    assert lib.path != before

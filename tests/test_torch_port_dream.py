@@ -87,6 +87,34 @@ def test_timesteps_equal_jax_linspace():
                                       np.asarray(jnp.linspace(1.0, 1e-3, n + 1)))
 
 
+@pytest.mark.parametrize("steps", [256, 512])
+def test_unmask_counts_match_jitted_sampler(steps):
+    """The number of tokens unmasked at each step equals the reference's
+    sampler under ``jax.jit``, where XLA evaluates ``jnp.linspace`` itself
+    (an ulp off the eager values at some step counts): one fixed fake
+    forward, greedy, ``maskgit_plus``, B 1, gen = steps."""
+    p, vocab, mask_id = 8, 96, 1000
+    logits = np.random.default_rng(steps).standard_normal((1, p + steps, vocab))
+    logits = logits.astype(np.float32)
+    kw = dict(steps=steps, max_new_tokens=steps, temperature=0.0, alg="maskgit_plus",
+              mask_id=mask_id)
+    prompt = _prompt(steps, 1, p)
+    fake = lambda params, ids, m=None: (params, None)   # noqa: E731  the logits
+    _, hist_j = jdream.make_dream_sampler(fake, jdream.DreamSamplerConfig(**kw),
+                                          output_history=True)(
+        jnp.asarray(logits), jnp.asarray(prompt))
+    _, hist_t = tdream.make_dream_sampler(fake, tdream.DreamSamplerConfig(**kw),
+                                          output_history=True)(_t(logits), _t(prompt))
+
+    def per_step(hist):
+        filled = (np.asarray(hist)[:, 0, p:] != mask_id).sum(axis=1)
+        return np.diff(filled, prepend=0)
+
+    want = per_step(hist_j)
+    assert want.sum() == steps
+    np.testing.assert_array_equal(per_step(hist_t.numpy()), want)
+
+
 def test_invalid_alg_raises():
     with pytest.raises(NotImplementedError):
         tdream.DreamSamplerConfig(alg="not-an-alg")
