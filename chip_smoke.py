@@ -15,7 +15,8 @@ Phases, in order:
    version on the same inputs, timed with CUDA events beside the plain
    version, one PyTorch library call where one exists, and its bound.  The
    bf16 grouped pair (K1/K4, K2/K5) runs on a random routing through layer
-   1's router with the stacked [18, 64, ...] weights, with the pad-skip
+   1's router with the stacked [18, 64, ...] weights, at the row tile the
+   layout takes for M 20480 (64; printed), with the pad-skip
    vector ``tile_valid`` the main path hands it (real rows against the plain
    versions, the rest zero) and without it; it is timed in turns (medians
    of 5), with and without ``tile_valid``, beside ``torch._grouped_mm``,
@@ -50,7 +51,31 @@ Phases, in order:
    ``_respond`` (causal, 8 new tokens) on the same weights.
 7. chat depth check: a 2-layer full-width forward through K3 and K9 against
    the same forward on their plain versions.
-8. int8 kernels: ``ModelRunner.random_init("llada-moe-7b", quant="int8")``
+8. eval sweep: with both switches off, ``cli/bench.py``'s ``build_parser``
+   (llada style, the CLI defaults: gen 256, steps 128, block 32, greedy;
+   ``--batch-size 8 --fake-lean``) → ``cli/bench.run`` on a runner over
+   phase 3's weights and 8 synthetic MathOlympiadBench-schema entries in
+   four categories, after a warm-up at one step a block; the artifacts
+   must exist, every row must have generated and been verified by the
+   async pool (8 verifier calls), no mask id may remain, and K1, K2 and K8
+   must be launched 18 × 128 times and no other kernel (one batch, one
+   generate: a per-sample fallback would launch 8 times as often).  Prints
+   S, M, wall s, tokens/s, the harness's ``average_generation_time``
+   and the share of the wall outside ``generate_ids``.  Then the kernels
+   on the batch the sweep decoded (its ids and its prompts' left padding,
+   S 832): layer 1's K1 and K2 at its routing and at the row tile the
+   layout takes for it (64 here; tile_m and m_pad printed) and its K8,
+   each against its plain version, and a 2-layer full-width forward
+   through the kernels against the same on their plain versions, the plain
+   run pinned to the kernel run's expert choice.
+9. MiniF2F: likewise ``cli/minif2f.py`` (gen 512, steps 128, block 32,
+   greedy, ``avoid_eos``, EOS truncation; ``--batch-size 8 --fake-lean``)
+   → ``cli/minif2f.run`` over 8 synthetic miniF2F-schema problems: the
+   result file, ``stats.total`` 8 with no error row, every row verified,
+   the same launch counts and the same kernel checks on its batch (S 1088:
+   M 69632 ≥ 65536, so K1 and K2 run at tile_m 128); prints the pass count
+   under the fake verifier.
+10. int8 kernels: ``ModelRunner.random_init("llada-moe-7b", quant="int8")``
    (each weight quantized as it is built); the int8 gate/up and down
    kernels on the layer-1 routing of a full-size int8 forward, with the
    stacked [18, 64, ...] int8 experts, against their plain versions, with
@@ -59,32 +84,32 @@ Phases, in order:
    the plain versions and, in turns (medians of 5), with and without
    ``tile_valid`` beside ``torch._grouped_mm`` on weights dequantized to
    bf16 beforehand, with their achieved TFLOP/s and share of the bound.
-9. int8 slice: ``ModelRunner.generate_ids`` at the bf16 slice's shape and
+11. int8 slice: ``ModelRunner.generate_ids`` at the bf16 slice's shape and
    prompt; launch counts read around that run (the int8 pair and flash, not
    the bf16 pair); no mask id may remain; a repeated forward must give
    identical logits.
-10. int8 quantization check: at 2 layers of the full width, the int8 forward
+12. int8 quantization check: at 2 layers of the full width, the int8 forward
    against the bf16 forward on the dequantized weights (the same function),
    and against itself on the int8 kernels' plain versions.
-11. Dream slice: full-width, full-depth ``dream-7b`` (seeded random weights,
+13. Dream slice: full-width, full-depth ``dream-7b`` (seeded random weights,
    ``ModelRunner.random_init``) generating at B = 1, gen 128, steps 128,
    greedy, ``alg="entropy"`` under ``CTDB_FLASH_DIRECT=1``: K9 launches,
    no mask id left, a repeated forward identical, tokens/s, peak memory.
-12. training kernels: the flash forward with lse and the two backward kernels
+14. training kernels: the flash forward with lse and the two backward kernels
    at the training shape (B 1, S 2048, H = KV = 32, Dh 128, RoPE) against
    their plain versions, timed beside them and beside SDPA's forward and
    backward (dq, dk/dv and SDPA's backward in turns, each kernel with its
    share of the bound), and the forward beside itself without RoPE; also a
    GQA case (H 16, KV 4) and a padded-mask case.
-13. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
+15. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
    5 optimizer steps by ``Trainer`` (seq 2048, micro-batch 1, grad-accum 4,
    remat, CE chunk 512, AdamW) on seeded token rows; s/step over steps 2-5,
    tokens/s, train MFU, peak memory, save seconds; launch counts per step.
-14. training gradients: a 2-layer full-width loss and every parameter's
+16. training gradients: a 2-layer full-width loss and every parameter's
    gradient with the kernels against the same on their plain versions.
 
-The bf16 MoE weights are freed before phase 8, the int8 ones before
-phase 11, Dream's before phase 12.  Prints the first designs' times of the
+The bf16 MoE weights are freed before phase 10, the int8 ones before
+phase 13, Dream's before phase 14.  Prints the first designs' times of the
 redesigned flash and grouped kernels (constants from PERF.md, on a line of
 their own),
 the ``{"kernels": [...]}`` line and, last, the
@@ -156,6 +181,27 @@ CHAT_BASE_TOKENS = 8
 SINGLE_PROMPT_KERNELS = ("grouped_ffn_fused", "flash_attention_direct")
 
 SERVING_KERNELS = ("grouped_gateup", "grouped_down", "flash_attention_fwd")
+
+# Eval sweeps: the bench and minif2f CLIs' defaults (bench: gen 256, steps
+# 128, block 32; minif2f: gen 512, steps 128, block 32, avoid_eos and EOS
+# truncation; both greedy, 64-token prompt buckets) on EVAL_ENTRIES
+# synthetic entries in the datasets' schemas, all in one batch.
+EVAL_ENTRIES = 8
+OLYMPIAD_PROBLEMS = [
+    ("algebra", "Prove that for all real numbers a and b, a ^ 2 + b ^ 2 ≥ 2 * a * b.",
+     "(a b : ℝ) : a ^ 2 + b ^ 2 ≥ 2 * a * b"),
+    ("number_theory", "Show that for every natural number n, 6 divides n ^ 3 - n.",
+     "(n : ℕ) : 6 ∣ n ^ 3 - n"),
+    ("inequality", "Let x, y, z be positive reals. Prove that "
+     "(x + y + z) * (1 / x + 1 / y + 1 / z) ≥ 9.",
+     "(x y z : ℝ) (hx : 0 < x) (hy : 0 < y) (hz : 0 < z) : "
+     "(x + y + z) * (1 / x + 1 / y + 1 / z) ≥ 9"),
+    ("combinatorics", "Prove that the sum of the binomial coefficients "
+     "choose n k over k from 0 to n is 2 ^ n.",
+     "(n : ℕ) : ∑ k in Finset.range (n + 1), n.choose k = 2 ^ n"),
+]
+MINIF2F_HEADER = ("import Mathlib\nimport Aesop\n\nset_option maxHeartbeats 400000\n\n"
+                  "open BigOperators Real Nat Topology Rat\n")
 INT8_SERVING_KERNELS = ("grouped_gateup_q", "grouped_down_q", "flash_attention_fwd")
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 
@@ -315,6 +361,52 @@ def skip_pad_check(name, got, want, real):
     return err
 
 
+def grouped_pair_check(label, cfg, blocks, x, topk_idx, li):
+    """K1 and K2 on the routing ``topk_idx`` of ``x`` (layer ``li``'s
+    stacked experts), at the row tile the main path's layout takes for it
+    (``layout_tile_m``: 128 from M 65536 up), against their plain versions,
+    with the pad-skip vector the main path hands them (real rows against
+    the plain versions, the rest zero) and without it.  Returns the layout,
+    the kernels' inputs and their errors."""
+    from types import SimpleNamespace
+
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+
+    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    wg, wu, wd = blocks["we_gate"], blocks["we_up"], blocks["we_down"]
+    n, m = x.shape[0], topk_idx.numel()
+    tile_m = gg.layout_tile_m(m)
+    dest, tile_expert, sizes, m_pad = gg.counting_layout(topk_idx, E, tile_m)
+    xs = gg.gather_rows(x, dest, K, m_pad)
+    used = int((sizes > 0).sum())
+    print(f"  {label} routing: N {n}, M {m}, tile_m {tile_m}, m_pad {m_pad}, tiles "
+          f"{m_pad // tile_m}, experts used {used}/{E}, largest group "
+          f"{int(sizes.max())}", flush=True)
+    # The pad-skip vector grouped_expert_ffn_cuda hands the pair: tiles with
+    # no real row, zero-filled instead of multiplied.
+    valid = gg.valid_tiles(sizes, tile_expert, tile_m, m_pad)
+    real = valid.repeat_interleave(tile_m) != 0
+    print(f"  pad-skip: {int((valid == 0).sum())} of {valid.numel()} tiles hold no "
+          f"real row", flush=True)
+    h_k = gg.grouped_gateup(xs, wg, wu, tile_expert, tile_m, li)
+    h_p = gg.grouped_gateup_plain(xs, wg, wu, tile_expert, tile_m, li)
+    torch.cuda.synchronize()
+    err_gateup = max(compare("grouped_gateup", h_k, h_p, **GROUPED_TOL), skip_pad_check(
+        "grouped_gateup", gg.grouped_gateup(xs, wg, wu, tile_expert, tile_m, li, valid),
+        h_p, real))
+    del h_k
+    # down, on the plain gate/up output for both
+    o_k = gg.grouped_down(h_p, wd, tile_expert, tile_m, li)
+    o_p = gg.grouped_down_plain(h_p, wd, tile_expert, tile_m, li)
+    torch.cuda.synchronize()
+    err_down = max(compare("grouped_down", o_k, o_p, **GROUPED_TOL), skip_pad_check(
+        "grouped_down", gg.grouped_down(h_p, wd, tile_expert, tile_m, li, valid), o_p,
+        real))
+    return SimpleNamespace(tile_m=tile_m, m=m, m_pad=m_pad, used=used, sizes=sizes,
+                           tile_expert=tile_expert, valid=valid, xs=xs, h_p=h_p,
+                           err_gateup=err_gateup, err_down=err_down)
+
+
 def kernel_phase(cfg, params, dev):
     """Each kernel at the main path's shapes against its plain version."""
     from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rope_angles
@@ -334,44 +426,29 @@ def kernel_phase(cfg, params, dev):
     x = torch.randn((n, D), generator=gen, device=dev, dtype=torch.bfloat16)
     topk_probs, topk_idx, _ = router_probs(x, blocks["router"][li], K,
                                            cfg.norm_topk_prob)
-    dest, tile_expert, sizes, m_pad = gg.counting_layout(topk_idx, E, gg.TILE_M)
-    xs = gg.gather_rows(x, dest, K, m_pad)
-    m = n * K
-    used = int((sizes > 0).sum())
-    print(f"  routing: N {n}, M {m}, m_pad {m_pad}, tiles {m_pad // gg.TILE_M}, "
-          f"experts used {used}/{E}, largest group {int(sizes.max())}", flush=True)
+    pair = grouped_pair_check("decode", cfg, blocks, x, topk_idx, li)
+    xs, h_p, tile_expert, sizes = pair.xs, pair.h_p, pair.tile_expert, pair.sizes
+    tile_m, m_pad, valid, m, used = pair.tile_m, pair.m_pad, pair.valid, pair.m, pair.used
     stream = torch.cuda.current_stream(dev).cuda_stream
     results = []
-    pend = torch.cumsum(gg._round_up(sizes, gg.TILE_M), 0, dtype=torch.int32)
+    pend = torch.cumsum(gg._round_up(sizes, tile_m), 0, dtype=torch.int32)
     grouped_mm = getattr(torch, "_grouped_mm", None)
     L = wg.shape[0]
     bf16 = xs.element_size()
     src = "ct_diffusionmodelbench_tpu_torch/csrc/grouped_gemm.cu"
     ref = "ct_diffusionmodelbench_tpu/ops/grouped_gemm_pallas.py"
 
-    # The pad-skip vector grouped_expert_ffn_cuda hands the pair: tiles with
-    # no real row, zero-filled instead of multiplied.
-    valid = gg.valid_tiles(sizes, tile_expert, gg.TILE_M, m_pad)
-    real = valid.repeat_interleave(gg.TILE_M) != 0
-    print(f"  pad-skip: {int((valid == 0).sum())} of {valid.numel()} tiles hold no "
-          f"real row", flush=True)
-
     # gate/up
-    h_k = gg.grouped_gateup(xs, wg, wu, tile_expert, gg.TILE_M, li)
-    h_p = gg.grouped_gateup_plain(xs, wg, wu, tile_expert, gg.TILE_M, li)
-    torch.cuda.synchronize()
-    err = max(compare("grouped_gateup", h_k, h_p, **GROUPED_TOL), skip_pad_check(
-        "grouped_gateup",
-        gg.grouped_gateup(xs, wg, wu, tile_expert, gg.TILE_M, li, valid), h_p, real))
-    h_out = torch.empty_like(h_k)
+    err = pair.err_gateup
+    h_out = torch.empty_like(h_p)
 
     def gateup(tile_valid):
         return lambda: gg.GATEUP_KERNEL(
             xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), h_out.data_ptr(),
-            tile_expert.data_ptr(), m_pad, D, Fm, E, L, li, gg.TILE_M, tile_valid, stream)
+            tile_expert.data_ptr(), m_pad, D, Fm, E, L, li, tile_m, tile_valid, stream)
 
     p_ms = time_ms(lambda: gg.grouped_gateup_plain(
-        xs, wg, wu, tile_expert, gg.TILE_M, li, valid), 3, warmup=1)
+        xs, wg, wu, tile_expert, tile_m, li, valid), 3, warmup=1)
     fns = {"kernel": gateup(valid.data_ptr()), "no_skip": gateup(None)}
     if grouped_mm is not None:
         w_gu = torch.cat([wg[li], wu[li]], dim=-1)
@@ -390,21 +467,16 @@ def kernel_phase(cfg, params, dev):
         **rate))
 
     # down, on the plain gate/up output for both
-    o_k = gg.grouped_down(h_p, wd, tile_expert, gg.TILE_M, li)
-    o_p = gg.grouped_down_plain(h_p, wd, tile_expert, gg.TILE_M, li)
-    torch.cuda.synchronize()
-    err = max(compare("grouped_down", o_k, o_p, **GROUPED_TOL), skip_pad_check(
-        "grouped_down", gg.grouped_down(h_p, wd, tile_expert, gg.TILE_M, li, valid), o_p,
-        real))
-    o_out = torch.empty_like(o_k)
+    err = pair.err_down
+    o_out = torch.empty_like(xs)
 
     def down(tile_valid):
         return lambda: gg.DOWN_KERNEL(
             h_p.data_ptr(), wd.data_ptr(), o_out.data_ptr(), tile_expert.data_ptr(),
-            m_pad, Fm, D, E, L, li, gg.TILE_M, tile_valid, stream)
+            m_pad, Fm, D, E, L, li, tile_m, tile_valid, stream)
 
     p_ms = time_ms(lambda: gg.grouped_down_plain(
-        h_p, wd, tile_expert, gg.TILE_M, li, valid), 3, warmup=1)
+        h_p, wd, tile_expert, tile_m, li, valid), 3, warmup=1)
     fns = {"kernel": down(valid.data_ptr()), "no_skip": down(None)}
     if grouped_mm is not None:
         wd_l = wd[li]
@@ -427,7 +499,7 @@ def kernel_phase(cfg, params, dev):
               f"({r['bound_by']})", flush=True)
     host_us_per_launch({"grouped_gateup": gateup(valid.data_ptr()),
                         "grouped_down": down(valid.data_ptr())})
-    del h_k, h_p, o_k, o_p, h_out, o_out, xs
+    del pair, h_p, h_out, o_out, xs
 
     # flash attention: B 8, S 320, H 16, KV 4, Dh 128, RoPE, left padding
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -542,11 +614,14 @@ def slice_phase(cfg, params, dev):
                 peak_gib=peak / 2**30, launches=launches, prompt=prompt, out=out)
 
 
-def pinned_compare(label, cfg2, ids, dev, params_a, params_b, seams_b):
+def pinned_compare(label, cfg2, ids, dev, params_a, params_b, seams_b, mask=None,
+                   logit_start=PROMPT):
     """Logits of a forward of ``params_a`` (``cfg2``, through the kernels)
     against a forward of ``params_b`` with ``seams_b`` ((module, name, fn)
     swapped in for that run), the second run given the first one's expert
-    choice in every layer.  Fails past ``LOGITS_RTOL_OF_MAX``."""
+    choice in every layer; both on ``ids`` with the attention ``mask``,
+    logits of the BLOCK positions from ``logit_start``.  Fails past
+    ``LOGITS_RTOL_OF_MAX``."""
     from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn
     from ct_diffusionmodelbench_tpu_torch.models import moe
 
@@ -571,13 +646,13 @@ def pinned_compare(label, cfg2, ids, dev, params_a, params_b, seams_b):
 
     seams = [(moe, "router_probs", pinned_router)] + list(seams_b)
     saved = [getattr(mod, name) for mod, name, _ in seams]
-    kw = dict(logit_start=PROMPT, logit_length=BLOCK)
+    kw = dict(logit_start=logit_start, logit_length=BLOCK)
     try:
         moe.router_probs = recording_router
-        la, _ = make_forward_fn(cfg2)(params_a, ids, **kw)
+        la, _ = make_forward_fn(cfg2, dev)(params_a, ids, mask, **kw)
         for mod, name, fn in seams:
             setattr(mod, name, fn)
-        lb, _ = make_forward_fn(cfg2)(params_b, ids, **kw)
+        lb, _ = make_forward_fn(cfg2, dev)(params_b, ids, mask, **kw)
     finally:
         for (mod, name, _), fn in zip(seams, saved):
             setattr(mod, name, fn)
@@ -609,7 +684,8 @@ def pinned_compare(label, cfg2, ids, dev, params_a, params_b, seams_b):
     return float(err_p.max())
 
 
-def depth_phase(cfg, params, ids, dev):
+def depth_phase(cfg, params, ids, dev, mask=None, logit_start=PROMPT,
+                label="2-layer logits, kernels vs plain"):
     """2-layer full-width forward: kernels against their plain versions, the
     plain run on the kernel run's expert choice."""
     from ct_diffusionmodelbench_tpu_torch.ops import attention
@@ -622,8 +698,8 @@ def depth_phase(cfg, params, ids, dev):
              (gg, "grouped_gateup", gg.grouped_gateup_plain),
              (gg, "grouped_down", gg.grouped_down_plain)]
     cfg2 = cfg.replace(num_layers=2)  # the first two layers of the full stacks
-    return pinned_compare("2-layer logits, kernels vs plain", cfg2, ids, dev,
-                          params, params, seams)
+    return pinned_compare(label, cfg2, ids, dev, params, params, seams, mask=mask,
+                          logit_start=logit_start)
 
 
 def chat_runner(cfg, params, dev):
@@ -888,6 +964,7 @@ def chat_slice_phase(runner, dev):
     """``run_chat`` at the chat defaults through K3 and K9, then one short
     ``chat_base._respond``."""
     from ct_diffusionmodelbench_tpu_torch.cli import chat, chat_base
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
     from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
 
     args = chat_args()
@@ -914,7 +991,7 @@ def chat_slice_phase(runner, dev):
     s = len(out)
     p = s - CHAT_GEN
     m = s * runner.cfg.num_experts_per_tok
-    m_pad = (m + 63) // 64 * 64 + runner.cfg.num_experts * 64
+    m_pad = gg.padded_rows(m, runner.cfg.num_experts, gg.layout_tile_m(m))
     print(f"  run_chat: {secs:.4f} s ({res['latency_sec']} s inside), "
           f"{CHAT_GEN / secs:.2f} tok/s (B 1, prompt {p} bucketed, gen {CHAT_GEN}, "
           f"steps {CHAT_STEPS}, block {args.block_length}; S {s}, M {m}, m_pad {m_pad})",
@@ -1023,6 +1100,225 @@ def dream_slice_phase(dev):
         raise AssertionError("non-finite logits")
     return dict(seconds=secs, tokens_per_s=CHAT_GEN / secs, peak_gib=peak / 2**30,
                 launches=launches)
+
+
+def olympiad_entries():
+    """EVAL_ENTRIES MathOlympiadBench-schema entries over four categories."""
+    out = []
+    for i in range(EVAL_ENTRIES):
+        category, informal, formal = OLYMPIAD_PROBLEMS[i % len(OLYMPIAD_PROBLEMS)]
+        out.append({"problem_id": f"smoke_{i}", "name": f"smoke problem {i}",
+                    "category": category, "informal_prefix": f"/-- {informal} -/\n",
+                    "formal_statement": f"theorem smoke_{i} {formal} := by"})
+    return out
+
+
+def minif2f_problems(path):
+    """EVAL_ENTRIES miniF2F-schema problems (split "test") written to
+    ``path``."""
+    problems = []
+    for i in range(EVAL_ENTRIES):
+        _, informal, formal = OLYMPIAD_PROBLEMS[i % len(OLYMPIAD_PROBLEMS)]
+        problems.append({"name": f"smoke_{i}", "split": "test",
+                         "informal_statement": informal, "header": MINIF2F_HEADER,
+                         "formal_statement": f"theorem smoke_{i} {formal} := by"})
+    with open(path, "w") as f:
+        json.dump(problems, f)
+
+
+class GenerateRecorder:
+    """Wraps ``runner.generate_ids``: the seconds spent inside it (its
+    result is copied to the host, so it ends in a device sync) and each
+    call's prompt width, prompt attention mask and output ids."""
+
+    def __init__(self, runner):
+        self.runner, self.inner = runner, runner.generate_ids
+        self.seconds, self.calls = 0.0, []
+        runner.generate_ids = self
+
+    def __call__(self, prompt_ids, **kw):
+        t0 = time.perf_counter()
+        out = self.inner(prompt_ids, **kw)
+        self.seconds += time.perf_counter() - t0
+        self.calls.append((prompt_ids.shape[-1], kw.get("attn_mask"), out))
+        return out
+
+    def close(self):
+        del self.runner.generate_ids
+
+
+def eval_sweep_check(label, runner, rec, launches, secs, args):
+    """What both eval phases demand: one generate of the whole batch, no
+    mask id left, K1, K2 and K8 launched once per layer and step and no
+    other kernel, and the kernels right on the batch the sweep decoded
+    (``eval_kernel_check``).  Prints S, M, wall, tokens/s and the share of
+    the wall spent outside ``generate_ids``; returns them with the layout's
+    tile_m and m_pad."""
+    if len(rec.calls) != 1:
+        raise AssertionError(f"{label}: {len(rec.calls)} generates, expected one "
+                             "batch (a per-sample fallback?)")
+    p, _, out = rec.calls[0]
+    b, s = out.shape
+    gen = args.gen_length
+    m = b * s * runner.cfg.num_experts_per_tok
+    left = int((out[:, p:] == runner.mask_id).sum())
+    outside = 1 - rec.seconds / secs
+    print(f"  {label}: {secs:.4f} s, {b * gen / secs:.2f} tok/s (B {b}, prompt {p} "
+          f"bucketed, gen {gen}; S {s}, M {m}); generate_ids {rec.seconds:.4f} s, "
+          f"{outside:.4f} of the wall outside it", flush=True)
+    print(f"  launches: {json.dumps(launches)}", flush=True)
+    print(f"  mask ids left: {left}", flush=True)
+    want = runner.cfg.num_layers * args.steps
+    bad = {n: c for n, c in launches.items()
+           if c != (want if n in SERVING_KERNELS else 0)}
+    if bad:
+        raise AssertionError(f"{label}: expected {want} launches of K1, K2 and K8 "
+                             f"and none of the others, got {bad}")
+    if left:
+        raise AssertionError(f"{label}: {left} mask ids remain after decoding")
+    pair = eval_kernel_check(label, runner, rec)
+    return dict(seconds=secs, tokens_per_s=b * gen / secs, S=s, M=m,
+                tile_m=pair.tile_m, m_pad=pair.m_pad, outside_share=outside,
+                launches=launches)
+
+
+def eval_kernel_check(label, runner, rec):
+    """K1, K2 and K8 at the sweep's shapes against their plain versions, on
+    the batch the sweep decoded (its ids and its prompts' left padding):
+    layer 1's grouped pair at its routing and row tile, and its flash
+    attention, captured from a 2-layer full-width forward; then that forward
+    through the kernels against the same on their plain versions, the plain
+    run pinned to the kernel run's expert choice.  Returns the pair's
+    layout."""
+    from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+
+    p, prompt_mask, out = rec.calls[0]
+    dev = runner.device
+    ids = torch.as_tensor(out, device=dev)
+    mask = torch.ones(ids.shape, dtype=torch.int32, device=dev)
+    if prompt_mask is not None:
+        mask[:, :p] = torch.as_tensor(prompt_mask, dtype=torch.int32, device=dev)
+    b, s = ids.shape
+    print(f"  {label} batch: B {b}, S {s}, left padding "
+          f"{(p - mask[:, :p].sum(dim=1)).tolist()} tokens", flush=True)
+    cfg2 = runner.cfg.replace(num_layers=2)
+    (x, topk_idx), (q, k, v, amask, rope) = capture_layer(
+        make_forward_fn(cfg2, dev), runner.params, ids, mask, 1, logit_start=p,
+        logit_length=BLOCK)
+    pair = grouped_pair_check(label, runner.cfg, runner.params["blocks"], x, topk_idx, 1)
+    a_k = fa.flash_attention(q, k, v, mask=amask, rope=rope)
+    a_p = fa.flash_attention_plain(q, k, v, mask=amask, rope=rope)
+    torch.cuda.synchronize()
+    compare(f"flash_attention_fwd (B {b}, S {s})", a_k, a_p, **FLASH_TOL)
+    del x, q, k, v, a_k, a_p
+    depth_phase(runner.cfg, runner.params, ids, dev, mask=mask, logit_start=p,
+                label=f"{label}: 2-layer logits, kernels vs plain")
+    return pair
+
+
+def eval_sweep_phase(runner):
+    """``cli/bench.py``'s sweep at the CLI defaults (llada style, greedy)
+    over EVAL_ENTRIES MathOlympiadBench-schema entries in one batch, with the
+    fake Lean verifier in the async pool; a warm-up at one step a block
+    (the same shapes) first."""
+    from ct_diffusionmodelbench_tpu_torch.cli import bench
+    from ct_diffusionmodelbench_tpu_torch.eval.benchmark import device_label
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+
+    entries = olympiad_entries()
+    flags = ["--preset", "llada-moe-7b", "--style", "llada", "--batch-size",
+             str(EVAL_ENTRIES), "--fake-lean", "--quiet"]
+    with tempfile.TemporaryDirectory() as tmp:
+        args = bench.build_parser().parse_args(flags + ["--results-dir", f"{tmp}/sweep"])
+        bench.run(bench.build_parser().parse_args(
+            flags + ["--steps", str(args.gen_length // args.block_length),
+                     "--results-dir", f"{tmp}/warm"]), runner, entries)
+        rec = GenerateRecorder(runner)
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            sweep = bench.run(args, runner, entries)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            rec.close()
+        launches = {name: k.launches for name, k in KERNELS.items()}
+        missing = [f for f in ("results_batch_8.json", "all_results.json",
+                               "final_report.json")
+                   if not os.path.exists(f"{tmp}/sweep/{f}")]
+        if missing:
+            raise AssertionError(f"eval sweep: missing artifacts {missing}")
+        with open(f"{tmp}/sweep/final_report.json") as f:
+            report = json.load(f)
+    out = eval_sweep_check("eval sweep", runner, rec, launches, secs, args)
+    rows = sweep.results
+    failed = [r["index"] for r in rows if not r["generation_success"]]
+    unsettled = [r["index"] for r in rows
+                 if r["lean_error_message"] == "Lean verifier unavailable"]
+    info, metrics = report["benchmark_info"], report["overall_metrics"]
+    print(f"  total_samples {info['total_samples']}, device {info['device']}, "
+          f"average_generation_time {metrics['average_generation_time']:.4f} s, "
+          f"verifier calls {sweep.verifier.calls}, pipelined "
+          f"{sweep.pipeline_verification}, failed rows {failed}", flush=True)
+    if info["total_samples"] != EVAL_ENTRIES or len(rows) != EVAL_ENTRIES:
+        raise AssertionError(f"eval sweep: {info['total_samples']} samples")
+    if info["device"] != device_label(runner.device):
+        raise AssertionError(f"eval sweep: device {info['device']}")
+    if failed:
+        raise AssertionError(f"eval sweep: generation failed in rows {failed}")
+    if sweep.verifier.calls != EVAL_ENTRIES or not sweep.pipeline_verification \
+            or unsettled:
+        raise AssertionError(f"eval sweep: {sweep.verifier.calls} verifier calls, "
+                             f"rows {unsettled} not settled by the async pool")
+    out["average_generation_time"] = metrics["average_generation_time"]
+    return out
+
+
+def minif2f_phase(runner):
+    """``cli/minif2f.py`` at the CLI defaults (gen 512, greedy, avoid_eos,
+    EOS truncation) over EVAL_ENTRIES miniF2F-schema problems in one batch,
+    the fake Lean verifier pipelined; a warm-up at one step a block first."""
+    from ct_diffusionmodelbench_tpu_torch.cli import minif2f
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+
+    with tempfile.TemporaryDirectory() as tmp:
+        minif2f_problems(f"{tmp}/minif2f.json")
+        flags = ["--preset", "llada-moe-7b", "--json-path", f"{tmp}/minif2f.json",
+                 "--fake-lean", "--batch-size", str(EVAL_ENTRIES)]
+        args = minif2f.build_parser().parse_args(flags + ["--output-dir", f"{tmp}/out"])
+        minif2f.run(minif2f.build_parser().parse_args(
+            flags + ["--steps", str(args.gen_length // args.block_length),
+                     "--output-dir", f"{tmp}/warm"]), runner)
+        rec = GenerateRecorder(runner)
+        try:
+            torch.cuda.synchronize()
+            reset_launch_counts()
+            t0 = time.perf_counter()
+            data = minif2f.run(args, runner)
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+        finally:
+            rec.close()
+        launches = {name: k.launches for name, k in KERNELS.items()}
+        files = [f for f in os.listdir(f"{tmp}/out")
+                 if f.startswith("minif2f_lean4_results_test_")]
+    if len(files) != 1:
+        raise AssertionError(f"minif2f: result files {files}")
+    out = eval_sweep_check("minif2f", runner, rec, launches, secs, args)
+    stats, results = data["stats"], data["results"]
+    print(f"  stats {json.dumps(stats)} (the fake verifier on random weights)",
+          flush=True)
+    if stats["total"] != EVAL_ENTRIES or stats["errors"]:
+        raise AssertionError(f"minif2f: {stats}")
+    incomplete = [r["name"] for r in results
+                  if not {"generated_proof", "verified", "verification_time_sec"} <= set(r)
+                  or r.get("verification_message") == "Verification skipped"]
+    if incomplete:
+        raise AssertionError(f"minif2f: rows without a verified result: {incomplete}")
+    out["verified"] = stats["verified"]
+    return out
 
 
 def tree_bytes(tree) -> int:
@@ -1567,10 +1863,15 @@ def main() -> int:
         chat = chat_slice_phase(runner, dev)
         print("chat depth check:", flush=True)
         chat_depth_phase(cfg, params, chat["ids"], dev)
+    eval_runner = chat_runner(cfg, params, dev)
+    print("eval sweep:", flush=True)
+    eval_sweep_phase(eval_runner)
+    print("MiniF2F:", flush=True)
+    minif2f_phase(eval_runner)
     for r in sp_results:
         r["launches"] = chat["launches"][r["name"]]
     results += sp_results
-    del params, runner, chat
+    del params, runner, chat, eval_runner
     gc.collect()
     torch.cuda.empty_cache()
 

@@ -85,6 +85,18 @@ def expert_rank(flat: torch.Tensor, e: int):
     return rank, csum[:, -1]
 
 
+def layout_tile_m(m: int, tile_m: int = TILE_M) -> int:
+    """The row tile the layout takes for ``m`` routed rows: 128 from 65536
+    rows up where the caller left the default, as the reference's."""
+    return 128 if tile_m == TILE_M and m >= 65536 else tile_m
+
+
+def padded_rows(m: int, e: int, tile_m: int) -> int:
+    """m_pad of the layout: every expert's group rounded up to whole tiles
+    fits in round_up(m, tile_m) + e·tile_m rows."""
+    return _round_up(m, tile_m) + e * tile_m
+
+
 def counting_layout(topk_idx: torch.Tensor, e: int, tile_m: int = TILE_M):
     """Expert-aligned padded row layout without a sort.
 
@@ -93,7 +105,7 @@ def counting_layout(topk_idx: torch.Tensor, e: int, tile_m: int = TILE_M):
     m_pad)."""
     flat = topk_idx.reshape(-1).long()
     m = flat.shape[0]
-    m_pad = _round_up(m, tile_m) + e * tile_m
+    m_pad = padded_rows(m, e, tile_m)
     rank, sizes = expert_rank(flat, e)
     padded_sizes = _round_up(sizes, tile_m)
     pend = torch.cumsum(padded_sizes, dim=0, dtype=torch.int32)
@@ -483,8 +495,7 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
     aligned = d % 128 == 0 and fm % 128 == 0
     if quantized and not aligned:
         raise ValueError(f"int8 grouped FFN needs D, F % 128 == 0, got {d}, {fm}")
-    if tile_m == TILE_M and n * k >= 65536:
-        tile_m = 128
+    tile_m = layout_tile_m(n * k, tile_m)
     dest, tile_expert, sizes, m_pad = counting_layout(topk_idx, e, tile_m)
     xs = gather_rows(x, dest, k, m_pad)
     valid = valid_tiles(sizes, tile_expert, tile_m, m_pad)

@@ -191,6 +191,16 @@ def _grouped_inputs(seed, n=48, d=128, e=6, f=128, k=2, layers=None, skew=False)
     return x, np.asarray(probs), idx, wg, wu, wd
 
 
+@pytest.mark.parametrize("m,tile_m,want", [
+    (20480, 64, 64), (65535, 64, 64), (65536, 64, 128), (69632, 64, 128),
+    (69632, 32, 32), (1024, 128, 128)])
+def test_layout_tile_m_follows_reference_rule(m, tile_m, want):
+    """``grouped_expert_ffn_pallas``'s row tile: 128 from M 65536 up where
+    the caller left the default 64, else the caller's."""
+    assert tgg.TILE_M == jgg.TILE_M == 64
+    assert tgg.layout_tile_m(m, tile_m) == want
+
+
 @pytest.mark.parametrize("e,tile_m", [(6, 8), (64, 64), (5, 16)])
 @pytest.mark.parametrize("skew", [False, True])
 def test_counting_layout_matches_jax(e, tile_m, skew):
