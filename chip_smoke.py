@@ -75,7 +75,20 @@ Phases, in order:
    the same launch counts and the same kernel checks on its batch (S 1088:
    M 69632 ≥ 65536, so K1 and K2 run at tile_m 128); prints the pass count
    under the fake verifier.
-10. int8 kernels: ``ModelRunner.random_init("llada-moe-7b", quant="int8")``
+10. block cache: phase 3's decode (its weights and prompt) through
+   ``ModelRunner(..., accel="block-cache")``, (a) alone and (b) with
+   ``parallel_threshold`` 0.9, each after a warm-up: wall s, tokens/s
+   beside phase 3's, peak memory, forwards per block, the threshold loop's
+   host reads (count, seconds blocked), no mask id left, the share of
+   tokens equal to phase 3's (printed only: the cache approximates a deep
+   model), and exact launch counts: K8 once per layer and refresh (144),
+   K1 and K2 once per layer and forward (2304 in (a)), nothing else.  Then,
+   on the batch (a) decoded with left padding: layer 1's K8 without RoPE on
+   the refresh's rotated q/k, layer 1's K1/K2 at a cached step's routing (M
+   2048; tile_m and m_pad printed, timed beside their bound), and a 2-layer
+   refresh plus cached step through the kernels against the same on the
+   plain versions, the plain run pinned to the kernel run's expert choice.
+11. int8 kernels: ``ModelRunner.random_init("llada-moe-7b", quant="int8")``
    (each weight quantized as it is built); the int8 gate/up and down
    kernels on the layer-1 routing of a full-size int8 forward, with the
    stacked [18, 64, ...] int8 experts, against their plain versions, with
@@ -84,32 +97,36 @@ Phases, in order:
    the plain versions and, in turns (medians of 5), with and without
    ``tile_valid`` beside ``torch._grouped_mm`` on weights dequantized to
    bf16 beforehand, with their achieved TFLOP/s and share of the bound.
-11. int8 slice: ``ModelRunner.generate_ids`` at the bf16 slice's shape and
+12. int8 slice: ``ModelRunner.generate_ids`` at the bf16 slice's shape and
    prompt; launch counts read around that run (the int8 pair and flash, not
    the bf16 pair); no mask id may remain; a repeated forward must give
    identical logits.
-12. int8 quantization check: at 2 layers of the full width, the int8 forward
+13. int8 quantization check: at 2 layers of the full width, the int8 forward
    against the bf16 forward on the dequantized weights (the same function),
    and against itself on the int8 kernels' plain versions.
-13. Dream slice: full-width, full-depth ``dream-7b`` (seeded random weights,
+14. int8 block cache: one ``generate_ids`` of phase 12's prompt on the int8
+   weights through ``accel="block-cache"``: K6/K7 2304 launches each, K8
+   144, nothing else, no mask id left; K6/K7 at a cached step's routing (M
+   2048) against their plain versions.
+15. Dream slice: full-width, full-depth ``dream-7b`` (seeded random weights,
    ``ModelRunner.random_init``) generating at B = 1, gen 128, steps 128,
    greedy, ``alg="entropy"`` under ``CTDB_FLASH_DIRECT=1``: K9 launches,
    no mask id left, a repeated forward identical, tokens/s, peak memory.
-14. training kernels: the flash forward with lse and the two backward kernels
+16. training kernels: the flash forward with lse and the two backward kernels
    at the training shape (B 1, S 2048, H = KV = 32, Dh 128, RoPE) against
    their plain versions, timed beside them and beside SDPA's forward and
    backward (dq, dk/dv and SDPA's backward in turns, each kernel with its
    share of the bound), and the forward beside itself without RoPE; also a
    GQA case (H 16, KV 4) and a padded-mask case.
-15. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
+17. training slice: 8-layer, full-width ``llada-8b`` (random weights) trained
    5 optimizer steps by ``Trainer`` (seq 2048, micro-batch 1, grad-accum 4,
    remat, CE chunk 512, AdamW) on seeded token rows; s/step over steps 2-5,
    tokens/s, train MFU, peak memory, save seconds; launch counts per step.
-16. training gradients: a 2-layer full-width loss and every parameter's
+18. training gradients: a 2-layer full-width loss and every parameter's
    gradient with the kernels against the same on their plain versions.
 
-The bf16 MoE weights are freed before phase 10, the int8 ones before
-phase 13, Dream's before phase 14.  Prints the first designs' times of the
+The bf16 MoE weights are freed before phase 11, the int8 ones before
+phase 15, Dream's before phase 16.  Prints the first designs' times of the
 redesigned flash and grouped kernels (constants from PERF.md, on a line of
 their own),
 the ``{"kernels": [...]}`` line and, last, the
@@ -181,6 +198,9 @@ CHAT_BASE_TOKENS = 8
 SINGLE_PROMPT_KERNELS = ("grouped_ffn_fused", "flash_attention_direct")
 
 SERVING_KERNELS = ("grouped_gateup", "grouped_down", "flash_attention_fwd")
+# The block-cache cell: the decode cell through accel="block-cache", alone and
+# with the reference's threshold (bench.py --full's two accel rows).
+BLOCK_CACHE_THRESHOLD = 0.9
 
 # Eval sweeps: the bench and minif2f CLIs' defaults (bench: gen 256, steps
 # 128, block 32; minif2f: gen 512, steps 128, block 32, avoid_eos and EOS
@@ -361,17 +381,22 @@ def skip_pad_check(name, got, want, real):
     return err
 
 
-def grouped_pair_check(label, cfg, blocks, x, topk_idx, li):
-    """K1 and K2 on the routing ``topk_idx`` of ``x`` (layer ``li``'s
-    stacked experts), at the row tile the main path's layout takes for it
-    (``layout_tile_m``: 128 from M 65536 up), against their plain versions,
-    with the pad-skip vector the main path hands them (real rows against
-    the plain versions, the rest zero) and without it.  Returns the layout,
-    the kernels' inputs and their errors."""
+def grouped_pair_check(label, cfg, blocks, x, topk_idx, li, int8=False):
+    """K1 and K2 (K6 and K7 with ``int8``) on the routing ``topk_idx`` of
+    ``x`` (layer ``li``'s stacked experts), at the row tile the main path's
+    layout takes for it (``layout_tile_m``: 128 from M 65536 up), against
+    their plain versions, with the pad-skip vector the main path hands them
+    (real rows against the plain versions, the rest zero) and without it.
+    Returns the layout, the kernels' inputs and their errors."""
     from types import SimpleNamespace
 
     from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
 
+    q = "_q" if int8 else ""
+    gateup, gateup_plain, down, down_plain = (
+        getattr(gg, f"grouped_{name}{q}{plain}")
+        for name, plain in (("gateup", ""), ("gateup", "_plain"), ("down", ""),
+                            ("down", "_plain")))
     E, K = cfg.num_experts, cfg.num_experts_per_tok
     wg, wu, wd = blocks["we_gate"], blocks["we_up"], blocks["we_down"]
     n, m = x.shape[0], topk_idx.numel()
@@ -388,20 +413,19 @@ def grouped_pair_check(label, cfg, blocks, x, topk_idx, li):
     real = valid.repeat_interleave(tile_m) != 0
     print(f"  pad-skip: {int((valid == 0).sum())} of {valid.numel()} tiles hold no "
           f"real row", flush=True)
-    h_k = gg.grouped_gateup(xs, wg, wu, tile_expert, tile_m, li)
-    h_p = gg.grouped_gateup_plain(xs, wg, wu, tile_expert, tile_m, li)
+    h_k = gateup(xs, wg, wu, tile_expert, tile_m, li)
+    h_p = gateup_plain(xs, wg, wu, tile_expert, tile_m, li)
     torch.cuda.synchronize()
-    err_gateup = max(compare("grouped_gateup", h_k, h_p, **GROUPED_TOL), skip_pad_check(
-        "grouped_gateup", gg.grouped_gateup(xs, wg, wu, tile_expert, tile_m, li, valid),
-        h_p, real))
+    err_gateup = max(compare(f"grouped_gateup{q}", h_k, h_p, **GROUPED_TOL), skip_pad_check(
+        f"grouped_gateup{q}", gateup(xs, wg, wu, tile_expert, tile_m, li, valid), h_p,
+        real))
     del h_k
     # down, on the plain gate/up output for both
-    o_k = gg.grouped_down(h_p, wd, tile_expert, tile_m, li)
-    o_p = gg.grouped_down_plain(h_p, wd, tile_expert, tile_m, li)
+    o_k = down(h_p, wd, tile_expert, tile_m, li)
+    o_p = down_plain(h_p, wd, tile_expert, tile_m, li)
     torch.cuda.synchronize()
-    err_down = max(compare("grouped_down", o_k, o_p, **GROUPED_TOL), skip_pad_check(
-        "grouped_down", gg.grouped_down(h_p, wd, tile_expert, tile_m, li, valid), o_p,
-        real))
+    err_down = max(compare(f"grouped_down{q}", o_k, o_p, **GROUPED_TOL), skip_pad_check(
+        f"grouped_down{q}", down(h_p, wd, tile_expert, tile_m, li, valid), o_p, real))
     return SimpleNamespace(tile_m=tile_m, m=m, m_pad=m_pad, used=used, sizes=sizes,
                            tile_expert=tile_expert, valid=valid, xs=xs, h_p=h_p,
                            err_gateup=err_gateup, err_down=err_down)
@@ -615,15 +639,21 @@ def slice_phase(cfg, params, dev):
 
 
 def pinned_compare(label, cfg2, ids, dev, params_a, params_b, seams_b, mask=None,
-                   logit_start=PROMPT):
+                   logit_start=PROMPT, forward=None):
     """Logits of a forward of ``params_a`` (``cfg2``, through the kernels)
     against a forward of ``params_b`` with ``seams_b`` ((module, name, fn)
     swapped in for that run), the second run given the first one's expert
-    choice in every layer; both on ``ids`` with the attention ``mask``,
-    logits of the BLOCK positions from ``logit_start``.  Fails past
+    choice in every layer, in the order the runs route; both on ``ids``
+    with the attention ``mask``, logits of the BLOCK positions from
+    ``logit_start``, or ``forward(params)``'s logits.  Fails past
     ``LOGITS_RTOL_OF_MAX``."""
     from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn
     from ct_diffusionmodelbench_tpu_torch.models import moe
+
+    if forward is None:
+        def forward(params):
+            kw = dict(logit_start=logit_start, logit_length=BLOCK)
+            return make_forward_fn(cfg2, dev)(params, ids, mask, **kw)[0]
 
     router_probs = moe.router_probs
     chosen, flipped = [], []  # per layer: run a's top-k; tokens whose own
@@ -646,13 +676,12 @@ def pinned_compare(label, cfg2, ids, dev, params_a, params_b, seams_b, mask=None
 
     seams = [(moe, "router_probs", pinned_router)] + list(seams_b)
     saved = [getattr(mod, name) for mod, name, _ in seams]
-    kw = dict(logit_start=logit_start, logit_length=BLOCK)
     try:
         moe.router_probs = recording_router
-        la, _ = make_forward_fn(cfg2, dev)(params_a, ids, mask, **kw)
+        la = forward(params_a)
         for mod, name, fn in seams:
             setattr(mod, name, fn)
-        lb, _ = make_forward_fn(cfg2, dev)(params_b, ids, mask, **kw)
+        lb = forward(params_b)
     finally:
         for (mod, name, _), fn in zip(seams, saved):
             setattr(mod, name, fn)
@@ -742,8 +771,9 @@ def chat_step_inputs(runner, args):
 
 
 def capture_layer(fwd, params, ids, mask, li, **kw):
-    """Layer ``li``'s MoE input and expert choice and its attention inputs
-    in one forward."""
+    """Layer ``li``'s MoE input and expert choice and its flash attention
+    inputs (None where the forward calls no flash attention) in one
+    forward."""
     from ct_diffusionmodelbench_tpu_torch.models import moe
     from ct_diffusionmodelbench_tpu_torch.ops import attention
 
@@ -764,7 +794,7 @@ def capture_layer(fwd, params, ids, mask, li, **kw):
         fwd(params, ids, mask, **kw)
     finally:
         moe.router_probs, attention.flash_attention = router_probs, flash
-    return routed[li], attended[li]
+    return routed[li], attended[li] if attended else None
 
 
 def direct_case(name, q, k, v, mask, rope, dev, stream):
@@ -1321,6 +1351,280 @@ def minif2f_phase(runner):
     return out
 
 
+class FlagReads:
+    """Wraps ``sampling/llada.py::block_has_mask``, the threshold loop's
+    one host read a forward: each read's block (its view's address), result
+    and host seconds (the wait for the card to finish the forward, then the
+    copy)."""
+
+    def __init__(self):
+        from ct_diffusionmodelbench_tpu_torch.sampling import llada
+
+        self.module, self.inner = llada, llada.block_has_mask
+        self.reads = []
+        llada.block_has_mask = self
+
+    def __call__(self, x_blk, mask_id):
+        t0 = time.perf_counter()
+        has = self.inner(x_blk, mask_id)
+        self.reads.append((x_blk.data_ptr(), has, time.perf_counter() - t0))
+        return has
+
+    def close(self):
+        self.module.block_has_mask = self.inner
+
+    def iterations(self):
+        """Forwards per block, in block order."""
+        per = {}
+        for ptr, has, _ in self.reads:
+            per[ptr] = per.get(ptr, 0) + int(has)
+        return list(per.values())
+
+
+def block_cache_row(label, runner, prompt, exact, **extra):
+    """One full-size ``generate_ids`` through the block cache (after a
+    warm-up of the same call): wall s, tokens/s beside the exact decode's,
+    peak memory, launches, forwards per block, the threshold loop's host
+    reads, no mask id left, and the share of tokens equal to the exact
+    greedy run's (printed, not checked: the cache approximates a deep
+    model)."""
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+
+    cfg = runner.cfg
+    kw = dict(steps=STEPS, gen_length=GEN, block_length=BLOCK, **extra)
+    runner.generate_ids(prompt, **kw)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reads = FlagReads()
+    try:
+        reset_launch_counts()
+        t0 = time.perf_counter()
+        out = runner.generate_ids(prompt, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        reads.close()
+    launches = {name: k.launches for name, k in KERNELS.items()}
+    peak = torch.cuda.max_memory_allocated()
+    iters = reads.iterations() if reads.reads else [STEPS // (GEN // BLOCK)] * (GEN // BLOCK)
+    forwards = sum(iters)
+    read_s = sum(t for _, _, t in reads.reads)
+    same = float((torch.from_numpy(out[:, PROMPT:]) == exact["out"][:, PROMPT:].cpu())
+                 .float().mean())
+    print(f"  {label}: {secs:.4f} s, {BATCH * GEN / secs:.2f} tok/s (exact decode "
+          f"{exact['tokens_per_s']:.2f} tok/s in phase 3), peak memory "
+          f"{peak / 2**30:.3f} GiB; {forwards} forwards ({len(iters)} refreshes), "
+          f"forwards per block {iters}", flush=True)
+    if reads.reads:
+        print(f"  {label}: {len(reads.reads)} host reads of the loop's flag, "
+              f"{read_s:.4f} s blocked in them ({read_s / len(reads.reads) * 1e6:.1f} us a "
+              f"read, {read_s / secs:.4f} of the wall)", flush=True)
+    print(f"  launches: {json.dumps(launches)}", flush=True)
+    left = int((out[:, PROMPT:] == runner.mask_id).sum())
+    print(f"  mask ids left: {left}; tokens equal to the exact greedy run's: {same:.4f} "
+          f"(not checked)", flush=True)
+    return dict(seconds=secs, tokens_per_s=BATCH * GEN / secs, peak_gib=peak / 2**30,
+                launches=launches, forwards=forwards, iterations=iters,
+                flag_reads=len(reads.reads), flag_read_s=read_s, same_share=same,
+                mask_left=left, out=out)
+
+
+def check_block_cache_launches(label, row, kernels, num_layers):
+    """K8 once per layer and refresh, the FFN pair once per layer and
+    forward, no other kernel."""
+    attn, gateup, down = kernels
+    per_forward = row["forwards"] * num_layers
+    want = {attn: len(row["iterations"]) * num_layers, gateup: per_forward,
+            down: per_forward}
+    bad = {n: c for n, c in row["launches"].items() if c != want.get(n, 0)}
+    if bad:
+        raise AssertionError(f"{label}: expected launches {want} and none of the others, "
+                             f"got {bad}")
+    if row["mask_left"]:
+        raise AssertionError(f"{label}: {row['mask_left']} mask ids remain after decoding")
+
+
+def left_padded_mask(dev):
+    mask = torch.ones((BATCH, SEQ), dtype=torch.int32, device=dev)
+    for b in range(BATCH):
+        mask[b, :4 * b] = 0  # left padding of 0, 4, ..., 28 tokens
+    return mask
+
+
+def cached_step_routing(cfg, params, ids, mask, dev):
+    """Layer 1's MoE input and expert choice in a 2-layer cached step on the
+    first generated block of ``ids`` (M = B · BLOCK · top-k), against the
+    cache of a 2-layer refresh."""
+    from ct_diffusionmodelbench_tpu_torch.models import make_cached_fns
+
+    refresh_fn, step_fn, _ = make_cached_fns(cfg.replace(num_layers=2))
+    with torch.inference_mode():
+        _, kc, vc = refresh_fn(params, ids, mask, PROMPT, BLOCK)
+        (x, topk_idx), attended = capture_layer(
+            lambda p, i, m: step_fn(p, i[:, PROMPT:PROMPT + BLOCK], PROMPT, kc, vc, m),
+            params, ids, mask, 1)
+    if attended is not None:
+        raise AssertionError("the cached step called the flash kernel")
+    return x, topk_idx
+
+
+def cached_pair_timing(label, cfg, blocks, pair, dev, int8=False):
+    """The pair's kernels at the cached step's layout with ``tile_valid``,
+    as the path launches them: device ms beside the bound of the routed
+    rows."""
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+
+    D, E, Fm = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+    tile_m, m, m_pad, used, li = pair.tile_m, pair.m, pair.m_pad, pair.used, 1
+    wg, wu, wd = blocks["we_gate"], blocks["we_up"], blocks["we_down"]
+    xs, h_p, te, valid = pair.xs, pair.h_p, pair.tile_expert.data_ptr(), pair.valid.data_ptr()
+    h_out, o_out = torch.empty_like(h_p), torch.empty_like(xs)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if int8:
+        g_ms = time_ms(lambda: gg.GATEUP_Q_KERNEL(
+            xs.data_ptr(), wg["q"].data_ptr(), wu["q"].data_ptr(), wg["s"].data_ptr(),
+            wu["s"].data_ptr(), h_out.data_ptr(), te, m_pad, D, Fm, E, li, tile_m, valid,
+            stream), 20)
+        d_ms = time_ms(lambda: gg.DOWN_Q_KERNEL(
+            h_p.data_ptr(), wd["q"].data_ptr(), wd["s"].data_ptr(), o_out.data_ptr(), te,
+            m_pad, Fm, D, E, li, tile_m, valid, stream), 20)
+    else:
+        L = wg.shape[0]
+        g_ms = time_ms(lambda: gg.GATEUP_KERNEL(
+            xs.data_ptr(), wg.data_ptr(), wu.data_ptr(), h_out.data_ptr(), te, m_pad, D,
+            Fm, E, L, li, tile_m, valid, stream), 20)
+        d_ms = time_ms(lambda: gg.DOWN_KERNEL(
+            h_p.data_ptr(), wd.data_ptr(), o_out.data_ptr(), te, m_pad, Fm, D, E, L, li,
+            tile_m, valid, stream), 20)
+    bf16 = xs.element_size()
+    # each used expert's weights once: int8 with f32 per-output-channel scales
+    g_w = 2 * (D * Fm + 4 * Fm) if int8 else 2 * D * Fm * bf16
+    d_w = Fm * D + 4 * D if int8 else Fm * D * bf16
+    g_bound = bound_ms(4.0 * m * D * Fm, m * (D + Fm) * bf16 + nbytes(pair.tile_expert)
+                       + used * g_w)
+    d_bound = bound_ms(2.0 * m * Fm * D, m * (Fm + D) * bf16 + nbytes(pair.tile_expert)
+                       + used * d_w)
+    q = "_q" if int8 else ""
+    print(f"  {label} (M {m}, tile_m {tile_m}, m_pad {m_pad}, experts used {used}/{E}; "
+          f"with tile_valid): grouped_gateup{q} {g_ms:.4f} ms, bound {g_bound[0]:.4f} ms "
+          f"({g_bound[1]}); grouped_down{q} {d_ms:.4f} ms, bound {d_bound[0]:.4f} ms "
+          f"({d_bound[1]})", flush=True)
+    common = dict(m=m, tile_m=tile_m, m_pad=m_pad, experts_used=used)
+    return (dict(common, ms=g_ms, bound_ms=g_bound[0], bound_by=g_bound[1],
+                 max_abs_err=pair.err_gateup),
+            dict(common, ms=d_ms, bound_ms=d_bound[0], bound_by=d_bound[1],
+                 max_abs_err=pair.err_down))
+
+
+def block_cache_phase(cfg, params, dev, exact):
+    """The decode cell through ``ModelRunner(..., accel="block-cache")``:
+    (a) the cache alone, (b) with ``parallel_threshold`` 0.9 (the reference
+    ``bench.py --full``'s two accel rows); then the path's kernels at its new
+    shapes against their plain versions: K8 without RoPE on the refresh's
+    rotated q/k, K1/K2 at a cached step's routing, and a 2-layer refresh plus
+    cached step through the kernels against the same on the plain
+    versions."""
+    from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
+    from ct_diffusionmodelbench_tpu_torch.io.tokenizer import Tokenizer
+    from ct_diffusionmodelbench_tpu_torch.models import make_cached_fns
+    from ct_diffusionmodelbench_tpu_torch.ops import attention
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+
+    tok = Tokenizer.byte_fallback(vocab_size=cfg.vocab_size,
+                                  eos_token_id=cfg.eos_token_id or 2)
+    runner = ModelRunner(cfg, params, tok, accel="block-cache", device=dev)
+    prompt = exact["prompt"].cpu().numpy()
+    kernels = ("flash_attention_fwd", "grouped_gateup", "grouped_down")
+    rows = {}
+    for row, label, extra in (("a", "(a) block cache", {}),
+                              ("b", f"(b) block cache, parallel_threshold "
+                                    f"{BLOCK_CACHE_THRESHOLD}",
+                               dict(parallel_threshold=BLOCK_CACHE_THRESHOLD))):
+        rows[row] = block_cache_row(label, runner, prompt, exact, **extra)
+        check_block_cache_launches(label, rows[row], kernels, cfg.num_layers)
+    if rows["a"]["flag_reads"]:
+        raise AssertionError("the fixed schedule read a flag on the host")
+
+    # the kernels at the path's shapes, on the batch (a) decoded, left-padded
+    ids = torch.from_numpy(rows["a"]["out"]).to(dev)
+    mask = left_padded_mask(dev)
+    cfg2 = cfg.replace(num_layers=2)
+    refresh2, step2, _ = make_cached_fns(cfg2)
+    with torch.inference_mode():
+        _, (q, k, v, amask, rope) = capture_layer(
+            lambda p, i, m: refresh2(p, i, m, PROMPT, BLOCK), params, ids, mask, 1)
+    if rope is not None:
+        raise AssertionError("the refresh handed K8 a rotation")
+    a_k = fa.flash_attention(q, k, v, mask=amask)
+    a_p = fa.flash_attention_plain(q, k, v, mask=amask)
+    torch.cuda.synchronize()
+    err_k8 = compare(f"flash_attention_fwd, no RoPE (refresh layer 1, B {BATCH}, S {SEQ}, "
+                     "left padding)", a_k, a_p, **FLASH_TOL)
+    bias = fa.mask_bias(amask, BATCH, SEQ, dev)
+    a_out = torch.empty_like(a_k)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    k8_ms = time_ms(lambda: fa.FLASH_KERNEL(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(), None, None,
+        a_out.data_ptr(), None, BATCH, SEQ, fa.kv_tile_len(SEQ), H, KV, Dh, Dh ** -0.5,
+        stream), 50)
+    k8_bound = bound_ms(4.0 * BATCH * H * SEQ * SEQ * Dh, nbytes(q, k, v, a_k, bias))
+    print(f"  flash_attention_fwd without RoPE (refresh): {k8_ms:.4f} ms, bound "
+          f"{k8_bound[0]:.4f} ms ({k8_bound[1]})", flush=True)
+    del q, k, v, a_k, a_p, a_out
+
+    x, topk_idx = cached_step_routing(cfg, params, ids, mask, dev)
+    m = topk_idx.numel()
+    tile_m = gg.layout_tile_m(m)
+    print(f"  cached step: M {m}, layout_tile_m {tile_m}, padded_rows "
+          f"{gg.padded_rows(m, cfg.num_experts, tile_m)}", flush=True)
+    pair = grouped_pair_check("cached step", cfg, params["blocks"], x, topk_idx, 1)
+    g_cached, d_cached = cached_pair_timing("cached step pair", cfg, params["blocks"],
+                                            pair, dev)
+    del pair, x
+
+    def refresh_and_step(p):
+        with torch.inference_mode():
+            lr, kc, vc = refresh2(p, ids, mask, PROMPT, BLOCK)
+            ls = step2(p, ids[:, PROMPT:PROMPT + BLOCK], PROMPT, kc, vc, mask)
+        return torch.cat([lr, ls], dim=1)
+
+    seams = [(attention, "flash_attention", fa.flash_attention_plain),
+             (gg, "grouped_gateup", gg.grouped_gateup_plain),
+             (gg, "grouped_down", gg.grouped_down_plain)]
+    err_logits = pinned_compare("2-layer refresh + cached step logits, kernels vs plain",
+                                cfg2, ids, dev, params, params, seams,
+                                forward=refresh_and_step)
+    for r in rows.values():
+        del r["out"]
+    return dict(rows=rows, refresh_no_rope=dict(
+        max_abs_err=err_k8, ms=k8_ms, bound_ms=k8_bound[0], bound_by=k8_bound[1]),
+        cached_gateup=g_cached, cached_down=d_cached, logits_err=err_logits)
+
+
+def int8_block_cache_phase(runner, dev, exact_int8):
+    """One full-size int8 ``generate_ids`` through the block cache (a runner
+    with ``accel="block-cache"`` on the int8 weights), and K6/K7 at a cached
+    step's routing against their plain versions."""
+    from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
+
+    cfg = runner.cfg
+    bc = ModelRunner(cfg, runner.params, runner.tokenizer, accel="block-cache",
+                     quant="int8", device=dev)
+    prompt = exact_int8["out"][:, :PROMPT].cpu().numpy()
+    row = block_cache_row("int8 block cache", bc, prompt, exact_int8)
+    check_block_cache_launches("int8 block cache", row, (
+        "flash_attention_fwd", "grouped_gateup_q", "grouped_down_q"), cfg.num_layers)
+    ids = torch.from_numpy(row.pop("out")).to(dev)
+    x, topk_idx = cached_step_routing(cfg, runner.params, ids, left_padded_mask(dev), dev)
+    pair = grouped_pair_check("int8 cached step", cfg, runner.params["blocks"], x, topk_idx,
+                              1, int8=True)
+    g_cached, d_cached = cached_pair_timing("int8 cached step pair", cfg,
+                                            runner.params["blocks"], pair, dev, int8=True)
+    return dict(row=row, cached_gateup=g_cached, cached_down=d_cached)
+
+
 def tree_bytes(tree) -> int:
     return sum(tree_bytes(v) if isinstance(v, dict) else v.numel() * v.element_size()
                for v in tree.values())
@@ -1855,6 +2159,7 @@ def main() -> int:
     depth_phase(cfg, params, sl["out"], dev)
     for r in results:
         r["launches"] = sl["launches"][r["name"]]
+    exact = dict(prompt=sl["prompt"], out=sl["out"], tokens_per_s=sl["tokens_per_s"])
     del sl
     with switches_on("CTDB_GROUPED_FUSED", "CTDB_FLASH_DIRECT"):
         print("single-prompt kernels:", flush=True)
@@ -1868,10 +2173,19 @@ def main() -> int:
     eval_sweep_phase(eval_runner)
     print("MiniF2F:", flush=True)
     minif2f_phase(eval_runner)
+    print("block cache:", flush=True)
+    bc = block_cache_phase(cfg, params, dev, exact)
+    for r in results:
+        r["block_cache_launches"] = bc["rows"]["a"]["launches"][r["name"]]
+        r["threshold_launches"] = bc["rows"]["b"]["launches"][r["name"]]
+        if r["name"] == "flash_attention_fwd":
+            r["refresh_no_rope"] = bc["refresh_no_rope"]
+        else:
+            r["cached_step"] = bc["cached_" + r["name"].split("_")[1]]
     for r in sp_results:
         r["launches"] = chat["launches"][r["name"]]
     results += sp_results
-    del params, runner, chat, eval_runner
+    del params, runner, chat, eval_runner, exact
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -1888,8 +2202,12 @@ def main() -> int:
     isl = int8_slice_phase(runner, dev)
     print("int8 quantization check:", flush=True)
     quant_phase(runner.cfg, runner.params, isl["out"], dev)
+    print("int8 block cache:", flush=True)
+    ibc = int8_block_cache_phase(runner, dev, isl)
     for r in q_results:
         r["launches"] = isl["launches"][r["name"]]
+        r["block_cache_launches"] = ibc["row"]["launches"][r["name"]]
+        r["cached_step"] = ibc["cached_" + r["name"].split("_")[1]]
     results += q_results
     del runner, isl
     gc.collect()
@@ -1919,7 +2237,8 @@ def main() -> int:
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",
-            "k8_ms", "dream_geometry", "dream_launches", "no_skip_ms", "valid_tiles")
+            "k8_ms", "dream_geometry", "dream_launches", "no_skip_ms", "valid_tiles",
+            "block_cache_launches", "threshold_launches", "refresh_no_rope", "cached_step")
     print("first designs' ms (constants from PERF.md, not measured in this run): "
           + json.dumps(FIRST_DESIGN_MS), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -3,10 +3,10 @@
 Counterpart of ``cli/common.py``: every serving CLI exposes the same
 ``--dp/--tp``, ``--accel``, ``--quant`` and ``--parallel-threshold`` flags
 and the same ``--model-dir``/``--preset`` loading rules.  Meshes (``--dp``
-or ``--tp`` above 1) are not ported yet and raise; ``--accel`` and
-``--parallel-threshold`` reach the runner, which refuses what it does not
-serve.  ``--device`` is how a caller asks for the CPU, where the reference
-reads ``JAX_PLATFORMS``: the default is the card.
+or ``--tp`` above 1) are not ported yet and raise; ``--accel block-cache``
+and ``--parallel-threshold`` reach the runner, which refuses them for the
+Dream/DiffuCoder families.  ``--device`` is how a caller asks for the CPU,
+where the reference reads ``JAX_PLATFORMS``: the default is the card.
 """
 
 from __future__ import annotations
@@ -30,8 +30,9 @@ def add_parallel_flags(p) -> None:
     p.add_argument("--accel", type=str, default=None,
                    choices=["block-cache"],
                    help="Opt-in approximate acceleration: 'block-cache' = "
-                        "Fast-dLLM-style dual KV cache (not ported yet: the "
-                        "runner refuses it). Default: the exact sampler")
+                        "Fast-dLLM-style dual KV cache (per-step compute "
+                        "drops from full-sequence to the active block; "
+                        "LLaDA families). Default: the exact sampler")
     p.add_argument("--quant", type=str, default=None,
                    choices=["int8"],
                    help="Opt-in weight-only int8 quantization (per-output-"
@@ -40,8 +41,11 @@ def add_parallel_flags(p) -> None:
                         "Approximate (weight rounding)")
     p.add_argument("--parallel-threshold", type=float, default=None,
                    help="Opt-in Fast-dLLM confidence-threshold parallel "
-                        "decoding (not ported yet: the runner refuses it). "
-                        "Default: the reference's fixed transfer schedule")
+                        "decoding: unmask every position whose confidence "
+                        "exceeds this (e.g. 0.9) each step instead of the "
+                        "fixed schedule (LLaDA families; composes with "
+                        "--accel block-cache). Default: the reference's fixed "
+                        "transfer schedule")
     add_device_flag(p)
 
 

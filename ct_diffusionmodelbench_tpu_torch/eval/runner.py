@@ -15,11 +15,12 @@ in-memory (cfg, params, tokenizer).
 the int8 expert stacks run through the int8 grouped kernels.  Approximate
 (weight rounding), so opt-in.
 
-Not ported yet, and refused with ``NotImplementedError``:
-``accel="block-cache"`` and ``parallel_threshold`` decoding of the LLaDA
-families (ROADMAP Queue 1 #4), and meshes (Queue 1 #7).  Dream/DiffuCoder
-refuse ``parallel_threshold`` as the reference does: they have no such
-decode.
+``accel="block-cache"``: the dual KV-cache decode of the LLaDA families
+(``models/block_cache.py``), approximate for deep models, so opt-in.
+``parallel_threshold`` (per call, or the runner's default): confidence-
+threshold parallel unmasking of the LLaDA families; Dream/DiffuCoder refuse
+it as the reference does, having no such decode.  Meshes are not ported yet
+and raise ``NotImplementedError`` (ROADMAP Queue 1 #7).
 """
 
 from __future__ import annotations
@@ -36,6 +37,7 @@ from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
 from ct_diffusionmodelbench_tpu_torch.io.checkpoint import (
     is_quantized_checkpoint, load_checkpoint, load_quantized_checkpoint)
 from ct_diffusionmodelbench_tpu_torch.io.tokenizer import Tokenizer, resolve_mask_id
+from ct_diffusionmodelbench_tpu_torch.models.block_cache import make_cached_fns
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig, get_config
 from ct_diffusionmodelbench_tpu_torch.models.transformer import (
     init_params, make_forward_fn)
@@ -85,10 +87,18 @@ class ModelRunner:
         if mesh is not None:
             raise NotImplementedError(
                 "meshes (TP/DP serving) are not ported yet (ROADMAP Queue 1 #7)")
+        # accel="block-cache": the dual KV-cache decode, LLaDA families only.
+        self.cached_fns = None
         if accel is not None:
-            raise NotImplementedError(
-                f"accel={accel!r} (block-cache decoding) is not ported yet "
-                "(ROADMAP Queue 1 #4)")
+            if accel != "block-cache":
+                raise ValueError(f"unknown accel mode {accel!r} "
+                                 "(supported: 'block-cache')")
+            if self.family not in LLADA_FAMILIES:
+                raise NotImplementedError(
+                    "accel='block-cache' supports the LLaDA block sampler "
+                    "families only (Dream/DiffuCoder use shifted logits)")
+            self.cached_fns = make_cached_fns(cfg)
+        self.accel = accel
         if quant is not None and quant != "int8":
             raise ValueError(f"unknown quant mode {quant!r} (supported: 'int8')")
         self.quant = quant
@@ -183,17 +193,15 @@ class ModelRunner:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         if self.family in LLADA_FAMILIES:
-            if threshold is not None:
-                raise NotImplementedError(
-                    "parallel_threshold decoding is not ported yet (ROADMAP "
-                    "Queue 1 #4)")
             out = llada_generate(
                 self.forward_fn, self.params, prompt, steps=steps,
                 gen_length=gen_length, block_length=block_length,
                 temperature=temperature, cfg_scale=cfg_scale,
                 remasking=remasking, mask_id=self.mask_id, avoid_eos=avoid_eos,
-                eos_token_id=self.eos_token_id, attn_mask=attn_mask,
-                generator=gen, device=self.device)
+                eos_token_id=self.eos_token_id,
+                block_cache=self.cached_fns is not None,
+                cached_fns=self.cached_fns, parallel_threshold=threshold,
+                attn_mask=attn_mask, generator=gen, device=self.device)
         else:
             if threshold is not None:
                 # As the reference: running Dream's fixed schedule while the

@@ -147,6 +147,24 @@ def _unbind(leaf):
     return torch.unbind(leaf)
 
 
+def split_layers(cfg: ModelConfig, params: dict):
+    """(per-layer param dicts, the whole MoE expert stacks or None): every
+    stack but the experts' is unbound once per forward."""
+    blocks = params["blocks"]
+    stacks = {k: blocks[k] for k in EXPERT_STACK_KEYS if k in blocks} or None
+    layers = {k: _unbind(v) for k, v in blocks.items()
+              if k not in EXPERT_STACK_KEYS}
+    return [{k: v[li] for k, v in layers.items()}
+            for li in range(cfg.num_layers)], stacks
+
+
+def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+    """Token embeddings; out-of-range ids clamp, as the reference's
+    ``mode="clip"`` gather."""
+    embed = params["embed"]
+    return F.embedding(input_ids.clamp(0, embed.shape[0] - 1), embed)
+
+
 def _attn_project(cfg: ModelConfig, h: torch.Tensor, lp: dict):
     """QKV projection: [B, S, D] → q [B, S, H, Dh], k/v [B, S, KV, Dh],
     biased and qk-normed per config, unrotated."""
@@ -218,19 +236,13 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
             "remat='dots' (save matmul outputs only) is not ported; use "
             "remat=True or False")
     B, S = input_ids.shape
-    embed = params["embed"]
-    # The reference gathers with mode="clip": out-of-range ids clamp.
-    x = F.embedding(input_ids.clamp(0, embed.shape[0] - 1), embed)
+    x = embed_tokens(params, input_ids)
     positions = token_positions(attn_mask, B, S, x.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
-    blocks = params["blocks"]
-    stacks = {k: blocks[k] for k in EXPERT_STACK_KEYS if k in blocks} or None
-    layers = {k: _unbind(v) for k, v in blocks.items()
-              if k not in EXPERT_STACK_KEYS}
+    layers, stacks = split_layers(cfg, params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for li in range(cfg.num_layers):
-        lp = {k: v[li] for k, v in layers.items()}
+    for li, lp in enumerate(layers):
         if remat:
             x, aux_l = checkpoint(_block_forward, cfg, x, lp, cos, sin,
                                   attn_mask, stacks, li, use_reentrant=False)

@@ -1,4 +1,4 @@
-"""LLaDA block-diffusion sampler (exact path).
+"""LLaDA block-diffusion sampler.
 
 Counterpart of ``sampling/llada.py``:
 
@@ -13,11 +13,22 @@ Counterpart of ``sampling/llada.py``:
             unmask exactly counts[row, step] top-confidence positions
 
 The step index is known on the host, so the reference's block-start
-``lax.cond`` is a plain ``if`` and the loop is a Python loop; nothing in the
-loop reads a device value on the host.  Randomness (T > 0, ``random``
-remasking) comes from an explicit ``torch.Generator``.  The block-cache and
-threshold-parallel modes belong to a later slice and raise
-``NotImplementedError``.
+``lax.cond`` is a plain ``if`` and the loop is a Python loop; the fixed
+schedule reads nothing from the device on the host.  Randomness (T > 0,
+``random`` remasking) comes from an explicit ``torch.Generator``.
+
+Two opt-in modes, as the reference's:
+
+- ``block_cache`` with ``cached_fns`` (``models/block_cache.py``): step 0
+  of every block is a full refresh that also rebuilds the K/V cache, the
+  block's other steps forward only the block against it.
+- ``parallel_threshold``: per block, every masked position whose
+  confidence clears the threshold unmasks (always at least the most
+  confident one) until the block has no mask left in any row, at most
+  ``block_length`` forwards; ``steps`` is not read.  The reference's
+  ``while_loop`` condition becomes one host read of a flag per forward
+  (:func:`block_has_mask`).  Composes with the cache and, uncached, with
+  CFG.
 """
 
 from __future__ import annotations
@@ -27,6 +38,7 @@ from dataclasses import dataclass
 from typing import Callable, Optional
 
 import torch
+import torch.nn.functional as F
 
 from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
 from ct_diffusionmodelbench_tpu_torch.ops.sampling_ops import (
@@ -55,14 +67,15 @@ class LLaDASamplerConfig:
     def __post_init__(self):
         if self.gen_length % self.block_length != 0:
             raise ValueError("gen_length must be divisible by block_length")
-        if self.block_cache or self.parallel_threshold is not None:
-            raise NotImplementedError(
-                "block_cache and parallel_threshold decoding are not ported "
-                "yet; use the exact sampler")
-        if self.steps % self.num_blocks != 0:
+        if self.steps % self.num_blocks != 0 and self.parallel_threshold is None:
+            # Threshold decoding does not read ``steps``.
             raise ValueError("steps must be divisible by num_blocks")
         if self.remasking not in ("low_confidence", "random"):
             raise NotImplementedError(self.remasking)
+        if self.block_cache and self.cfg_scale > 0.0:
+            raise NotImplementedError(
+                "CFG batch-doubling is not supported with block_cache — "
+                "use the exact sampler for cfg_scale > 0")
 
     @property
     def num_blocks(self) -> int:
@@ -80,18 +93,44 @@ def _supports_logit_slice(forward_fn) -> bool:
         return False
 
 
+def block_has_mask(x_blk: torch.Tensor, mask_id: int) -> bool:
+    """Whether any row of the block still holds a mask: the threshold
+    loop's condition, read on the host (one device sync)."""
+    return bool((x_blk == mask_id).any())
+
+
 def _denoise_loop(forward_fn, sc: LLaDASamplerConfig, x: torch.Tensor,
                   prompt_len: int, attn_mask: Optional[torch.Tensor],
                   generator: Optional[torch.Generator],
-                  supports_slice: Optional[bool] = None) -> torch.Tensor:
-    """x: [B, P+G] token ids, updated in place block by block."""
+                  supports_slice: Optional[bool] = None,
+                  cached_fns=None) -> torch.Tensor:
+    """x: [B, P+G] token ids, updated in place block by block.
+    ``cached_fns``: (refresh, step) with the params bound, read when
+    ``sc.block_cache``."""
     bl = sc.block_length
-    spb = sc.steps_per_block
     prompt_index = x != sc.mask_id
     sliced = (supports_slice if supports_slice is not None
               else _supports_logit_slice(forward_fn))
+    use_cache = cached_fns is not None and sc.block_cache
+    cache = {}
 
-    def block_logits(block_start):
+    def avoid_eos(logits):
+        if sc.avoid_eos and sc.eos_token_id is not None:
+            logits = logits.clone()
+            logits[..., sc.eos_token_id] = NEG_INF
+        return logits
+
+    def block_logits(block_start, first):
+        """The block's logits; with the cache, ``first`` (a block's first
+        forward) refreshes it and later forwards read it."""
+        if use_cache:
+            refresh_fn, step_fn = cached_fns
+            if first:
+                logits, cache["k"], cache["v"] = refresh_fn(x, attn_mask, block_start, bl)
+            else:
+                logits = step_fn(x[:, block_start:block_start + bl], block_start,
+                                 cache["k"], cache["v"], attn_mask)
+            return avoid_eos(logits)
         kw = dict(logit_start=block_start, logit_length=bl) if sliced else {}
         if sc.cfg_scale > 0.0:
             un_x = torch.where(prompt_index, sc.mask_id, x)
@@ -104,10 +143,7 @@ def _denoise_loop(forward_fn, sc: LLaDASamplerConfig, x: torch.Tensor,
             logits, _ = forward_fn(x, attn_mask, **kw)
         if not sliced:
             logits = logits[:, block_start:block_start + bl]
-        if sc.avoid_eos and sc.eos_token_id is not None:
-            logits = logits.clone()
-            logits[..., sc.eos_token_id] = NEG_INF
-        return logits
+        return avoid_eos(logits)
 
     def score(logits, x_blk):
         mask_blk = x_blk == sc.mask_id
@@ -122,8 +158,24 @@ def _denoise_loop(forward_fn, sc: LLaDASamplerConfig, x: torch.Tensor,
                               device=x_blk.device, dtype=torch.float32)
         x0 = torch.where(mask_blk, x0, x_blk)
         confidence = torch.where(mask_blk, x0_p, NEG_INF)
-        return x0, confidence
+        return x0, confidence, mask_blk
 
+    if sc.parallel_threshold is not None:
+        thr = sc.parallel_threshold
+        for block in range(sc.num_blocks):
+            block_start = prompt_len + block * bl
+            x_blk = x[:, block_start:block_start + bl]
+            it = 0
+            while it < bl and block_has_mask(x_blk, sc.mask_id):
+                logits = block_logits(block_start, it == 0)
+                x0, confidence, mask_blk = score(logits, x_blk)
+                forced = F.one_hot(confidence.argmax(dim=-1), bl).bool()
+                transfer = ((confidence > thr) | forced) & mask_blk
+                x[:, block_start:block_start + bl] = torch.where(transfer, x0, x_blk)
+                it += 1
+        return x
+
+    spb = sc.steps_per_block
     counts = None
     for s in range(sc.steps):
         block, i = divmod(s, spb)
@@ -131,19 +183,24 @@ def _denoise_loop(forward_fn, sc: LLaDASamplerConfig, x: torch.Tensor,
         x_blk = x[:, block_start:block_start + bl]
         if i == 0:
             counts = get_num_transfer_tokens(x_blk == sc.mask_id, spb)
-        logits = block_logits(block_start)
-        x0, confidence = score(logits, x_blk)
+        logits = block_logits(block_start, i == 0)
+        x0, confidence, _ = score(logits, x_blk)
         transfer = rank_topk_mask(confidence, counts[:, i])
         x[:, block_start:block_start + bl] = torch.where(transfer, x0, x_blk)
     return x
 
 
 def make_llada_sampler(forward_fn: Callable, sampler_config: LLaDASamplerConfig,
-                       prompt_len: int) -> Callable:
+                       prompt_len: int, cached_fns=None) -> Callable:
     """``sample(params, prompt_ids, attn_mask=None, generator=None) ->
     [B, P+G]`` for a fixed (prompt_len, config).  ``forward_fn(params,
-    input_ids, attn_mask, ...)`` is a ``make_forward_fn`` result."""
+    input_ids, attn_mask, ...)`` is a ``make_forward_fn`` result;
+    ``cached_fns`` (``models.block_cache.make_cached_fns``) is required when
+    ``sampler_config.block_cache`` is set."""
     sc = sampler_config
+    if sc.block_cache and cached_fns is None:
+        raise ValueError("block_cache=True needs cached_fns "
+                         "(models.block_cache.make_cached_fns(cfg))")
     supports_slice = _supports_logit_slice(forward_fn)
 
     @torch.inference_mode()
@@ -158,8 +215,13 @@ def make_llada_sampler(forward_fn: Callable, sampler_config: LLaDASamplerConfig,
                               device=attn_mask.device)
             full_mask = torch.cat([attn_mask, ones], dim=1)
         fwd = lambda ids, m, **kw: forward_fn(params, ids, m, **kw)  # noqa: E731
+        bound = None
+        if cached_fns is not None and sc.block_cache:
+            refresh_fn, step_fn, _ = cached_fns
+            bound = (lambda ids, m, bs, bl: refresh_fn(params, ids, m, bs, bl),
+                     lambda blk, bs, kc, vc, m: step_fn(params, blk, bs, kc, vc, m))
         return _denoise_loop(fwd, sc, x, prompt_len, full_mask, generator,
-                             supports_slice=supports_slice)
+                             supports_slice=supports_slice, cached_fns=bound)
 
     return sample
 
@@ -171,12 +233,15 @@ def llada_generate(forward_fn: Callable, params, prompt_ids: torch.Tensor, *,
                    mask_id: int = 156895, avoid_eos: bool = False,
                    eos_token_id: Optional[int] = None,
                    confidence_dtype: str = "float32", block_cache: bool = False,
+                   cached_fns=None,
                    parallel_threshold: Optional[float] = None,
                    attn_mask: Optional[torch.Tensor] = None,
                    generator: Optional[torch.Generator] = None,
                    device: DeviceLike = None) -> torch.Tensor:
     """Counterpart of the reference ``llada_generate``: returns
-    [B, prompt_len + gen_length] token ids on ``device``."""
+    [B, prompt_len + gen_length] token ids on ``device``.  ``block_cache``
+    with ``cached_fns`` (``models.block_cache.make_cached_fns``): the
+    dual-cache decode, approximate for deep models."""
     dev = resolve_device(device)
     sc = LLaDASamplerConfig(
         steps=steps, gen_length=gen_length, block_length=block_length,
@@ -187,5 +252,6 @@ def llada_generate(forward_fn: Callable, params, prompt_ids: torch.Tensor, *,
     prompt_ids = prompt_ids.to(dev)
     if attn_mask is not None:
         attn_mask = attn_mask.to(dev)
-    sampler = make_llada_sampler(forward_fn, sc, int(prompt_ids.shape[1]))
+    sampler = make_llada_sampler(forward_fn, sc, int(prompt_ids.shape[1]),
+                                 cached_fns=cached_fns)
     return sampler(params, prompt_ids, attn_mask=attn_mask, generator=generator)

@@ -20,6 +20,7 @@ import torch
 from ct_diffusionmodelbench_tpu.models import config as jcfg
 from ct_diffusionmodelbench_tpu_torch.io.bridge import params_from_numpy
 from ct_diffusionmodelbench_tpu_torch.models import config as tcfg
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 PORT = REPO / "ct_diffusionmodelbench_tpu_torch"

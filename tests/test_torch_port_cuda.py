@@ -421,13 +421,18 @@ def test_int8_wrappers_refuse_bad_tile_valid(cuda_device):
             gg.grouped_down_q(x, w, te, 64, None, bad)
 
 
-def _kernels_against_plain(cfg, params, ids, dev, monkeypatch, seams):
+def _kernels_against_plain(cfg, params, ids, dev, monkeypatch, seams, forward=None):
     """Logits of a forward through the kernels and of the same forward with
-    ``seams`` ((module, name, plain version) swapped in).  The second run
-    takes the first one's expert choice in every layer: a one-ulp
-    difference at a router input decides a near-tie of the top-k-th and the
-    next expert now and then, which moves that token's logits by far more
-    than any kernel error (chip_smoke.py's 2-layer checks do the same)."""
+    ``seams`` ((module, name, plain version) swapped in); ``forward(params)``
+    in place of the model forward on ``ids``.  The second run takes the
+    first one's expert choice in every layer: a one-ulp difference at a
+    router input decides a near-tie of the top-k-th and the next expert now
+    and then, which moves that token's logits by far more than any kernel
+    error (chip_smoke.py's 2-layer checks do the same)."""
+    if forward is None:
+        def forward(p):
+            return make_forward_fn(cfg, device=dev)(p, ids)[0]
+
     router_probs, chosen = moe.router_probs, []
 
     def recording_router(x, w, top_k, norm_topk):
@@ -445,12 +450,12 @@ def _kernels_against_plain(cfg, params, ids, dev, monkeypatch, seams):
 
     with monkeypatch.context() as m:
         m.setattr(moe, "router_probs", recording_router)
-        lk, _ = make_forward_fn(cfg, device=dev)(params, ids)
+        lk = forward(params)
     with monkeypatch.context() as m:
         m.setattr(moe, "router_probs", pinned_router)
         for module, name, plain in seams:
             m.setattr(module, name, plain)
-        lp, _ = make_forward_fn(cfg, device=dev)(params, ids)
+        lp = forward(params)
     assert not chosen
     return lk, lp
 
@@ -544,6 +549,75 @@ def test_tiny_model_kernels_against_plain(cuda_device, monkeypatch):
     assert {n: launches[n] for n in SERVING_KERNELS} == {
         n: cfg.num_layers * 8 for n in SERVING_KERNELS}
     assert launches["flash_attention_bwd_dq"] == 0
+
+
+@pytest.mark.parametrize("b,s,h,kv", [(8, 320, 16, 4), (3, 63, 16, 4), (3, 64, 16, 4),
+                                       (3, 65, 16, 4), (2, 65, 4, 4)])
+def test_flash_kernel_without_rope_on_rotated_qk(cuda_device, monkeypatch, b, s, h, kv):
+    """K8 as the block cache's refresh calls it: q / k rotated beforehand
+    (``apply_rope``, as ``models/block_cache.py``), no ``rope``, left
+    padding; at the refresh's decode shape (B 8, S 320, rep 4) and at the
+    64-row tile edges."""
+    monkeypatch.delenv("CTDB_FLASH_DIRECT", raising=False)
+    dev, dh = cuda_device, 128
+    g = torch.Generator(device=dev).manual_seed(s + h)
+    q = torch.randn((b, s, h, dh), generator=g, device=dev, dtype=torch.bfloat16)
+    k, v = (torch.randn((b, s, kv, dh), generator=g, device=dev, dtype=torch.bfloat16)
+            for _ in range(2))
+    mask = torch.ones((b, s), dtype=torch.int32, device=dev)
+    for i in range(b):
+        mask[i, :4 * i] = 0
+    cos, sin = rope_angles(token_positions(mask, b, s, dev), dh, 50000.0)
+    qr, kr = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+    reset_launch_counts()
+    got = fa.flash_attention(qr, kr, v, mask=mask)
+    assert KERNELS["flash_attention_fwd"].launches == 1
+    torch.testing.assert_close(got, fa.flash_attention_plain(qr, kr, v, mask=mask),
+                               **FLASH_TOL)
+
+
+def test_tiny_model_block_cache_against_plain(cuda_device, monkeypatch):
+    """A refresh plus one cached step of a tiny MoE model through the
+    kernels against the same on their plain versions (routing pinned), then
+    block-cache decodes, alone and with a threshold, launching K8 once per
+    layer and refresh and the pair once per layer and forward."""
+    from ct_diffusionmodelbench_tpu_torch.models import make_cached_fns
+    from ct_diffusionmodelbench_tpu_torch.sampling import llada
+
+    dev = cuda_device
+    cfg = get_config("llada-moe-tiny")  # bf16
+    params = init_params(cfg, seed=5, device=dev)
+    ids = torch.randint(3, 400, (2, 40), device=dev)
+    refresh_fn, step_fn, _ = make_cached_fns(cfg)
+
+    @torch.inference_mode()
+    def refresh_and_step(p):
+        lr, kc, vc = refresh_fn(p, ids, None, 16, 8)
+        return torch.cat([lr, step_fn(p, ids[:, 16:24], 16, kc, vc, None)], dim=1)
+
+    lk, lp = _kernels_against_plain(cfg, params, ids, dev, monkeypatch, [
+        (attention, "flash_attention", fa.flash_attention_plain),
+        (gg, "grouped_gateup", gg.grouped_gateup_plain),
+        (gg, "grouped_down", gg.grouped_down_plain)], forward=refresh_and_step)
+    assert (lk - lp).abs().max() <= 2 ** -4 * lp.abs().max()
+    fwd = make_forward_fn(cfg, device=dev)
+    kw = dict(steps=8, gen_length=16, block_length=8, mask_id=cfg.mask_token_id,
+              block_cache=True, cached_fns=make_cached_fns(cfg))
+    reset_launch_counts()
+    llada_generate(fwd, params, ids[:, :8], **kw)
+    launches = {n: kk.launches for n, kk in KERNELS.items()}
+    L = cfg.num_layers
+    assert {n: launches[n] for n in SERVING_KERNELS} == {
+        "grouped_gateup": 8 * L, "grouped_down": 8 * L, "flash_attention_fwd": 2 * L}
+    reads = []
+    real = llada.block_has_mask
+    monkeypatch.setattr(llada, "block_has_mask",
+                        lambda blk, mid: reads.append(real(blk, mid)) or reads[-1])
+    reset_launch_counts()
+    llada_generate(fwd, params, ids[:, :8], parallel_threshold=0.9, **kw)
+    launches = {n: kk.launches for n, kk in KERNELS.items()}
+    assert launches["grouped_gateup"] == launches["grouped_down"] == reads.count(True) * L
+    assert launches["flash_attention_fwd"] == 2 * L
 
 
 def _bwd_close(got, want):

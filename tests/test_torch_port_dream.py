@@ -32,6 +32,7 @@ from ct_diffusionmodelbench_tpu_torch.models import get_config as t_get_config
 from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn as t_make_forward_fn
 from ct_diffusionmodelbench_tpu_torch.sampling import dream as tdream
 from ct_diffusionmodelbench_tpu_torch.sampling import simple as tsimple
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 CONF_TOL = dict(rtol=1e-5, atol=1e-6)
 LOGITS_TOL = dict(rtol=2e-4, atol=2e-4)

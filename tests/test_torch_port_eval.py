@@ -44,6 +44,7 @@ from ct_diffusionmodelbench_tpu_torch.eval import quality as t_quality
 from ct_diffusionmodelbench_tpu_torch.io import tokenizer as t_tok
 from ct_diffusionmodelbench_tpu_torch.io.bridge import params_from_numpy
 from ct_diffusionmodelbench_tpu_torch.models import get_config as t_get_config
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 REPO = Path(__file__).resolve().parents[1]
 

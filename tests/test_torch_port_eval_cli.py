@@ -36,6 +36,7 @@ from tests.test_torch_port_eval import (  # noqa: E402
     runner_pair,
     strip_timing,
 )
+from tests.torch_port_threads import one_torch_thread  # noqa: E402,F401
 
 TINY_GEN = ["--gen-length", "16", "--steps", "8", "--block-length", "4"]
 

@@ -23,6 +23,7 @@ from ct_diffusionmodelbench_tpu_torch.models import layers as tl
 from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
 from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
 from ct_diffusionmodelbench_tpu_torch.ops.attention import attention_reference
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 jfa = importlib.import_module("ct_diffusionmodelbench_tpu.ops.flash_attention")
 

@@ -21,6 +21,7 @@ import torch
 from ct_diffusionmodelbench_tpu.models import moe as jmoe
 from ct_diffusionmodelbench_tpu.ops import grouped_gemm_pallas as jgg
 from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as tgg
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 GROUPED_TOL = dict(rtol=1e-4, atol=1e-5)
 

@@ -19,8 +19,10 @@ from ct_diffusionmodelbench_tpu.models import make_forward_fn as j_make_forward_
 from ct_diffusionmodelbench_tpu.sampling import llada_generate as j_generate
 from ct_diffusionmodelbench_tpu_torch.io.bridge import params_from_numpy
 from ct_diffusionmodelbench_tpu_torch.models import get_config as t_get_config
+from ct_diffusionmodelbench_tpu_torch.models import make_cached_fns
 from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn as t_make_forward_fn
 from ct_diffusionmodelbench_tpu_torch.sampling import llada_generate as t_generate
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 LOGITS_TOL = dict(rtol=2e-4, atol=2e-4)
 
@@ -115,9 +117,13 @@ def test_generate_options_match_jax():
 
 
 def test_unported_sampler_modes_raise():
+    """The reference's remaining refusals: the block cache with CFG, and the
+    block cache without its functions."""
     _, _, _, tcfg, tp, tf = _pair("llada-tiny", 1)
     prompt = torch.zeros((1, 4), dtype=torch.long)
-    for kw in (dict(block_cache=True), dict(parallel_threshold=0.9)):
-        with pytest.raises(NotImplementedError):
-            t_generate(tf, tp, prompt, steps=4, gen_length=8, block_length=8,
-                       mask_id=500, device="cpu", **kw)
+    kw = dict(steps=4, gen_length=8, block_length=8, mask_id=500, device="cpu")
+    with pytest.raises(NotImplementedError, match="CFG"):
+        t_generate(tf, tp, prompt, block_cache=True, cached_fns=make_cached_fns(tcfg),
+                   cfg_scale=1.0, **kw)
+    with pytest.raises(ValueError, match="cached_fns"):
+        t_generate(tf, tp, prompt, block_cache=True, **kw)

@@ -31,6 +31,7 @@ from ct_diffusionmodelbench_tpu_torch.ops.flash_attention import (
     flash_attention, flash_attention_plain)
 from ct_diffusionmodelbench_tpu_torch.sampling.schedule import (
     get_num_transfer_tokens as t_transfer)
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 # ops/__init__ re-exports the function ``attention`` over the module's name.
 jattn = importlib.import_module("ct_diffusionmodelbench_tpu.ops.attention")

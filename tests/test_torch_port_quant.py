@@ -47,6 +47,7 @@ from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn as t_make_fw
 from ct_diffusionmodelbench_tpu_torch.models import moe as tmoe
 from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as tgg
 from ct_diffusionmodelbench_tpu_torch.ops import quant as tq
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 Q_TOL = dict(rtol=1e-5, atol=1e-5)
 GROUPED_TOL = dict(rtol=1e-4, atol=1e-5)

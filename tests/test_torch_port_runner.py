@@ -23,6 +23,7 @@ from ct_diffusionmodelbench_tpu_torch.io import tokenizer as ttok
 from ct_diffusionmodelbench_tpu_torch.io.bridge import params_from_numpy
 from ct_diffusionmodelbench_tpu_torch.models import get_config as t_get_config
 from ct_diffusionmodelbench_tpu_torch.ops import quant as tq
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 ALIGNED = dict(hidden_size=128, moe_intermediate_size=128, head_dim=32)
 GEN = dict(gen_length=16, steps=8, block_length=8)
@@ -132,13 +133,16 @@ def test_runner_refuses_what_is_not_ported():
     with pytest.raises(ValueError, match="family"):
         ModelRunner(cfg, dream.params, tok, family="gpt", device="cpu")
     with pytest.raises(NotImplementedError, match="block-cache"):
-        ModelRunner(r.cfg, r.params, tok, accel="block-cache", device="cpu")
+        ModelRunner(cfg, dream.params, tok, accel="block-cache", device="cpu")
+    with pytest.raises(ValueError, match="accel"):
+        ModelRunner(r.cfg, r.params, tok, accel="nope", device="cpu")
     with pytest.raises(NotImplementedError, match="mesh"):
         ModelRunner(r.cfg, r.params, tok, mesh=object(), device="cpu")
     with pytest.raises(ValueError, match="quant"):
         ModelRunner(r.cfg, r.params, tok, quant="int4", device="cpu")
-    with pytest.raises(NotImplementedError, match="parallel_threshold"):
-        r.generate_ids(np.array([3, 4]), parallel_threshold=0.9, **GEN)
+    out = r.generate_ids(np.array([3, 4]), parallel_threshold=0.9, **GEN)
+    assert out.shape == (1, 18)       # threshold decoding runs (JAX parity:
+                                      # tests/test_torch_port_block_cache.py)
 
 
 def test_runner_entry_points_raise_without_card(monkeypatch, tmp_path):

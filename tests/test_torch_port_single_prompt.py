@@ -44,6 +44,7 @@ from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn as t_make_fo
 from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as tfa
 from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as tgg
 from ct_diffusionmodelbench_tpu_torch.sampling import llada_generate as t_generate
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 GROUPED_TOL = dict(rtol=1e-4, atol=1e-5)
 FLASH_TOL = dict(rtol=2e-5, atol=2e-5)
@@ -367,14 +368,16 @@ def test_chat_main_and_flags(monkeypatch, capsys):
         tchat._load_runner(parser.parse_args(["--preset", "llada-tiny", "--tp", "2",
                                               "--device", "cpu"]))
     with pytest.raises(NotImplementedError, match="block-cache"):
-        tchat._load_runner(parser.parse_args(["--preset", "llada-tiny", "--accel",
+        tchat._load_runner(parser.parse_args(["--preset", "dream-tiny", "--accel",
                                               "block-cache", "--device", "cpu"]))
     r = tchat._load_runner(parser.parse_args(["--preset", "llada-tiny", "--quant", "int8",
+                                              "--accel", "block-cache",
                                               "--parallel-threshold", "0.9",
                                               "--mask-id", "7", "--device", "cpu"]))
     assert r.quant == "int8" and r.parallel_threshold == 0.9 and r.mask_id == 7
-    with pytest.raises(NotImplementedError, match="parallel_threshold"):
-        tchat.run_chat(r, "x", parser.parse_args(CHAT_ARGS))
+    assert r.cached_fns is not None
+    res = tchat.run_chat(r, "x", parser.parse_args(CHAT_ARGS))
+    assert res["mask_id"] == 7 and isinstance(res["generated"], str)
     tchat_base.main(["--preset", "llada-tiny", "--device", "cpu", "--prompt", "hi",
                      "--max-new-tokens", "3"])
     capsys.readouterr()

@@ -57,6 +57,7 @@ from ct_diffusionmodelbench_tpu_torch.train import collator as tcol
 from ct_diffusionmodelbench_tpu_torch.train import diffusion_loss as tdl
 from ct_diffusionmodelbench_tpu_torch.train import optim as topt
 from ct_diffusionmodelbench_tpu_torch.train import trainer as ttr
+from tests.torch_port_threads import one_torch_thread  # noqa: F401
 
 LOSS_TOL = dict(rtol=1e-5, atol=1e-6)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-6)
