@@ -124,9 +124,33 @@ Phases, in order:
    tokens/s, train MFU, peak memory, save seconds; launch counts per step.
 18. training gradients: a 2-layer full-width loss and every parameter's
    gradient with the kernels against the same on their plain versions.
+19. MoE training kernels: full-size ``llada-moe-7b`` from ``cli/train.py``'s
+   ``load_model`` (``--preset``, seeded random weights); K1 and K2 at a B 1,
+   S 2048 routing through layer 1's router (M 16384; tile_m and m_pad
+   printed) against their plain versions; the grouped FFN's backward
+   (``torch._grouped_mm`` products) against its plain version (one
+   ``torch.mm`` per expert) on one cotangent, both timed with CUDA events;
+   K8 with lse, K10 and K11 at H 16, KV 4, S 2048 against their plain
+   versions, timed.
+20. MoE training slice: those weights trained 5 optimizer steps through
+   ``cli/train.py``'s ``build_parser`` → ``run`` with the reference's
+   ``sft_train_step_moe`` flags (int8 moments, bf16 accumulation, remat,
+   A 4, B 1, L 2048) on 20 seeded token rows, all 18 layers: s/step over
+   steps 2-5, tokens/s, train MFU on active parameters, peak memory, the
+   optimizer update's share of the step, save seconds (into a temporary
+   directory, deleted); exact launches per step (K1 = K2 = K8 = 144, K10 =
+   K11 = 72, no other kernel); finite loss and gradient norm; parameters
+   moved.
+21. MoE training checks at 2 layers of the full width: loss, aux loss and
+   every gradient through the kernels against the same on their plain
+   versions (the plain run on the kernel run's expert choice);
+   ``remat='dots'`` against ``remat=True`` (and their peak memory); one
+   int8 / bf16 step's optimizer state saved, loaded into a fresh
+   ``Trainer`` and compared bit for bit.
 
 The bf16 MoE weights are freed before phase 11, the int8 ones before
-phase 15, Dream's before phase 16.  Prints the first designs' times of the
+phase 15, Dream's before phase 16, the dense training state before phase
+19.  Prints the first designs' times of the
 redesigned flash and grouped kernels (constants from PERF.md, on a line of
 their own),
 the ``{"kernels": [...]}`` line and, last, the
@@ -1867,10 +1891,37 @@ def compare_bwd(name, got, want):
                for label, g, w in zip(("dq", "dk", "dv"), got, want))
 
 
+def attention_train_check(label, dev, b, h, kv, pad, seed):
+    """K8 with lse, then K10 / K11 on its output, at S 2048 and head dim 128
+    against their plain versions.  Returns (errors, the kernels' inputs and
+    outputs)."""
+    from types import SimpleNamespace
+
+    from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
+
+    S, Dh = TRAIN_SEQ, 128
+    q, k, v, do, mask, rope = attention_case(dev, b, S, h, kv, Dh, seed, pad)
+    out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope, with_lse=True)
+    out_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask, rope=rope,
+                                            with_lse=True)
+    torch.cuda.synchronize()
+    err_fwd = max(compare(f"{label} fwd out", out, out_p, **FLASH_TOL),
+                  compare(f"{label} fwd lse", lse, lse_p, 0.0, LSE_ATOL))
+    qr, kr = apply_rope(q, *rope), apply_rope(k, *rope)
+    bias = fa.mask_bias(mask, b, S, dev)
+    got = fab.flash_attention_bwd(qr, kr, v, bias, out, do, lse)
+    want = fab.flash_attention_bwd_plain(qr, kr, v, bias, out, do, lse)
+    torch.cuda.synchronize()
+    err_bwd = compare_bwd(label, got, want)
+    return SimpleNamespace(err_fwd=err_fwd, err_bwd=err_bwd, q=q, k=k, v=v, do=do,
+                           rope=rope, qr=qr, kr=kr, bias=bias, out=out, lse=lse)
+
+
 def train_kernel_phase(dev):
     """The flash forward with lse and the two backward kernels against their
     plain versions; timed at the training shape."""
-    from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope
     from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
     from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
 
@@ -1878,20 +1929,11 @@ def train_kernel_phase(dev):
     cases = [("GQA H 16, KV 4", 1, 16, 4, 0), ("padded mask", 2, 32, 32, 300),
              ("training shape", 1, 32, 32, 0)]
     for label, b, h, kv, pad in cases:
-        q, k, v, do, mask, rope = attention_case(dev, b, S, h, kv, Dh, 10 + b + h, pad)
-        out, lse = fa.flash_attention_cuda(q, k, v, mask=mask, rope=rope, with_lse=True)
-        out_p, lse_p = fa.flash_attention_plain(q, k, v, mask=mask, rope=rope,
-                                                with_lse=True)
-        torch.cuda.synchronize()
-        err_fwd = max(compare(f"{label} fwd out", out, out_p, **FLASH_TOL),
-                      compare(f"{label} fwd lse", lse, lse_p, 0.0, LSE_ATOL))
-        qr, kr = apply_rope(q, *rope), apply_rope(k, *rope)
-        bias = fa.mask_bias(mask, b, S, dev)
-        got = fab.flash_attention_bwd(qr, kr, v, bias, out, do, lse)
-        want = fab.flash_attention_bwd_plain(qr, kr, v, bias, out, do, lse)
-        torch.cuda.synchronize()
-        err_bwd = compare_bwd(label, got, want)
-        del out_p, lse_p, got, want
+        c = attention_train_check(label, dev, b, h, kv, pad, 10 + b + h)
+    err_fwd, err_bwd = c.err_fwd, c.err_bwd
+    q, k, v, do, rope, qr, kr, bias, out, lse = (
+        c.q, c.k, c.v, c.do, c.rope, c.qr, c.kr, c.bias, c.out, c.lse)
+    del c
 
     # Times at the training shape (the last case): B 1, S 2048, H = KV = 32.
     B, H, KV = 1, 32, 32
@@ -2115,6 +2157,325 @@ def train_depth_phase(cfg, params, dev):
     return worst
 
 
+def moe_train_args(out_dir):
+    """``cli/train.py``'s parser on the reference's ``sft_train_step_moe``
+    flags (int8 moments, bf16 accumulation, remat, A 4, B 1, L 2048)."""
+    from ct_diffusionmodelbench_tpu_torch.cli import train as train_cli
+
+    return train_cli.build_parser().parse_args([
+        "--preset", "llada-moe-7b", "--optimizer-state-dtype", "int8",
+        "--grad-accum-dtype", "bfloat16", "--remat", "--max-length", str(TRAIN_SEQ),
+        "--batch-size", "1", "--grad-accum", str(TRAIN_ACCUM), "--epochs", "1",
+        "--eval-steps", "0", "--logging-steps", "1", "--output-dir", out_dir,
+        "--seed", "0"])
+
+
+def moe_train_kernel_phase(cfg, params, dev):
+    """Phase 19: K1/K2 at the MoE training routing (B 1, S 2048: M 16384)
+    against their plain versions; the grouped backward (library products)
+    against its plain version on the same cotangent, timed; K8 with lse and
+    K10 / K11 at H 16, KV 4 against their plain versions, timed."""
+    from ct_diffusionmodelbench_tpu_torch.models.moe import router_probs
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm as ggm
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    D, K, li = cfg.hidden_size, cfg.num_experts_per_tok, 1
+    blocks = params["blocks"]
+    x = torch.randn((TRAIN_SEQ, D), generator=gen, device=dev, dtype=torch.bfloat16)
+    topk_probs, topk_idx, _ = router_probs(x, blocks["router"][li], K,
+                                           cfg.norm_topk_prob)
+    pair = grouped_pair_check("MoE training", cfg, blocks, x, topk_idx, li)
+    k1_ms = time_ms(lambda: ggm.grouped_expert_ffn(
+        x, topk_probs, topk_idx, *(blocks[k] for k in ("we_gate", "we_up", "we_down")),
+        layer_index=li), 10)
+
+    # The backward of layer 1's expert FFN on its own 3-D weights, with the
+    # library products and with their plain versions, on one cotangent.
+    ins = [x.detach().requires_grad_(True), topk_probs.detach().requires_grad_(True),
+           *(blocks[k][li].detach().requires_grad_(True)
+             for k in ("we_gate", "we_up", "we_down"))]
+    with torch.enable_grad():
+        out = ggm.GroupedFFN.apply(ins[0], ins[1], topk_idx, *ins[2:])
+    cot = torch.randn(out.shape, generator=gen, device=dev, dtype=out.dtype)
+
+    def backward():
+        return torch.autograd.grad(out, ins, cot, retain_graph=True)
+
+    got = backward()
+    bwd_ms = time_ms(backward, 10)
+    saved = ggm.grouped_mm
+    try:
+        ggm.grouped_mm = ggm.grouped_mm_plain
+        want = backward()
+        bwd_plain_ms = time_ms(backward, 1, warmup=0)
+    finally:
+        ggm.grouped_mm = saved
+    torch.cuda.synchronize()
+    err_bwd = max(compare(f"grouped backward {name}", g, w, BWD_RTOL,
+                          BWD_ATOL_OF_MAX * float(w.float().abs().max()))
+                  for name, g, w in zip(("dx", "dprobs", "dWg", "dWu", "dWd"), got, want))
+    print(f"  grouped FFN at M {pair.m} (tile_m {pair.tile_m}, m_pad {pair.m_pad}): "
+          f"forward (K1 + K2 and the layout) {k1_ms:.4f} ms; backward with "
+          f"torch._grouped_mm {bwd_ms:.4f} ms, with one torch.mm per expert "
+          f"{bwd_plain_ms:.4f} ms", flush=True)
+    del out, got, want, ins
+
+    att = attention_train_check("MoE training H 16, KV 4", dev, 1, 16, 4, 0, 29)
+    fwd_ms = time_ms(lambda: fa.flash_attention_cuda(
+        att.q, att.k, att.v, rope=att.rope, with_lse=True), 20)
+    dq_ms = time_ms(lambda: fab.flash_attention_bwd(
+        att.qr, att.kr, att.v, att.bias, att.out, att.do, att.lse), 20)
+    print(f"  flash at B 1, S {TRAIN_SEQ}, H 16, KV 4, Dh 128: fwd with lse "
+          f"{fwd_ms:.4f} ms, backward (dq and dk/dv) {dq_ms:.4f} ms", flush=True)
+    return dict(
+        grouped_gateup=dict(m=pair.m, tile_m=pair.tile_m, m_pad=pair.m_pad,
+                            max_abs_err=pair.err_gateup, ffn_ms=k1_ms),
+        grouped_down=dict(m=pair.m, tile_m=pair.tile_m, m_pad=pair.m_pad,
+                          max_abs_err=pair.err_down, ffn_ms=k1_ms),
+        grouped_backward=dict(max_abs_err=err_bwd, ms=bwd_ms, plain_ms=bwd_plain_ms),
+        flash_attention_fwd=dict(max_abs_err=att.err_fwd, ms=fwd_ms),
+        flash_attention_bwd_dq=dict(max_abs_err=att.err_bwd, bwd_ms=dq_ms),
+        flash_attention_bwd_dkv=dict(max_abs_err=att.err_bwd, bwd_ms=dq_ms))
+
+
+def moe_train_slice_phase(args, cfg, params, tokenizer, dev):
+    """Phase 20: full-width llada-moe-7b trained 5 steps through
+    ``cli/train.py``'s ``run`` (int8 moments, bf16 accumulation, remat)."""
+    import numpy as np
+
+    from ct_diffusionmodelbench_tpu_torch.cli import train as train_cli
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.train import optim
+
+    rng = np.random.default_rng(20)
+    rows = [{"input_ids": r.tolist(), "prompt_lengths": TRAIN_PROMPT}
+            for r in rng.integers(10, 150000, (TRAIN_STEPS * TRAIN_ACCUM, TRAIN_SEQ))]
+    probes = {k: params["blocks"][k][0].flatten()[:1 << 20].clone()
+              for k in ("wq", "we_gate", "router")}
+    update_s = []
+    update = optim.AdamWLowp.update
+
+    def timed_update(self, *a, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = update(self, *a, **kw)
+        torch.cuda.synchronize()
+        update_s.append(time.perf_counter() - t0)
+        return out
+
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        optim.AdamWLowp.update = timed_update
+        reset_launch_counts()
+        trainer = train_cli.run(args, cfg, params, tokenizer, rows, [])
+        launches = {name: k.launches for name, k in KERNELS.items()}
+    finally:
+        optim.AdamWLowp.update = update
+        shutil.rmtree(args.output_dir, ignore_errors=True)
+    peak = torch.cuda.max_memory_allocated()
+    n_steps = len(trainer.step_times)
+    tokens = TRAIN_ACCUM * TRAIN_SEQ
+    secs = sum(trainer.step_times[1:]) / (n_steps - 1)
+    active = cfg.active_param_count()
+    mfu = 6.0 * active * tokens / secs / PEAK_BF16_FLOPS
+    opt_share = sum(update_s[1:]) / sum(trainer.step_times[1:])
+    logs = [e for e in trainer.training_logs if "grad_norm" in e]
+    moved = {k: int((params["blocks"][k][0].flatten()[:1 << 20] != v).sum())
+             for k, v in probes.items()}
+    print(f"  {cfg.num_layers}-layer llada-moe-7b, {cfg.param_count() / 1e9:.3f} G "
+          f"params ({active / 1e9:.3f} G active): steps {n_steps}, s/step (steps "
+          f"2-{n_steps}) {secs:.4f}, each {[round(t, 4) for t in trainer.step_times]}; "
+          f"{tokens / secs:.2f} tokens/s; train MFU {mfu:.4f} (6·active·tokens / s / "
+          f"989 TFLOP/s); optimizer update {[round(t, 4) for t in update_s]} s, "
+          f"{opt_share:.4f} of the step; peak memory {peak / 2**30:.3f} GiB; save "
+          f"{trainer.save_times[-1]:.2f} s", flush=True)
+    print("  loss / grad_norm per step: " + ", ".join(
+        f"{e['loss']:.5f} / {e['grad_norm']:.5f}" for e in logs), flush=True)
+    print(f"  parameter elements moved (first 2^20 of layer 0's): {json.dumps(moved)}",
+          flush=True)
+    print(f"  launches: {json.dumps(launches)}", flush=True)
+    if n_steps != TRAIN_STEPS or len(logs) != TRAIN_STEPS or not all(
+            np.isfinite(e["loss"]) and np.isfinite(e["grad_norm"]) and e["grad_norm"] > 0
+            for e in logs):
+        raise AssertionError("non-finite loss or grad_norm, a zero gradient, or a "
+                             "missing step")
+    if not any(moved.values()):
+        raise AssertionError("no parameter moved")
+    per_step = cfg.num_layers * TRAIN_ACCUM
+    want = {n: 0 for n in KERNELS}
+    want.update({n: 2 * per_step * TRAIN_STEPS for n in SERVING_KERNELS})
+    want.update({n: per_step * TRAIN_STEPS for n in BWD_KERNELS})
+    if launches != want:
+        raise AssertionError(f"expected launches {want}, got {launches}")
+    per_step_launches = {n: c // TRAIN_STEPS for n, c in launches.items() if c}
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(launches_per_step=per_step_launches, seconds_per_step=secs,
+                tokens_per_s=tokens / secs, mfu=mfu, peak_gib=peak / 2**30,
+                optimizer_share=opt_share)
+
+
+def moe_train_depth_phase(cfg, params, dev):
+    """Phase 21 at 2 layers of the full width: loss, aux loss and every
+    gradient through the kernels against the same on their plain versions
+    (pinned to the kernel run's expert choice); an int8 / bf16 step's
+    optimizer state through save and load, bit for bit; remat='dots'
+    against remat=True."""
+    from functools import partial
+
+    import numpy as np
+
+    from ct_diffusionmodelbench_tpu_torch.models import init_params, moe
+    from ct_diffusionmodelbench_tpu_torch.models.transformer import forward, lm_head_logits
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm as ggm
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.train.diffusion_loss import diffusion_sft_loss
+    from ct_diffusionmodelbench_tpu_torch.train.optim import (
+        flatten_params, state_tensors, unflatten_params)
+    from ct_diffusionmodelbench_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg2 = cfg.replace(num_layers=2)
+    p2 = dict(params, blocks={k: v[:2] for k, v in params["blocks"].items()})
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(21)
+    ids = torch.randint(10, 150000, (1, TRAIN_SEQ), generator=gen, device=dev)
+    plens = torch.full((1,), TRAIN_PROMPT, device=dev)
+    noise = (torch.rand((1,), generator=gen, device=dev),
+             torch.rand((1, TRAIN_SEQ), generator=gen, device=dev))
+
+    def loss_and_grads(remat=True):
+        def fwd(p, x, m=None, *, return_hidden=False):
+            return forward(cfg2, p, x, attn_mask=m, return_hidden=return_hidden,
+                           remat=remat)
+
+        leaves = {k: t.detach().requires_grad_(True)
+                  for k, t in flatten_params(p2).items()}
+        with torch.enable_grad():
+            loss, metrics = diffusion_sft_loss(
+                fwd, unflatten_params(leaves), ids, plens, cfg2.mask_token_id, noise,
+                aux_coef=0.01, head_fn=lm_head_logits, ce_chunk=512)
+            grads = torch.autograd.grad(loss, list(leaves.values()))
+        return loss.item(), metrics["aux_loss"].item(), dict(zip(leaves, grads))
+
+    def close(label, a, b):
+        (loss_a, aux_a, grads_a), (loss_b, aux_b, grads_b) = a, b
+        print(f"  {label}: loss {loss_a:.6f} / {loss_b:.6f}, aux loss {aux_a:.6f} / "
+              f"{aux_b:.6f}", flush=True)
+        worst, zero = 0.0, []
+        for name, ga in grads_a.items():
+            ga, gb = ga.float(), grads_b[name].float()
+            na, nb = float(ga.norm()), float(gb.norm())
+            rel = float((ga - gb).norm()) / max(nb, 1e-30)
+            worst = max(worst, rel)
+            if na == 0.0:
+                zero.append(name)
+            print(f"    grad {name}: norm {na:.4e} / {nb:.4e}, rel L2 err {rel:.3e}",
+                  flush=True)
+        print(f"  {label}: largest rel L2 err {worst:.3e} (limit {GRAD_REL_L2:.3e})",
+              flush=True)
+        if zero:
+            raise AssertionError(f"{label}: zero gradient: {zero}")
+        if (worst > GRAD_REL_L2 or abs(loss_a - loss_b) > LOSS_RTOL * abs(loss_b)
+                or abs(aux_a - aux_b) > LOSS_RTOL * abs(aux_b)):
+            raise AssertionError(f"{label}: the two runs disagree")
+        return worst
+
+    # (a) kernels against plain, the plain run on the kernel run's experts.
+    # The plain run's router calls come in the kernel run's order (forward,
+    # then the backward's recompute, last layer first).
+    router = moe.router_probs
+    chosen, used = [], []
+
+    def recording_router(x, w, top_k, norm_topk):
+        out = router(x, w, top_k, norm_topk)
+        chosen.append(out[1])
+        return out
+
+    def pinned_router(x, w, top_k, norm_topk):
+        _, _, probs = router(x, w, top_k, norm_topk)
+        idx = chosen[len(used)]
+        used.append(idx)
+        topk_probs = probs.gather(-1, idx)
+        if norm_topk:
+            topk_probs = topk_probs / topk_probs.sum(dim=-1, keepdim=True)
+        return topk_probs, idx, probs
+
+    seams = [(moe, "router_probs", pinned_router),
+             (fa, "flash_attention_fwd", partial(fa.flash_attention_plain, with_lse=True)),
+             (fab, "flash_attention_bwd", fab.flash_attention_bwd_plain),
+             (gg, "grouped_gateup", gg.grouped_gateup_plain),
+             (gg, "grouped_down", gg.grouped_down_plain),
+             (ggm, "grouped_mm", ggm.grouped_mm_plain)]
+    saved = [getattr(mod, name) for mod, name, _ in seams]
+    reset_launch_counts()
+    try:
+        moe.router_probs = recording_router
+        kern = loss_and_grads()
+        launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+        for mod, name, fn in seams:
+            setattr(mod, name, fn)
+        plain = loss_and_grads()
+    finally:
+        for (mod, name, _), fn in zip(seams, saved):
+            setattr(mod, name, fn)
+    print(f"  launches with kernels: {json.dumps(launches)}", flush=True)
+    want = {"grouped_gateup": 4, "grouped_down": 4, "flash_attention_fwd": 4,
+            "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
+    if launches != want:
+        raise AssertionError(f"2-layer MoE gradient run launched {launches}")
+    err_grads = close("2-layer MoE gradients, kernels vs plain", kern, plain)
+    del kern, plain
+
+    # (b) remat='dots' against remat=True.
+    torch.cuda.reset_peak_memory_stats()
+    full = loss_and_grads(True)
+    peak_full = torch.cuda.max_memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    dots = loss_and_grads("dots")
+    peak_dots = torch.cuda.max_memory_allocated()
+    print(f"  peak memory: remat=True {peak_full / 2**30:.3f} GiB, remat='dots' "
+          f"{peak_dots / 2**30:.3f} GiB", flush=True)
+    err_dots = close("2-layer MoE gradients, remat='dots' vs remat=True", dots, full)
+    del full, dots
+
+    # (c) one int8 / bf16 step, its optimizer state saved and loaded.
+    out_dir = tempfile.mkdtemp(prefix="ctdb-moe-state-")
+    try:
+        fresh = init_params(cfg2, seed=3)
+        rng = np.random.default_rng(21)
+        rows = [{"input_ids": r.tolist(), "prompt_lengths": TRAIN_PROMPT}
+                for r in rng.integers(10, 150000, (2, 512))]
+        tcfg = TrainConfig(output_dir=out_dir, num_epochs=1, batch_size=1,
+                           grad_accum=2, max_length=512, remat=True,
+                           variable_length=False, eval_steps=0, warmup_steps=0,
+                           optimizer_state_dtype="int8", grad_accum_dtype="bfloat16",
+                           save_optimizer_state=True)
+        t1 = Trainer(cfg2, fresh, tcfg, rows, pad_token_id=0)
+        t1.train()
+        t2 = Trainer(cfg2, fresh, tcfg, rows, pad_token_id=0)
+        t2.load_training_state(out_dir)
+        a, b = state_tensors(t1.opt_state), state_tensors(t2.opt_state)
+        differ = [k for k in a if not torch.equal(a[k].cpu(), b[k].cpu())]
+        print(f"  optimizer state after one int8 / bf16 step: {len(a)} tensors, "
+              f"{sum(t.numel() for t in a.values())} elements, saved and loaded; "
+              f"step {t2.global_step}; tensors that differ: {differ}", flush=True)
+        if differ or t2.global_step != 1 or int(a["[1][0].count"]) != 1:
+            raise AssertionError("optimizer state did not round-trip bit for bit")
+        del t1, t2, fresh, a, b
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(grad_rel_l2=err_grads, dots_rel_l2=err_dots)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2234,11 +2595,37 @@ def main() -> int:
     next(r for r in results if r["name"] == "flash_attention_fwd")[
         "training_shape"] = fwd_train
     results += train_results
+    del tr
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    from ct_diffusionmodelbench_tpu_torch.cli.train import load_model
+    args = moe_train_args(tempfile.mkdtemp(prefix="ctdb-moe-train-"))
+    t0 = time.perf_counter()
+    moe_cfg, moe_params, tokenizer = load_model(args)
+    torch.cuda.synchronize()
+    print(f"init llada-moe-7b for training (cli/train.py's load_model, --preset): "
+          f"{moe_cfg.num_layers} layers, {torch.cuda.memory_allocated() / 2**30:.2f} GiB, "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    print("MoE training kernels:", flush=True)
+    moe_checks = moe_train_kernel_phase(moe_cfg, moe_params, dev)
+    print("MoE training slice:", flush=True)
+    moe_slice = moe_train_slice_phase(args, moe_cfg, moe_params, tokenizer, dev)
+    print("MoE training checks:", flush=True)
+    moe_depth = moe_train_depth_phase(moe_cfg, moe_params, dev)
+    for r in results:
+        if r["name"] in moe_checks:
+            r["moe_training"] = dict(moe_checks[r["name"]], launches_per_step=
+                                     moe_slice["launches_per_step"][r["name"]])
+    print("MoE training summary: " + json.dumps(dict(
+        moe_slice, grouped_backward=moe_checks["grouped_backward"], **moe_depth)),
+        flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",
             "k8_ms", "dream_geometry", "dream_launches", "no_skip_ms", "valid_tiles",
-            "block_cache_launches", "threshold_launches", "refresh_no_rope", "cached_step")
+            "block_cache_launches", "threshold_launches", "refresh_no_rope", "cached_step",
+            "moe_training")
     print("first designs' ms (constants from PERF.md, not measured in this run): "
           + json.dumps(FIRST_DESIGN_MS), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -84,6 +84,15 @@ def load_safetensors(path: str | Path) -> Dict[str, torch.Tensor]:
     return out
 
 
+def read_metadata(path: str | Path) -> dict:
+    """The header's ``__metadata__`` dict ({} when there is none), without
+    reading the tensors."""
+    with open(path, "rb") as f:
+        header_len = int.from_bytes(f.read(8), "little")
+        header = json.loads(f.read(header_len))
+    return header.get("__metadata__", {})
+
+
 def shard_tensors(tensors: Mapping[str, torch.Tensor],
                   max_shard_bytes: int) -> Iterable[Dict[str, torch.Tensor]]:
     """Greedy sharding by insertion order, as HF's

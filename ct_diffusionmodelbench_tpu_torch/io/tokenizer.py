@@ -14,6 +14,7 @@ chat_finetuned.py:147-152): model-config ``mask_token_id`` → tokenizer
 
 from __future__ import annotations
 
+import json
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
@@ -132,6 +133,19 @@ class Tokenizer:
         if self.kind == "hf":
             return getattr(self._backend, "unk_token_id", None)
         return None
+
+    def save_pretrained(self, out_dir: str | Path) -> None:
+        """The HF tokenizer's files, or the byte fallback's
+        ``tokenizer_config.json``."""
+        out_dir = Path(out_dir)
+        out_dir.mkdir(parents=True, exist_ok=True)
+        if self.kind == "hf":
+            self._backend.save_pretrained(str(out_dir))
+        else:
+            with open(out_dir / "tokenizer_config.json", "w") as f:
+                json.dump({"tokenizer_class": "CtdbByteFallback",
+                           "vocab_size": self.vocab_size,
+                           "eos_token_id": self.eos_token_id}, f)
 
     # -- chat templating ----------------------------------------------------
 

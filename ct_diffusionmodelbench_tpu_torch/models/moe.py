@@ -4,7 +4,10 @@ Counterpart of ``models/moe.py``: softmax router → top-k expert probs
 (optionally renormalized), routed experts through the grouped path
 (``impl="grouped"``, the default on every device) or the dense one-hot
 oracle (``impl="dense"``), the shared expert added on top, and the
-switch-style load-balancing aux loss.
+switch-style load-balancing aux loss.  Every piece is differentiable: the
+router's gradient flows through the top-k probabilities (the grouped
+path's autograd wrapper returns their gradient) and through the aux loss's
+mean router probabilities.
 """
 
 from __future__ import annotations

@@ -10,23 +10,31 @@ stack is split once per forward (``torch.unbind``: zero-copy views whose
 backward stacks the per-layer gradients once, where a slice per layer
 would allocate a full-stack zero gradient for every layer); the MoE expert
 stacks ``[L, E, D, Fm]`` go to the grouped kernels whole, with the layer
-id, as the TPU kernels took a scalar-prefetched layer id.  Quantized leaves
-(``ops/quant.py`` dicts) ride the same way: a stack's ``q`` and ``s`` are
-split together, the expert stacks stay whole.
+id, as the TPU kernels took a scalar-prefetched layer id, unless autograd
+needs their gradient: then they are split too, and each layer's expert FFN
+gets its own 3-D weights (``ops/grouped_gemm.py``).  An expert entry may
+also be a list of per-layer tensors (the trainer's per-layer gradient
+leaves).  Quantized leaves (``ops/quant.py`` dicts) ride the same way: a
+stack's ``q`` and ``s`` are split together, the expert stacks stay whole.
 
 ``forward(..., remat=True)`` recomputes each block in the backward
-(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``), for the
-trainer; :func:`make_forward_fn` is the inference entry point.
+(``torch.utils.checkpoint``, the reference's ``jax.checkpoint``);
+``remat="dots"`` saves the outputs of the blocks' no-batch matrix products
+and recomputes everything else (a selective-checkpoint policy, the
+reference's ``dots_with_no_batch_dims_saveable``), for the trainer;
+:func:`make_forward_fn` is the inference entry point.
 """
 
 from __future__ import annotations
 
 import math
+from functools import partial
 from typing import Callable, Optional
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
@@ -37,6 +45,9 @@ from ct_diffusionmodelbench_tpu_torch.ops.quant import is_quantized, qdot
 
 EXPERT_STACK_KEYS = ("we_gate", "we_up", "we_down")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+# remat="dots": the products whose outputs the backward keeps (no batch
+# dimension, as jax.checkpoint_policies.dots_with_no_batch_dims_saveable).
+SAVED_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
@@ -147,13 +158,25 @@ def _unbind(leaf):
     return torch.unbind(leaf)
 
 
+def _per_layer_experts(stacks: dict) -> bool:
+    """Whether the expert weights go to the blocks layer by layer: they
+    come as per-layer lists, or autograd needs a stack's gradient."""
+    return any(isinstance(v, (list, tuple)) or (
+        torch.is_grad_enabled() and isinstance(v, torch.Tensor) and v.requires_grad)
+        for v in stacks.values())
+
+
 def split_layers(cfg: ModelConfig, params: dict):
     """(per-layer param dicts, the whole MoE expert stacks or None): every
-    stack but the experts' is unbound once per forward."""
+    stack is unbound once per forward but the experts', which stay whole
+    unless :func:`_per_layer_experts`."""
     blocks = params["blocks"]
     stacks = {k: blocks[k] for k in EXPERT_STACK_KEYS if k in blocks} or None
-    layers = {k: _unbind(v) for k, v in blocks.items()
-              if k not in EXPERT_STACK_KEYS}
+    if stacks is not None and _per_layer_experts(stacks):
+        stacks = None
+    layers = {k: v if isinstance(v, (list, tuple)) else _unbind(v)
+              for k, v in blocks.items()
+              if stacks is None or k not in EXPERT_STACK_KEYS}
     return [{k: v[li] for k, v in layers.items()}
             for li in range(cfg.num_layers)], stacks
 
@@ -219,6 +242,11 @@ def _block_forward(cfg: ModelConfig, x, lp, cos, sin, mask, moe_stacks=None,
     return x + ffn_out, aux
 
 
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in SAVED_DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
 def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             logit_start: Optional[int] = None,
@@ -230,11 +258,8 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
     positions [start, start + length), as the block sampler asks.
     ``return_hidden``: final-norm hidden states instead of logits (shift
     applied).  ``remat=True``: each block is recomputed in the backward
-    (``torch.utils.checkpoint``, non-reentrant)."""
-    if remat == "dots":
-        raise NotImplementedError(
-            "remat='dots' (save matmul outputs only) is not ported; use "
-            "remat=True or False")
+    (``torch.utils.checkpoint``, non-reentrant); ``remat="dots"``: only
+    what is not a no-batch matrix product is (:data:`SAVED_DOTS`)."""
     B, S = input_ids.shape
     x = embed_tokens(params, input_ids)
     positions = token_positions(attn_mask, B, S, x.device)
@@ -242,10 +267,14 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
 
     layers, stacks = split_layers(cfg, params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ckpt_kw = dict(use_reentrant=False)
+    if remat == "dots":
+        ckpt_kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                        _save_dots)
     for li, lp in enumerate(layers):
         if remat:
             x, aux_l = checkpoint(_block_forward, cfg, x, lp, cos, sin,
-                                  attn_mask, stacks, li, use_reentrant=False)
+                                  attn_mask, stacks, li, **ckpt_kw)
         else:
             x, aux_l = _block_forward(cfg, x, lp, cos, sin, attn_mask, stacks, li)
         aux = aux + aux_l

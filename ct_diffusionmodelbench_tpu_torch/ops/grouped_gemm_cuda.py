@@ -30,9 +30,12 @@ builds it only under ``CTDB_GROUPED_SKIP_PAD=1``, since a conditional write
 costs its TPU kernel the pipelining; on the card the pad-skip is faster);
 the FFN output is the same as without it.
 A CPU tensor takes the plain version, a CUDA tensor launches the kernel or
-raises.  The kernels have no backward yet: on the card the wrappers raise
-when grad is enabled and an input requires it, rather than return an output
-that silently drops the gradient.
+raises.  The kernels compute forwards only: the bf16 FFN's backward is
+``ops/grouped_gemm.py``'s autograd wrapper, which calls
+:func:`ffn_padded` under it.  Called directly on the card with grad enabled
+and an input that requires it, each wrapper raises rather than return an
+output that silently drops the gradient; the int8 pair always does, as
+int8 weights are inference-only in the reference too.
 """
 
 from __future__ import annotations
@@ -167,11 +170,16 @@ def grouped_down_plain(h_padded, we_down, tile_expert, tile_m: int = TILE_M,
 
 
 def _refuse_grad(name: str, *tensors) -> None:
-    """Raise if autograd would need a backward through a CUDA kernel here."""
+    """Raise if autograd would need a backward through a CUDA kernel here:
+    the kernels have none of their own.  bf16 experts train through
+    ``ops/grouped_gemm.py::grouped_expert_ffn``, whose autograd wrapper
+    launches the kernels with grad off; int8 experts are inference-only."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise NotImplementedError(
-            f"{name} has no backward on the card yet (MoE training); call it "
-            "under torch.no_grad() or with inputs that do not require grad")
+            f"{name} launches a kernel with no backward of its own: train bf16 "
+            "experts through "
+            "ops/grouped_gemm.py::grouped_expert_ffn (int8 experts do not "
+            "train), or call it under torch.no_grad()")
 
 
 def _check_kernel_args(x, ws, tile_expert, tile_m, layer_index,
@@ -472,22 +480,16 @@ def combine(out_padded, dest, topk_probs, n: int, k: int, dtype):
     return out.to(dtype)
 
 
-def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
-                            tile_m: int = TILE_M,
-                            layer_index: Optional[int] = None) -> torch.Tensor:
-    """Full expert FFN on the padded layout: x [N, D] → [N, D].
-
-    Counterpart of ``grouped_expert_ffn_pallas``: counting layout, one row
-    gather, the gate/up and down kernels (their int8 forms for quantized
-    ``{"q", "s"}`` weights, which need D and F to be multiples of 128, as
-    the reference's; the fused kernel instead under ``CTDB_GROUPED_FUSED=1``
-    for plain weights with D and F multiples of 128 and F at most
-    ``FUSED_MAX_F``, a cluster's reach), each with the pad-skip vector, then
-    the weighted combine."""
+def ffn_padded(x, topk_idx, we_gate, we_up, we_down, tile_m: int = TILE_M,
+               layer_index: Optional[int] = None):
+    """The expert FFN's rows on the padded layout, before the combine:
+    (out_padded [m_pad, D], dest [N·K], group sizes [E], tile_m).  Counting layout, one row gather, the gate/up and down kernels
+    (their int8 forms for quantized ``{"q", "s"}`` weights, which need D and
+    F to be multiples of 128, as the reference's; the fused kernel instead
+    under ``CTDB_GROUPED_FUSED=1`` for plain weights with D and F multiples
+    of 128 and F at most ``FUSED_MAX_F``, a cluster's reach), each with the
+    pad-skip vector."""
     quantized = is_quantized(we_gate)
-    if x.is_cuda:
-        plain = [] if quantized else [we_gate, we_up, we_down]
-        _refuse_grad("grouped_expert_ffn_cuda", x, topk_probs, *plain)
     n, d = x.shape
     k = topk_idx.shape[1]
     wg = we_gate["q"] if quantized else we_gate
@@ -507,4 +509,20 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
             grouped_gateup, grouped_down)
         h = gateup(xs, we_gate, we_up, tile_expert, tile_m, layer_index, valid)
         out_padded = down(h, we_down, tile_expert, tile_m, layer_index, valid)
+    return out_padded, dest, sizes, tile_m
+
+
+def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
+                            tile_m: int = TILE_M,
+                            layer_index: Optional[int] = None) -> torch.Tensor:
+    """Full expert FFN on the padded layout: x [N, D] → [N, D].
+
+    Counterpart of ``grouped_expert_ffn_pallas``: :func:`ffn_padded`, then
+    the weighted combine.  Forward only (see :func:`_refuse_grad`)."""
+    if x.is_cuda:
+        plain = [] if is_quantized(we_gate) else [we_gate, we_up, we_down]
+        _refuse_grad("grouped_expert_ffn_cuda", x, topk_probs, *plain)
+    out_padded, dest, *_ = ffn_padded(x, topk_idx, we_gate, we_up, we_down,
+                                      tile_m, layer_index)
+    n, k = topk_idx.shape
     return combine(out_padded, dest, topk_probs, n, k, x.dtype)

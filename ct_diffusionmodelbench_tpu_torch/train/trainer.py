@@ -1,21 +1,26 @@
 """Masked-diffusion SFT training loop.
 
 Counterpart of ``train/trainer.py`` on one device: :class:`TrainConfig` with
-the same fields, :func:`make_optimizer` (the f32 path), :func:`make_train_step`
-(gradient accumulation over ``A`` micro-batches into f32 buffers, the global
-gradient norm in f32, clip + AdamW) and :class:`Trainer` (shuffled batches,
-the collator, evaluation with tail-row ``row_mask``, ``training_logs.jsonl``,
-``training_metrics.json``, ``training_config.json`` and an HF-layout save).
+the same fields, :func:`make_optimizer` (the clip by gradient-accumulation
+dtype, then AdamW with f32, bf16 or int8 moments), :func:`make_train_step`
+(gradient accumulation over ``A`` micro-batches in f32 or bf16, dense and
+MoE models with the aux loss, the global gradient norm in f32, clip +
+AdamW) and :class:`Trainer` (shuffled batches, the collator, evaluation
+with tail-row ``row_mask``, ``training_logs.jsonl``,
+``training_metrics.json``, ``training_config.json``, the loss plots, an
+HF-layout save with the tokenizer, and the optimizer state saved and
+resumed under the reference's key names).
 
-Differences from the reference, each raising rather than guessing:
-data/tensor/sequence/pipeline parallelism (``dp``/``tp``/``sp``/``pp`` > 1),
-MoE configs (the grouped kernels have no backward yet), the low-precision
-optimizer path (``bfloat16``/``int8`` moments, bf16 accumulation),
-``remat='dots'`` and ``save_optimizer_state`` are not ported.  Parameters
-update in place, so ``donate_state`` has no effect.  Plotting is skipped.
-Noise comes from a ``torch.Generator`` seeded like the reference's key
-(``seed``, ``seed + 10000`` for evaluation), so runs are repeatable but
-draw other numbers than JAX.
+Differences from the reference: data/tensor/sequence/pipeline parallelism
+(``dp``/``tp``/``sp``/``pp`` > 1) is not ported and raises.  Parameters
+update in place, so ``donate_state`` has no effect.  MoE training keeps
+the port's attention dispatch (flash on the card) where the reference
+forces its reference attention, a choice it measured on the TPU.  Each
+layer's expert weights are a gradient leaf of their own, accumulated as
+soon as their layer's backward is done.  Noise comes from a
+``torch.Generator`` seeded like the reference's key (``seed``, ``seed +
+10000`` for evaluation), so runs are repeatable but draw other numbers than
+JAX.
 """
 
 from __future__ import annotations
@@ -31,13 +36,17 @@ import torch
 
 from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
 from ct_diffusionmodelbench_tpu_torch.io.checkpoint import save_checkpoint
+from ct_diffusionmodelbench_tpu_torch.io.safetensors_io import (
+    load_safetensors, save_safetensors)
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
-from ct_diffusionmodelbench_tpu_torch.models.transformer import forward, lm_head_logits
+from ct_diffusionmodelbench_tpu_torch.models.transformer import (
+    EXPERT_STACK_KEYS, forward, lm_head_logits)
 from ct_diffusionmodelbench_tpu_torch.train.collator import DiffusionCollator
 from ct_diffusionmodelbench_tpu_torch.train.diffusion_loss import (
     Noise, diffusion_sft_loss)
 from ct_diffusionmodelbench_tpu_torch.train.optim import (
-    AdamW, flatten_params, global_norm, linear_schedule, unflatten_params,
+    AdamW, AdamWLowp, flatten_params, global_norm, linear_schedule,
+    load_state_tensors, state_tensors, unflatten_params,
     warmup_cosine_decay_schedule)
 from ct_diffusionmodelbench_tpu_torch.utils.jsonutil import to_jsonable
 from ct_diffusionmodelbench_tpu_torch.utils.logging import log_timing
@@ -57,9 +66,9 @@ class TrainConfig:
     adam_b1: float = 0.9
     adam_b2: float = 0.999
     adam_eps: float = 1e-8
-    optimizer_state_dtype: str = "float32"   # only float32 is ported
-    grad_accum_dtype: str = "float32"        # only float32 is ported
-    optimizer_update_dtype: str = "float32"  # lowp path only (not ported)
+    optimizer_state_dtype: str = "float32"   # float32 | bfloat16 | int8
+    grad_accum_dtype: str = "float32"        # float32 | bfloat16
+    optimizer_update_dtype: str = "float32"  # float32 | bfloat16 (lowp path only)
     donate_state: bool = True          # no effect: updates are in place
     max_grad_norm: float = 1.0
     max_length: int = 2048
@@ -67,7 +76,7 @@ class TrainConfig:
     logging_steps: int = 10
     save_steps: int = 0                # 0 = final save only
     save_total_limit: int = 1
-    save_optimizer_state: bool = False  # not ported
+    save_optimizer_state: bool = False  # optimizer.safetensors, for resume
     seed: int = 42
     aux_loss_coef: float = 0.01
     mask_variant: str = "recompute"
@@ -75,7 +84,8 @@ class TrainConfig:
     varlen_prob: float = 0.01
     varlen_min: int = 8
     bucket: int = 64
-    remat: "bool | str" = False        # True = per-block recompute; 'dots' not ported
+    remat: "bool | str" = False        # True = per-block recompute; 'dots'
+                                       # = save matmul outputs only
     ce_chunk: int = 512
     drop_last: bool = True
     dp: int = 1
@@ -85,24 +95,29 @@ class TrainConfig:
     pp_microbatches: int = 0
 
 
+ACCUM_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
 def make_optimizer(cfg: TrainConfig, total_steps: int):
-    """(optimizer, schedule): clip by global norm, then AdamW with weight
-    decay masked off for norm scales and biases."""
-    if (cfg.optimizer_state_dtype, cfg.grad_accum_dtype) != ("float32", "float32"):
-        raise NotImplementedError(
-            "only float32 optimizer moments and float32 gradient accumulation "
-            f"are ported (got {cfg.optimizer_state_dtype!r}, "
-            f"{cfg.grad_accum_dtype!r})")
+    """(optimizer, schedule): clip by global norm (in f32 for a bf16
+    accumulation buffer, as the reference chooses it), then AdamW with
+    weight decay masked off for norm scales and biases: optax's for f32
+    moments, ``adamw_lowp``'s for bf16 or int8 ones."""
+    if cfg.grad_accum_dtype not in ACCUM_DTYPES:
+        raise ValueError(f"unknown grad_accum_dtype {cfg.grad_accum_dtype!r}")
     if cfg.lr_schedule == "cosine":
         schedule = warmup_cosine_decay_schedule(
             0.0, cfg.learning_rate, cfg.warmup_steps,
             max(total_steps, cfg.warmup_steps + 1))
     else:
         schedule = linear_schedule(0.0, cfg.learning_rate, cfg.warmup_steps)
-    optimizer = AdamW(schedule, b1=cfg.adam_b1, b2=cfg.adam_b2, eps=cfg.adam_eps,
-                      weight_decay=cfg.weight_decay,
-                      max_grad_norm=cfg.max_grad_norm)
-    return optimizer, schedule
+    kw = dict(b1=cfg.adam_b1, b2=cfg.adam_b2, eps=cfg.adam_eps,
+              weight_decay=cfg.weight_decay, max_grad_norm=cfg.max_grad_norm,
+              clip_f32=cfg.grad_accum_dtype != "float32")
+    if cfg.optimizer_state_dtype == "float32":
+        return AdamW(schedule, **kw), schedule
+    return AdamWLowp(schedule, state_dtype=cfg.optimizer_state_dtype,
+                     update_dtype=cfg.optimizer_update_dtype, **kw), schedule
 
 
 def _micro_noise(noise: Noise, i: int) -> Noise:
@@ -113,6 +128,34 @@ def _micro_noise(noise: Noise, i: int) -> Noise:
     return noise[0][i], noise[1][i]
 
 
+def _grad_leaves(flat: Dict[str, torch.Tensor], acc: Dict[str, torch.Tensor]):
+    """(gradient leaves, the tree the forward takes): aliases of the
+    parameters that autograd differentiates, each accumulating its gradient
+    into ``acc`` (cast to the buffer's dtype first) as soon as the backward
+    has it, then dropping it.  A layer-stacked expert weight gets one leaf
+    per layer, handed to the model as a list, so each layer's expert
+    gradient is added to its slice of the buffer and freed: the step never
+    holds a full-stack expert gradient beside the buffer."""
+    def leaf(t, buf):
+        t = t.detach().requires_grad_(True)
+
+        def accumulate(v):
+            buf.add_(v.grad.to(buf.dtype))
+            v.grad = None
+        t.register_post_accumulate_grad_hook(accumulate)
+        return t
+
+    leaves, tree_flat = [], {}
+    for k, p in flat.items():
+        if k.split("/")[-1] in EXPERT_STACK_KEYS and p.ndim == 4:
+            tree_flat[k] = [leaf(p[i], acc[k][i]) for i in range(p.shape[0])]
+            leaves += tree_flat[k]
+        else:
+            tree_flat[k] = leaf(p, acc[k])
+            leaves.append(tree_flat[k])
+    return leaves, unflatten_params(tree_flat)
+
+
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
                     optimizer: AdamW, device: DeviceLike = None):
     """(step, eval_step).
@@ -120,12 +163,15 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     ``step(params, opt_state, input_ids [A, B, L], prompt_lengths [A, B],
     noise) -> (params, opt_state, metrics)`` updates ``params`` in place and
     returns it; ``noise`` is a ``torch.Generator`` or ``(t [A, B], u [A, B,
-    L])``.  ``eval_step(params, input_ids [B, L], prompt_lengths [B], noise,
-    row_mask [B]) -> metrics``."""
-    if model_cfg.is_moe:
-        raise NotImplementedError(
-            "MoE training is not ported: the grouped expert kernels have no "
-            "backward yet")
+    L])``.  The gradients accumulate in ``grad_accum_dtype``, each cast to
+    it before it is added, as the reference's ``a + g.astype(acc_dt)``; MoE
+    models add ``aux_loss_coef`` times the aux loss.  ``eval_step(params,
+    input_ids [B, L], prompt_lengths [B], noise, row_mask [B]) ->
+    metrics``."""
+    if train_cfg.grad_accum_dtype not in ACCUM_DTYPES:
+        raise ValueError(f"unknown grad_accum_dtype {train_cfg.grad_accum_dtype!r}")
+    acc_dt = ACCUM_DTYPES[train_cfg.grad_accum_dtype]
+    aux_coef = train_cfg.aux_loss_coef if model_cfg.is_moe else 0.0
     mask_id = model_cfg.mask_token_id
     if mask_id is None:
         raise ValueError("model config needs mask_token_id for diffusion SFT")
@@ -141,7 +187,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     def loss_fn(params, input_ids, prompt_lengths, noise, row_mask=None):
         return diffusion_sft_loss(
             fwd, params, input_ids, prompt_lengths, mask_id, noise,
-            aux_coef=0.0, mask_variant=train_cfg.mask_variant,
+            aux_coef=aux_coef, mask_variant=train_cfg.mask_variant,
             row_mask=row_mask, **ce_kw)
 
     def step(params, opt_state, input_ids, prompt_lengths, noise):
@@ -149,29 +195,24 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         prompt_lengths = prompt_lengths.to(dev)
         a = input_ids.shape[0]
         flat = flatten_params(params)
-        # Aliases of the parameters that autograd may differentiate; the
-        # optimizer later updates the shared storage in place.
-        leaves = {k: p.detach().requires_grad_(True) for k, p in flat.items()}
-        tree = unflatten_params(leaves)
-        acc = {k: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        acc = {k: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                for k, p in flat.items()}
+        # The optimizer later updates the leaves' shared storage in place.
+        leaves, tree = _grad_leaves(flat, acc)
         sums: Dict[str, torch.Tensor] = {}
         for i in range(a):
             with torch.enable_grad():
                 loss, metrics = loss_fn(tree, input_ids[i], prompt_lengths[i],
                                         _micro_noise(noise, i))
-                grads = torch.autograd.grad(loss, list(leaves.values()),
-                                            allow_unused=True)
-            for buf, g in zip(acc.values(), grads):
-                if g is not None:
-                    buf.add_(g)
-            del loss, grads
+                loss.backward()
+            del loss
             for k, v in metrics.items():
                 sums[k] = sums[k] + v if k in sums else v
+        del leaves, tree
         for buf in acc.values():
             buf.div_(a)
         metrics = {k: v / a for k, v in sums.items()}
-        grad_norm = global_norm(acc.values())
+        grad_norm = global_norm(acc.values())   # in f32, after the division
         opt_state = optimizer.update(acc, opt_state, flat, grad_norm)
         metrics["grad_norm"] = grad_norm
         return params, opt_state, metrics
@@ -197,21 +238,24 @@ class Trainer:
         train_cfg: TrainConfig,
         train_dataset: Sequence[Dict],
         eval_dataset: Optional[Sequence[Dict]] = None,
+        pad_token_id: Optional[int] = None,
+        tokenizer=None,
         device: DeviceLike = None,
     ):
         if train_cfg.dp * train_cfg.tp * train_cfg.sp > 1 or train_cfg.pp > 1:
             raise NotImplementedError(
-                "multi-device training (dp/tp/sp/pp > 1) is not ported")
-        if train_cfg.save_optimizer_state:
-            raise NotImplementedError("saving the optimizer state is not ported")
+                "multi-device training (dp/tp/sp/pp > 1) is not ported yet "
+                "(ROADMAP Queue 1 #7)")
         self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.params = params
+        self.tokenizer = tokenizer
         self.train_dataset = list(train_dataset)
         self.eval_dataset = list(eval_dataset) if eval_dataset else None
         self.collator = DiffusionCollator(
-            pad_token_id=model_cfg.pad_token_id,
+            pad_token_id=pad_token_id if pad_token_id is not None
+            else model_cfg.pad_token_id,
             eos_token_id=model_cfg.eos_token_id,
             max_length=train_cfg.max_length,
             variable_length=train_cfg.variable_length,
@@ -370,6 +414,12 @@ class Trainer:
         out_dir.mkdir(parents=True, exist_ok=True)
         with open(out_dir / "training_metrics.json", "w") as f:
             json.dump(self.training_logs, f, indent=2)
+        try:
+            from ct_diffusionmodelbench_tpu_torch.train.plotting import (
+                plot_training_metrics)
+            plot_training_metrics(self.training_logs, out_dir)
+        except Exception as e:  # plotting must never kill a run
+            print(f"Plotting skipped: {e}")
         with open(out_dir / "training_config.json", "w") as f:
             json.dump(to_jsonable({
                 "model_name": self.model_cfg.name,
@@ -388,6 +438,37 @@ class Trainer:
         t0 = time.time()
         log_timing(f"Starting optimized save to {output_dir}")
         save_checkpoint(output_dir, self.model_cfg, self.params)
+        if self.cfg.save_optimizer_state:
+            self.save_training_state(output_dir)
+        if self.tokenizer is not None:
+            self.tokenizer.save_pretrained(output_dir)
         dt = time.time() - t0
         self.save_times.append(dt)
         log_timing(f"Save completed in {dt:.2f} seconds")
+
+    # -- optimizer-state checkpoint / resume --------------------------------
+
+    def save_training_state(self, output_dir: str):
+        """``optimizer.safetensors`` (the optimizer state under the
+        reference's key names, ``jax.tree_util.keystr`` of its optax chain
+        state) and ``trainer_state.json``: either package resumes from
+        either's files."""
+        out = Path(output_dir)
+        save_safetensors(out / "optimizer.safetensors", state_tensors(self.opt_state))
+        with open(out / "trainer_state.json", "w") as f:
+            json.dump({"global_step": self.global_step,
+                       "training_logs": to_jsonable(self.training_logs)}, f)
+
+    def load_training_state(self, output_dir: str):
+        """Read what :meth:`save_training_state` (or the reference's) wrote
+        into this trainer's optimizer state, in place and cast to its
+        dtypes, and the step count and logs."""
+        out = Path(output_dir)
+        self.opt_state = load_state_tensors(
+            self.opt_state, load_safetensors(out / "optimizer.safetensors"))
+        state_file = out / "trainer_state.json"
+        if state_file.exists():
+            with open(state_file) as f:
+                st = json.load(f)
+            self.global_step = st.get("global_step", 0)
+            self.training_logs = st.get("training_logs", [])

@@ -1227,3 +1227,120 @@ def test_tiny_model_single_prompt_kernels(cuda_device, monkeypatch):
     assert launches["grouped_ffn_fused"] == launches["flash_attention_direct"] == want
     assert launches["grouped_gateup"] == launches["grouped_down"] == 0
     assert launches["flash_attention_fwd"] == 0
+
+
+# ---------------------------------------------------------------------------
+# MoE training: the grouped FFN's backward (torch._grouped_mm products on the
+# card, one torch.mm per expert in its plain version) and a tiny MoE step
+# through the kernels.  The backward's products take the same bf16 inputs,
+# accumulate in f32 and round once to bf16 in both versions; their outputs
+# feed further products, so each result holds to the flash backward's rule
+# (2**-6 relative plus 2**-8 of the tensor's largest magnitude).  Gradients
+# of a whole tiny model hold to four bf16 ulps in relative L2 (chip_smoke.py's
+# 2-layer bound), the plain run on the kernel run's expert choice.
+# ---------------------------------------------------------------------------
+
+def _moe_grads_close(got, want):
+    for g, w in zip(got, want):
+        g, w = g.float(), w.float()
+        assert ((g - w).abs() <= 2 ** -6 * w.abs() + 2 ** -8 * w.abs().max()).all()
+
+
+@pytest.mark.parametrize("d,f,e", [(64, 32, 8), (128, 96, 5), (256, 256, 16)])
+def test_grouped_ffn_backward_matches_plain(cuda_device, monkeypatch, d, f, e):
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm as ggm
+
+    dev, k = cuda_device, 2
+    x, idx, g = _routing(dev, 300, d, e, k, d + f)
+    probs = torch.rand((300, k), generator=g, device=dev)
+    ws = [torch.randn(shape, generator=g, device=dev, dtype=torch.bfloat16) / shape[1] ** 0.5
+          for shape in ((e, d, f), (e, d, f), (e, f, d))]
+    ins = [t.requires_grad_(True) for t in [x.clone(), probs] + ws]
+    reset_launch_counts()
+    out = ggm.grouped_expert_ffn(ins[0], ins[1], idx, *ins[2:])
+    assert KERNELS["grouped_gateup"].launches == KERNELS["grouped_down"].launches == 1
+    cot = torch.randn(out.shape, generator=g, device=dev, dtype=out.dtype)
+    got = torch.autograd.grad(out, ins, cot, retain_graph=True)
+    monkeypatch.setattr(ggm, "grouped_mm", ggm.grouped_mm_plain)
+    want = torch.autograd.grad(out, ins, cot)
+    assert KERNELS["grouped_gateup"].launches == 1   # the backward launches none
+    assert all(gw.dtype == w.dtype for gw, w in zip(got, ins))
+    _moe_grads_close(got, want)
+
+
+@pytest.mark.parametrize("remat", [False, True, "dots"])
+def test_tiny_moe_train_step_kernels_against_plain(cuda_device, monkeypatch, remat):
+    """Loss and every gradient of a bf16 ``llada-moe-tiny`` through the
+    kernels against the same on their plain versions (pinned routing), then
+    one int8 / bf16 train step with exact launch counts."""
+    from ct_diffusionmodelbench_tpu_torch.models.transformer import forward, lm_head_logits
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm as ggm
+    from ct_diffusionmodelbench_tpu_torch.train.diffusion_loss import diffusion_sft_loss
+    from ct_diffusionmodelbench_tpu_torch.train.optim import flatten_params, unflatten_params
+
+    dev = cuda_device
+    cfg = get_config("llada-moe-tiny")  # bf16
+    params = init_params(cfg, seed=5, device=dev)
+    g = torch.Generator(device=dev).manual_seed(3)
+    ids = torch.randint(10, 400, (2, 64), generator=g, device=dev)
+    plens = torch.full((2,), 8, device=dev)
+    noise = (torch.rand((2,), generator=g, device=dev),
+             torch.rand((2, 64), generator=g, device=dev))
+
+    def loss_and_grads():
+        leaves = {k: t.detach().requires_grad_(True) for k, t in flatten_params(params).items()}
+        loss, _ = diffusion_sft_loss(
+            lambda p, x, m=None, *, return_hidden=False: forward(
+                cfg, p, x, attn_mask=m, return_hidden=return_hidden, remat=remat),
+            unflatten_params(leaves), ids, plens, cfg.mask_token_id, noise,
+            aux_coef=0.01, head_fn=lm_head_logits, ce_chunk=32)
+        return loss.item(), torch.autograd.grad(loss, list(leaves.values()))
+
+    router_probs, chosen = moe.router_probs, []
+
+    def recording_router(x, w, top_k, norm_topk):
+        out = router_probs(x, w, top_k, norm_topk)
+        chosen.append(out[1])
+        return out
+
+    def pinned_router(x, w, top_k, norm_topk):
+        _, _, probs = router_probs(x, w, top_k, norm_topk)
+        idx = chosen.pop(0)
+        topk = probs.gather(-1, idx)
+        return (topk / topk.sum(dim=-1, keepdim=True) if norm_topk else topk), idx, probs
+
+    with monkeypatch.context() as m:
+        m.setattr(moe, "router_probs", recording_router)
+        loss_k, grads_k = loss_and_grads()
+    with monkeypatch.context() as m:
+        m.setattr(moe, "router_probs", pinned_router)
+        m.setattr(fa, "flash_attention_fwd", lambda *a, **kw: fa.flash_attention_plain(
+            *a, with_lse=True, **kw))
+        m.setattr(fab, "flash_attention_bwd", fab.flash_attention_bwd_plain)
+        m.setattr(gg, "grouped_gateup", gg.grouped_gateup_plain)
+        m.setattr(gg, "grouped_down", gg.grouped_down_plain)
+        m.setattr(ggm, "grouped_mm", ggm.grouped_mm_plain)
+        loss_p, grads_p = loss_and_grads()
+    assert not chosen
+    assert abs(loss_k - loss_p) <= 2 ** -7 * abs(loss_p)
+    for gk, gp in zip(grads_k, grads_p):
+        gk, gp = gk.float(), gp.float()
+        assert gk.abs().max() > 0
+        assert (gk - gp).norm() <= 2 ** -5 * gp.norm()
+
+    tcfg = TrainConfig(grad_accum=2, remat=remat, learning_rate=1e-3, warmup_steps=1,
+                       optimizer_state_dtype="int8", grad_accum_dtype="bfloat16")
+    opt, _ = make_optimizer(tcfg, 10)
+    state = opt.init(params)
+    step, _ = make_train_step(cfg, tcfg, opt, device=dev)
+    reset_launch_counts()
+    params, state, metrics = step(params, state, ids[None].expand(2, 2, 64),
+                                  plens[None].expand(2, 2), g)
+    fwd = cfg.num_layers * 2 * (1 if remat is False else 2)
+    launches = {n: kk.launches for n, kk in KERNELS.items() if kk.launches}
+    assert launches == {"grouped_gateup": fwd, "grouped_down": fwd,
+                        "flash_attention_fwd": fwd,
+                        "flash_attention_bwd_dq": cfg.num_layers * 2,
+                        "flash_attention_bwd_dkv": cfg.num_layers * 2}
+    assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
+    assert state.count == 1

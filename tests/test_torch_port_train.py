@@ -377,13 +377,25 @@ def test_train_step_flash_matches_jax_pallas(tiny):
 
 
 def test_remat_matches_no_remat(tiny):
-    """Recomputing each block in the backward gives the same step."""
+    """Recomputing each block in the backward gives the same step, and so
+    does ``remat='dots'`` (the matrix products' outputs saved, the rest
+    recomputed): the same loss and gradients as no remat."""
     cfg_j, params_j, cfg_t = tiny
     tj, tt = _step_configs(remat=True)
     _check_steps(_run_steps(cfg_j, cfg_t, params_j, tj, tt, 1))
-    with pytest.raises(NotImplementedError, match="dots"):
-        transformer.forward(cfg_t, _bridge(params_j), torch.zeros((1, 4), dtype=torch.long),
-                            remat="dots")
+    ids = torch.randint(3, 400, (2, 16), generator=torch.Generator().manual_seed(0))
+    results = []
+    for remat in (False, "dots"):
+        leaves = {k: v.requires_grad_(True) for k, v in
+                  topt.flatten_params(_bridge(params_j)).items()}
+        logits, _ = transformer.forward(cfg_t, topt.unflatten_params(leaves), ids,
+                                        remat=remat)
+        loss = logits.square().mean()
+        results.append((loss, torch.autograd.grad(loss, list(leaves.values()))))
+    (l0, g0), (l1, g1) = results
+    assert l1.item() == l0.item()
+    for a, b in zip(g1, g0):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
 
 
 def test_trainer_end_to_end(tiny, tmp_path):
@@ -437,13 +449,19 @@ def test_safetensors_round_trip_and_jax_reader(tmp_path, dtype):
 
 
 def test_trainer_refuses_what_is_not_ported(tiny):
+    """Only multi-device training still raises; MoE configs, bf16 / int8
+    moments, bf16 accumulation and saving the optimizer state construct."""
     _, params_j, cfg_t = tiny
     params = _bridge(params_j)
     rows = [{"input_ids": [5] * 8, "prompt_lengths": 1}] * 4
-    moe = get_config("llada-moe-tiny", dtype="float32")
-    with pytest.raises(NotImplementedError, match="MoE"):
-        ttr.Trainer(moe, params, ttr.TrainConfig(), rows, device="cpu")
-    for bad in (dict(dp=2), dict(pp=2), dict(save_optimizer_state=True),
-                dict(optimizer_state_dtype="int8"), dict(grad_accum_dtype="bfloat16")):
-        with pytest.raises(NotImplementedError):
+    for bad in (dict(dp=2), dict(tp=2), dict(sp=2), dict(pp=2)):
+        with pytest.raises(NotImplementedError, match="Queue 1 #7"):
             ttr.Trainer(cfg_t, params, ttr.TrainConfig(**bad), rows, device="cpu")
+    moe = get_config("llada-moe-tiny", dtype="float32")
+    moe_params = transformer.init_params(moe, seed=0, device="cpu")
+    assert ttr.Trainer(moe, moe_params, ttr.TrainConfig(), rows, device="cpu").model_cfg.is_moe
+    for ok in (dict(save_optimizer_state=True), dict(optimizer_state_dtype="int8"),
+               dict(optimizer_state_dtype="bfloat16"), dict(grad_accum_dtype="bfloat16"),
+               dict(remat="dots")):
+        trainer = ttr.Trainer(cfg_t, params, ttr.TrainConfig(**ok), rows, device="cpu")
+        assert trainer.opt_state.count == 0
