@@ -148,9 +148,39 @@ Phases, in order:
    int8 / bf16 step's optimizer state saved, loaded into a fresh
    ``Trainer`` and compared bit for bit.
 
+22. TP/DP serving: four ranks spawned by this script (one card each with
+   nccl where there are four cards, else all on cuda:0 with gloo; the
+   backend, world and ranks per card are printed), dp 2 × tp 2.  Each rank
+   draws its shard of full-size ``llada-moe-7b`` (``ModelRunner.random_init(
+   ..., dp=2, tp=2)``: the one-process draws, sliced leaf by leaf) and runs
+   ``generate_ids`` at the main path's shape (B 8, 4 rows a data rank,
+   prompt 64, gen 256, steps 128, block 32, greedy) after a warm-up at one
+   step a block: exact launches per rank, no mask id, the same ids on every
+   rank, peak memory, tok/s, the collectives' count and their share of the
+   wall (each synchronized to be timed).  Then, on each rank's rows of the
+   decoded batch, layer 1's K1/K2 at its 32 local experts (other ranks'
+   slots dropped from the layout) and its K8 at 8 q / 2 kv heads against
+   their plain versions (rank 0 times them beside their library calls and
+   bounds), and a 2-layer full-width forward over the mesh against the
+   one-rank forward on the gathered first two layers, the one-rank run on
+   the sharded run's expert choice.
+23. dp × tp training: ``cli/train.py``'s ``build_parser`` → ``train_mesh``
+   → ``run`` with ``--dp 2 --tp 2`` on four spawned ranks, each drawing only
+   its shard (as ``load_model`` does): llada-moe-7b at full width cut to 2
+   layers, L 2048, B 2, 3 steps, bf16 moments and accumulation, against
+   the one-rank trainer on the same weights and data (run first in this
+   process): loss and gradient norm per step, exact launches per rank; K8
+   with lse, K10 and K11 at 8 q / 2 kv heads against their plain versions
+   (rank 0, timed); a save (gathered, rank 0 writes) and a resume into a
+   fresh trainer: its optimizer state (count, and a position-weighted
+   fingerprint of every moment shard) equal to the saved trainer's, the
+   next step's loss the same, and the moments after that step, which the
+   loaded state fed, within 1e-2 of the saved trainer's after its step.
+
 The bf16 MoE weights are freed before phase 11, the int8 ones before
 phase 15, Dream's before phase 16, the dense training state before phase
-19.  Prints the first designs' times of the
+19, the MoE training state before phase 22.  A rank that fails, or does
+not answer in its phase's time, fails its phase.  Prints the first designs' times of the
 redesigned flash and grouped kernels (constants from PERF.md, on a line of
 their own),
 the ``{"kernels": [...]}`` line and, last, the
@@ -405,12 +435,15 @@ def skip_pad_check(name, got, want, real):
     return err
 
 
-def grouped_pair_check(label, cfg, blocks, x, topk_idx, li, int8=False):
+def grouped_pair_check(label, cfg, blocks, x, topk_idx, li, int8=False,
+                       drop_foreign=False):
     """K1 and K2 (K6 and K7 with ``int8``) on the routing ``topk_idx`` of
     ``x`` (layer ``li``'s stacked experts), at the row tile the main path's
     layout takes for it (``layout_tile_m``: 128 from M 65536 up), against
     their plain versions, with the pad-skip vector the main path hands them
     (real rows against the plain versions, the rest zero) and without it.
+    ``drop_foreign``: a model rank's local experts, slots of other ranks'
+    experts dropped from the layout as the expert-parallel path drops them.
     Returns the layout, the kernels' inputs and their errors."""
     from types import SimpleNamespace
 
@@ -421,11 +454,13 @@ def grouped_pair_check(label, cfg, blocks, x, topk_idx, li, int8=False):
         getattr(gg, f"grouped_{name}{q}{plain}")
         for name, plain in (("gateup", ""), ("gateup", "_plain"), ("down", ""),
                             ("down", "_plain")))
-    E, K = cfg.num_experts, cfg.num_experts_per_tok
+    K = cfg.num_experts_per_tok
     wg, wu, wd = blocks["we_gate"], blocks["we_up"], blocks["we_down"]
+    E = (wg["q"] if int8 else wg).shape[-3]
     n, m = x.shape[0], topk_idx.numel()
     tile_m = gg.layout_tile_m(m)
-    dest, tile_expert, sizes, m_pad = gg.counting_layout(topk_idx, E, tile_m)
+    dest, tile_expert, sizes, m_pad = gg.counting_layout(topk_idx, E, tile_m,
+                                                      drop_foreign)
     xs = gg.gather_rows(x, dest, K, m_pad)
     used = int((sizes > 0).sum())
     print(f"  {label} routing: N {n}, M {m}, tile_m {tile_m}, m_pad {m_pad}, tiles "
@@ -2476,6 +2511,544 @@ def moe_train_depth_phase(cfg, params, dev):
     return dict(grad_rel_l2=err_grads, dots_rel_l2=err_dots)
 
 
+# ---------------------------------------------------------------------------
+# Tensor- and data-parallel phases (22-23): ranks spawned by this script
+# ---------------------------------------------------------------------------
+
+# dp 2 × tp 2: four ranks.  One card a rank with nccl where there are four
+# cards, else all four on cuda:0 with gloo (NCCL refuses two ranks on one
+# device); gloo's times are a shared card's, not NVLink's.
+PAR_DP, PAR_TP = 2, 2
+PAR_WORLD = PAR_DP * PAR_TP
+# Serving: the main path's configuration, each data rank decoding 4 rows.
+# Training: llada-moe-7b at full width cut to 2 layers, L 2048, B 2 (a row
+# per data rank), 3 steps through cli/train.py, bf16 moments and
+# accumulation (the reference's low-precision flags: four ranks' states
+# share one card).
+PAR_STEPS = STEPS
+PAR_TRAIN_LAYERS, PAR_TRAIN_STEPS, PAR_TRAIN_BATCH = 2, 3, 2
+# The moments after one step from the saved and from the resumed state: a
+# lost or misplaced moment moves their fingerprint by O(1) (b1 = 0.9 of mu
+# and b2 = 0.999 of nu are the old state); bf16 rounding of gradients
+# summed in another order moves it by far less.
+RESUME_MOMENT_TOL = 1e-2
+# A rank that has not answered by then fails its phase.
+PAR_TIMEOUT_S = {"serve": 480, "train": 300}
+
+
+def par_layout():
+    """(backend, device of every rank or None for a card each, ranks per
+    card)."""
+    cards = torch.cuda.device_count()
+    if cards >= PAR_WORLD:
+        return "nccl", None, 1
+    return "gloo", "cuda:0", PAR_WORLD
+
+
+def _par_rank_main(task, rank, port, backend, device, args, results):
+    """A spawned rank: join the process group, run ``task``, report."""
+    import traceback
+
+    os.environ["LOCAL_RANK"] = str(rank)
+    os.environ["LOCAL_WORLD_SIZE"] = str(PAR_WORLD)
+    try:
+        from ct_diffusionmodelbench_tpu_torch.parallel import init_distributed
+
+        init_distributed(f"localhost:{port}", PAR_WORLD, rank, backend=backend,
+                         device=device)
+        results.put((rank, True, globals()[task](rank, *args)))
+    except BaseException:  # reported to the parent, which fails the phase
+        results.put((rank, False, traceback.format_exc()))
+    finally:
+        import torch.distributed as dist
+
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def run_ranks(task: str, *args):
+    """``task(rank, *args)`` on PAR_WORLD spawned ranks; their results in
+    rank order.  A rank that fails, or does not answer within the phase's
+    time, fails the phase; every rank is stopped before this returns."""
+    import queue
+    import socket
+
+    import torch.multiprocessing as mp
+
+    backend, device, per_card = par_layout()
+    print(f"  backend {backend}, world {PAR_WORLD}, ranks per card {per_card} "
+          f"(dp {PAR_DP} x tp {PAR_TP}; {torch.cuda.device_count()} card(s))", flush=True)
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        port = sk.getsockname()[1]
+    ctx = mp.get_context("spawn")
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_par_rank_main,
+                         args=(task, r, port, backend, device, args, results))
+             for r in range(PAR_WORLD)]
+    out = [None] * PAR_WORLD
+    deadline = time.monotonic() + PAR_TIMEOUT_S[task.split("_")[1]]
+    try:
+        for p in procs:
+            p.start()
+        for _ in range(PAR_WORLD):
+            try:
+                rank, ok, value = results.get(timeout=max(deadline - time.monotonic(), 1))
+            except queue.Empty:
+                raise AssertionError(f"{task}: a rank did not answer in time") from None
+            if not ok:
+                raise AssertionError(f"{task}: rank {rank} failed:\n{value}")
+            out[rank] = value
+    finally:
+        for p in procs:
+            p.join(timeout=60 if all(o is not None for o in out) else 1)
+            if p.is_alive():
+                p.kill()
+                p.join()
+    return out
+
+
+def par_kernel_times(pair, cfg, blocks, li, q, k, v, mask, rope, dev):
+    """K1, K2 and K8 at a rank's sharded shapes: kernel, plain version and
+    library call, each timed with CUDA events, and their bounds."""
+    from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+
+    wg, wu, wd = blocks["we_gate"], blocks["we_up"], blocks["we_down"]
+    D, Fm, bf16 = cfg.hidden_size, cfg.moe_intermediate_size, 2
+    xs, h_p, te, tm, valid = pair.xs, pair.h_p, pair.tile_expert, pair.tile_m, pair.valid
+    # The real rows and used experts of this rank's layout (dropped slots
+    # hold no real row).
+    m_real, used = int(pair.sizes.sum()), pair.used
+    pend = torch.cumsum(gg._round_up(pair.sizes, tm), 0, dtype=torch.int32)
+    pend[-1] = pair.m_pad
+    out = {}
+    w_gu = torch.cat([wg[li], wu[li]], dim=-1)
+    t = time_turns({"kernel": lambda: gg.grouped_gateup(xs, wg, wu, te, tm, li, valid),
+                    "library": lambda: torch._grouped_mm(xs, w_gu, offs=pend)}, 20)
+    flops = 4.0 * m_real * D * Fm
+    b = bound_ms(flops, m_real * (D + Fm) * bf16 + used * 2 * D * Fm * bf16)
+    out["grouped_gateup"] = dict(ms=t["kernel"], library_ms=t["library"], plain_ms=time_ms(
+        lambda: gg.grouped_gateup_plain(xs, wg, wu, te, tm, li, valid), 3, warmup=1),
+        bound_ms=b[0], bound_by=b[1])
+    wd_l = wd[li]
+    t = time_turns({"kernel": lambda: gg.grouped_down(h_p, wd, te, tm, li, valid),
+                    "library": lambda: torch._grouped_mm(h_p, wd_l, offs=pend)}, 20)
+    flops = 2.0 * m_real * Fm * D
+    b = bound_ms(flops, m_real * (Fm + D) * bf16 + used * Fm * D * bf16)
+    out["grouped_down"] = dict(ms=t["kernel"], library_ms=t["library"], plain_ms=time_ms(
+        lambda: gg.grouped_down_plain(h_p, wd, te, tm, li, valid), 3, warmup=1),
+        bound_ms=b[0], bound_by=b[1])
+    B, S, H, Dh = q.shape
+    qt, kt = (apply_rope(a, *rope).transpose(1, 2) for a in (q, k))
+    vt = v.transpose(1, 2)
+    keep = None if mask is None else mask.bool()[:, None, None, :]
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    t = time_turns({"kernel": lambda: fa.flash_attention(q, k, v, mask=mask, rope=rope),
+                    "library": lambda: sdpa(qt, kt, vt, attn_mask=keep, enable_gqa=True)},
+                   50)
+    flops = 4.0 * B * H * S * S * Dh
+    b = bound_ms(flops, nbytes(q, k, v, q, *rope) + (0 if mask is None else nbytes(mask)))
+    out["flash_attention_fwd"] = dict(
+        ms=t["kernel"], library_ms=t["library"], plain_ms=time_ms(
+            lambda: fa.flash_attention_plain(q, k, v, mask=mask, rope=rope), 10),
+        bound_ms=b[0], bound_by=b[1])
+    return out
+
+
+def par_serve_task(rank, steps):
+    """Phase 22 on one rank: full-size llada-moe-7b drawn as this rank's
+    shard, ``generate_ids`` at the main path's shape over the mesh, the
+    kernels against their plain versions at this rank's shapes, and a
+    2-layer sharded forward against the one-rank forward."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
+    from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn
+    from ct_diffusionmodelbench_tpu_torch.models.moe import local_slots
+    from ct_diffusionmodelbench_tpu_torch.models.transformer import forward
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.parallel import comm, make_sharded_forward, use_mesh
+    from ct_diffusionmodelbench_tpu_torch.parallel.sharding import gather_params
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    t0 = time.perf_counter()
+    runner = ModelRunner.random_init("llada-moe-7b", seed=0, dp=PAR_DP, tp=PAR_TP)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    mesh, cfg, params = runner.mesh, runner.cfg, runner.params
+    shard_gb = sum(t.numel() * t.element_size() for t in params["blocks"].values()) + sum(
+        t.numel() * t.element_size() for kk, t in params.items() if kk != "blocks")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)   # the slice phase's prompt
+    prompt = torch.randint(10, 100000, (BATCH, PROMPT), generator=gen, device=dev)
+    prompt_np = prompt.cpu().numpy()
+    runner.generate_ids(prompt_np, gen_length=GEN, steps=GEN // BLOCK,
+                        block_length=BLOCK)          # warm-up, one step a block
+    torch.cuda.synchronize()
+    dist.barrier()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    comm.reset_counts()
+    t0 = time.perf_counter()
+    with comm.timed():
+        out = runner.generate_ids(prompt_np, gen_length=GEN, steps=steps,
+                                  block_length=BLOCK)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = {name: kk.launches for name, kk in KERNELS.items()}
+    counts, comm_s = dict(comm.COUNTS), comm.SECONDS["total"]
+    peak = torch.cuda.max_memory_allocated()
+    left = int((out[:, PROMPT:] == cfg.mask_token_id).sum())
+    want = {n: (cfg.num_layers * steps if n in SERVING_KERNELS else 0) for n in KERNELS}
+    if launches != want:
+        raise AssertionError(f"rank {rank}: launches {launches}, expected {want}")
+    if left:
+        raise AssertionError(f"rank {rank}: {left} mask ids remain")
+
+    # The kernels at this rank's shapes: layer 1's local routing (32 of 64
+    # experts; other ranks' slots dropped) and its attention (8 q / 2 kv
+    # heads) in a forward of the decoded batch's own rows.
+    ids = torch.as_tensor(out, device=dev)
+    li = 1
+    fwd = make_sharded_forward(cfg, mesh)
+    (x, topk_idx), (q, k, v, amask, rope) = capture_layer(
+        fwd, params, ids, None, li, logit_start=PROMPT, logit_length=BLOCK)
+    e_local = params["blocks"]["we_gate"].shape[1]
+    pair = grouped_pair_check(f"rank {rank} local experts", cfg, params["blocks"], x,
+                              local_slots(topk_idx, e_local, mesh.model_rank), li,
+                              drop_foreign=True)
+    a_k = fa.flash_attention(q, k, v, mask=amask, rope=rope)
+    a_p = fa.flash_attention_plain(q, k, v, mask=amask, rope=rope)
+    torch.cuda.synchronize()
+    err = {"grouped_gateup": pair.err_gateup, "grouped_down": pair.err_down,
+           "flash_attention_fwd": compare(f"rank {rank} flash_attention_fwd "
+                                          f"(H {q.shape[2]}, KV {k.shape[2]})",
+                                          a_k, a_p, **FLASH_TOL)}
+    shapes = dict(tile_m=pair.tile_m, m=pair.m, m_pad=pair.m_pad,
+                  real_rows=int(pair.sizes.sum()), experts=e_local,
+                  heads=[q.shape[2], k.shape[2]], q_shape=list(q.shape))
+    dist.barrier()
+    times = (par_kernel_times(pair, cfg, params["blocks"], li, q, k, v, amask, rope, dev)
+             if rank == 0 else None)
+    del pair, a_k, a_p, q, k, v, x
+    dist.barrier()
+
+    # 2 layers at full width: the sharded forward on this data rank's rows
+    # against the one-rank forward of the same rows on the gathered first
+    # two layers, the one-rank run on the sharded run's expert choice.
+    cfg2 = cfg.replace(num_layers=2)
+    two = dict(params, blocks={kk: t[:2] for kk, t in params["blocks"].items()})
+    full2 = gather_params(cfg2, two, mesh)
+    rows = ids[mesh.rows(BATCH)]
+    one_rank = make_forward_fn(cfg2, dev)
+
+    def both(p):
+        kw = dict(logit_start=PROMPT, logit_length=BLOCK)
+        if p is params:
+            with torch.inference_mode(), use_mesh(mesh, batch=BATCH):
+                return forward(cfg2, p, rows, **kw)[0]
+        return one_rank(p, rows, None, **kw)[0]
+
+    depth_err = pinned_compare(f"rank {rank} 2-layer logits, dp {PAR_DP} x tp {PAR_TP} "
+                               "against one rank", cfg2, rows, dev, params, full2, [],
+                               forward=both)
+    return dict(init_s=init_s, shard_gb=shard_gb / 1e9, secs=secs, launches=launches,
+                counts=counts, comm_s=comm_s, peak_gib=peak / 2**30, out=np.asarray(out),
+                errors=err, shapes=shapes, times=times, depth_err=depth_err,
+                device=str(dev))
+
+
+def serving_parallel_phase():
+    """Phase 22: TP/DP serving at dp 2 × tp 2 on spawned ranks."""
+    steps = PAR_STEPS
+    if steps != STEPS:
+        print(f"  steps cut from {STEPS} to {steps}", flush=True)
+    res = run_ranks("par_serve_task", steps)
+    secs = max(r["secs"] for r in res)
+    same = all((r["out"] == res[0]["out"]).all() for r in res)
+    print(f"  generate over the mesh: B {BATCH} ({BATCH // PAR_DP} rows a data rank), "
+          f"prompt {PROMPT}, gen {GEN}, steps {steps}, block {BLOCK}: {secs:.4f} s, "
+          f"{BATCH * GEN / secs:.2f} tok/s", flush=True)
+    for r, x in enumerate(res):
+        print(f"  rank {r} ({x['device']}): init {x['init_s']:.2f} s, shard "
+              f"{x['shard_gb']:.3f} GB, peak {x['peak_gib']:.3f} GiB, generate "
+              f"{x['secs']:.4f} s, collectives {json.dumps(x['counts'])}, "
+              f"{x['comm_s']:.4f} s in them ({x['comm_s'] / x['secs']:.4f} of the "
+              f"wall; each synchronized), launches {json.dumps(x['launches'])}",
+              flush=True)
+        print(f"  rank {r} sharded shapes: {json.dumps(x['shapes'])}; errors "
+              f"{json.dumps(x['errors'])}; 2-layer max_abs_err {x['depth_err']:.4e}",
+              flush=True)
+    print(f"  identical ids on every rank (each model group's two ranks decode the "
+          f"same rows): {same}", flush=True)
+    if not same:
+        raise AssertionError("the ranks decoded different ids")
+    print(f"  rank 0 kernel times at its shapes: {json.dumps(res[0]['times'])}", flush=True)
+    return dict(res=res, secs=secs, tokens_per_s=BATCH * GEN / secs, steps=steps)
+
+
+def par_train_rows():
+    import numpy as np
+
+    rng = np.random.default_rng(22)
+    n = PAR_TRAIN_STEPS * PAR_TRAIN_BATCH
+    return [{"input_ids": r.tolist(), "prompt_lengths": TRAIN_PROMPT}
+            for r in rng.integers(10, 150000, (n, TRAIN_SEQ))]
+
+
+def par_train_args(out_dir, dp, tp):
+    from ct_diffusionmodelbench_tpu_torch.cli import train as train_cli
+
+    return train_cli.build_parser().parse_args([
+        "--preset", "llada-moe-7b", "--optimizer-state-dtype", "bfloat16",
+        "--grad-accum-dtype", "bfloat16", "--max-length", str(TRAIN_SEQ),
+        "--batch-size", str(PAR_TRAIN_BATCH), "--grad-accum", "1", "--epochs", "1",
+        "--eval-steps", "0", "--logging-steps", "1", "--output-dir", out_dir,
+        "--seed", "0", "--dp", str(dp), "--tp", str(tp)])
+
+
+def par_train_run(dp, tp, out_dir):
+    """2-layer llada-moe-7b trained PAR_TRAIN_STEPS steps through
+    cli/train.py's ``train_mesh`` and ``run``: seeded weights, whole on one
+    rank, under a mesh each rank's shard of the same draws (as
+    ``load_model`` draws a preset)."""
+    from ct_diffusionmodelbench_tpu_torch.cli import train as train_cli
+    from ct_diffusionmodelbench_tpu_torch.io.tokenizer import Tokenizer
+    from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
+    from ct_diffusionmodelbench_tpu_torch.parallel.sharding import init_sharded_params
+
+    cfg = get_config("llada-moe-7b").replace(num_layers=PAR_TRAIN_LAYERS)
+    args = par_train_args(out_dir, dp, tp)
+    mesh = train_cli.train_mesh(args)
+    params = (init_params(cfg, seed=0) if mesh is None
+              else init_sharded_params(cfg, 0, mesh))
+    tok = Tokenizer.byte_fallback(vocab_size=cfg.vocab_size, eos_token_id=2)
+    trainer = train_cli.run(args, cfg, params, tok, par_train_rows(), [], mesh=mesh)
+    del params
+    logs = [(e["loss"], e["grad_norm"]) for e in trainer.training_logs if "grad_norm" in e]
+    return cfg, tok, trainer, logs
+
+
+def par_train_noise(dev):
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(23)
+    return (torch.rand((1, PAR_TRAIN_BATCH), generator=gen, device=dev),
+            torch.rand((1, PAR_TRAIN_BATCH, TRAIN_SEQ), generator=gen, device=dev))
+
+
+def par_train_task(rank, out_dir):
+    """Phase 23 on one rank: the dp 2 × tp 2 training run, the attention
+    kernels at its local heads, and a save then resume."""
+    import torch.distributed as dist
+
+    from ct_diffusionmodelbench_tpu_torch.io.checkpoint import load_checkpoint
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.parallel import comm
+    from ct_diffusionmodelbench_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    reset_launch_counts()
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    cfg, tok, trainer, logs = par_train_run(PAR_DP, PAR_TP, os.path.join(out_dir, "run"))
+    launches = {name: kk.launches for name, kk in KERNELS.items()}
+    counts = dict(comm.COUNTS)
+    peak = torch.cuda.max_memory_allocated()
+    per_step = PAR_TRAIN_LAYERS * PAR_TRAIN_STEPS
+    want = {n: 0 for n in KERNELS}
+    want.update({n: per_step for n in SERVING_KERNELS + BWD_KERNELS})
+    if launches != want:
+        raise AssertionError(f"rank {rank}: launches {launches}, expected {want}")
+
+    # K8 with lse, K10 and K11 at this rank's heads (16 / tp q, 4 / tp kv).
+    heads = (cfg.num_heads // PAR_TP, cfg.num_kv_heads // PAR_TP)
+    times = None
+    if rank == 0:
+        c = attention_train_check(f"rank 0 training attention (H {heads[0]}, KV "
+                                  f"{heads[1]})", dev, 1, *heads, 0, 30)
+        times = par_train_attention_times(c, dev, *heads)
+        times.update(err_fwd=c.err_fwd, err_bwd=c.err_bwd)
+        del c
+    dist.barrier()
+
+    # Save (gathered, rank 0 writes) then resume into a fresh trainer: its
+    # optimizer state must be the saved one, its next step's loss the same,
+    # and the moments after that step (fed by the loaded state) the saved
+    # trainer's after its step.
+    ckpt = os.path.join(out_dir, "ckpt")
+    trainer.cfg.save_optimizer_state = True
+    trainer.save(ckpt)
+    saved = state_digest(trainer.opt_state)
+    rows = par_train_rows()[:PAR_TRAIN_BATCH]
+    ids = torch.tensor([r["input_ids"] for r in rows], device=dev)[None]
+    plens = torch.tensor([[r["prompt_lengths"] for r in rows]], device=dev)
+    noise = par_train_noise(dev)
+
+    def next_step(t):
+        _, t.opt_state, m = t.train_step(t.params, t.opt_state, ids, plens, noise)
+        return float(m["loss"]), state_digest(t.opt_state)
+
+    loss_a, after_a = next_step(trainer)
+    step_s, tc = list(trainer.step_times), trainer.cfg
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    _, full = load_checkpoint(ckpt, dtype="bfloat16", device="cpu")
+    resumed = Trainer(cfg, full, tc, par_train_rows(), pad_token_id=tok.pad_token_id,
+                      tokenizer=tok)
+    del full
+    resumed.load_training_state(ckpt)
+    loaded = state_digest(resumed.opt_state)
+    loss_b, after_b = next_step(resumed)
+    return dict(logs=logs, launches=launches, counts=counts, peak_gib=peak / 2**30,
+                step_s=step_s, times=times, loss_a=loss_a, loss_b=loss_b,
+                step=resumed.global_step, state_equal=loaded == saved,
+                count=loaded[0], moments_err=digest_err(after_a, after_b),
+                counts_after=(after_a[0], after_b[0]))
+
+
+def state_digest(state):
+    """(count, {(moment, leaf): (Σ x·w, Σ |x|·w)}) of an optimizer state on
+    this rank, in float64 with w = 1 + position mod 65521: a fingerprint
+    that a lost, zeroed, misplaced or mis-sliced moment changes, taken
+    without a second copy of the moments."""
+    out = {}
+    for kind, tree in (("mu", state.mu), ("nu", state.nu)):
+        for name, t in tree.items():
+            x = t.reshape(-1)
+            s = a = 0.0
+            for lo in range(0, x.numel(), 1 << 22):
+                c = x[lo:lo + (1 << 22)].double()
+                w = (torch.arange(lo, lo + c.numel(), device=c.device,
+                                  dtype=torch.float64) % 65521) + 1
+                s += float((c * w).sum())
+                a += float((c.abs() * w).sum())
+            out[(kind, name)] = (s, a)
+    return state.count, out
+
+
+def digest_err(want, got):
+    """The largest difference of two :func:`state_digest` fingerprints'
+    sums over a leaf's weighted magnitude."""
+    return max(max(abs(g[0] - w[0]), abs(g[1] - w[1])) / max(w[1], 1e-30)
+               for w, g in ((want[1][k], got[1][k]) for k in want[1]))
+
+
+def par_train_attention_times(c, dev, H, KV):
+    """K8 with lse, K10 and K11 at a rank's training shape (B 1, S 2048, H,
+    KV, Dh 128, RoPE): kernel, plain version and SDPA's forward / backward,
+    timed, with their bounds."""
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
+
+    B, S, Dh = 1, TRAIN_SEQ, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qt, kt, vt = c.qr.transpose(1, 2), c.kr.transpose(1, 2), c.v.transpose(1, 2)
+    t = time_turns({"kernel": lambda: fa.flash_attention_cuda(
+        c.q, c.k, c.v, rope=c.rope, with_lse=True),
+        "library": lambda: sdpa(qt, kt, vt, enable_gqa=True)}, 20)
+    flops = 4.0 * B * H * S * S * Dh
+    b = bound_ms(flops, nbytes(c.q, c.k, c.v, c.out, c.lse, *c.rope))
+    out = {"flash_attention_fwd": dict(ms=t["kernel"], library_ms=t["library"],
+           plain_ms=time_ms(lambda: fa.flash_attention_plain(
+               c.q, c.k, c.v, rope=c.rope, with_lse=True), 3, warmup=1),
+           bound_ms=b[0], bound_by=b[1])}
+    qg, kg, vg = (a.detach().requires_grad_(True) for a in (qt, kt, vt))
+    s_out = sdpa(qg, kg, vg, enable_gqa=True)
+    dot = c.do.transpose(1, 2)
+    dsum = fab.row_dot(c.out, c.do)
+    dq, dk, dv = (torch.empty(a.shape, dtype=torch.float32, device=dev)
+                  for a in (c.q, c.k, c.v))
+    common = (c.qr.data_ptr(), c.kr.data_ptr(), c.v.data_ptr(), c.bias.data_ptr(),
+              c.do.data_ptr(), c.lse.data_ptr(), dsum.data_ptr())
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    t = time_turns({
+        "dq": lambda: fab.DQ_KERNEL(*common, dq.data_ptr(), B, S, H, KV, Dh, Dh ** -0.5,
+                                    stream),
+        "dkv": lambda: fab.DKV_KERNEL(*common, dk.data_ptr(), dv.data_ptr(), B, S, H, KV,
+                                      Dh, Dh ** -0.5, stream),
+        "library": lambda: torch.autograd.grad(s_out, (qg, kg, vg), dot,
+                                               retain_graph=True)}, 20)
+    plain = time_ms(lambda: fab.flash_attention_bwd_plain(
+        c.qr, c.kr, c.v, c.bias, c.out, c.do, c.lse), 3, warmup=1)
+    ins = nbytes(c.qr, c.kr, c.v, c.do, c.lse, dsum, c.bias)
+    for name, key, fl, outs in (("flash_attention_bwd_dq", "dq", 6.0, (dq,)),
+                                ("flash_attention_bwd_dkv", "dkv", 8.0, (dk, dv))):
+        b = bound_ms(fl * B * H * S * S * Dh, ins + nbytes(*outs))
+        # SDPA computes dq, dk and dv in one call: its whole backward is the
+        # yardstick of each.
+        out[name] = dict(ms=t[key], library_ms=t["library"], plain_ms=plain,
+                         bound_ms=b[0], bound_by=b[1])
+    return out
+
+
+def training_parallel_phase():
+    """Phase 23: dp 2 × tp 2 training on spawned ranks against the one-rank
+    trainer on the same weights and data (run first, in this process)."""
+    import numpy as np
+
+    print(f"  llada-moe-7b at full width cut to {PAR_TRAIN_LAYERS} layers (printed cut); "
+          f"L {TRAIN_SEQ}, B {PAR_TRAIN_BATCH} (a row per data rank), "
+          f"{PAR_TRAIN_STEPS} steps, bf16 moments and accumulation", flush=True)
+    out_dir = tempfile.mkdtemp(prefix="ctdb-par-train-")
+    try:
+        t0 = time.perf_counter()
+        _, _, trainer, ref = par_train_run(1, 1, os.path.join(out_dir, "one"))
+        one_s = list(trainer.step_times)
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  one rank: loss / grad_norm per step "
+              + ", ".join(f"{a:.5f} / {g:.5f}" for a, g in ref)
+              + f"; s/step {[round(x, 4) for x in one_s]} ({time.perf_counter() - t0:.1f} s "
+              "with init)", flush=True)
+        res = run_ranks("par_train_task", out_dir)
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r, x in enumerate(res):
+        print(f"  rank {r}: loss / grad_norm per step "
+              + ", ".join(f"{a:.5f} / {g:.5f}" for a, g in x["logs"])
+              + f"; s/step {[round(t, 4) for t in x['step_s']]}; peak "
+              f"{x['peak_gib']:.3f} GiB; collectives {json.dumps(x['counts'])}; launches "
+              f"{json.dumps({k: v for k, v in x['launches'].items() if v})}", flush=True)
+    got = np.asarray(res[0]["logs"])
+    want = np.asarray(ref)
+    loss_err = float(np.max(np.abs(got[:, 0] - want[:, 0]) / np.abs(want[:, 0])))
+    norm_err = float(np.max(np.abs(got[:, 1] - want[:, 1]) / np.abs(want[:, 1])))
+    same_ranks = all(x["logs"] == res[0]["logs"] for x in res)
+    print(f"  dp {PAR_DP} x tp {PAR_TP} against one rank: loss rel err {loss_err:.3e} "
+          f"(limit {LOSS_RTOL:.3g}), grad norm rel err {norm_err:.3e} (limit "
+          f"{GRAD_REL_L2:.3g}); every rank logs the same: {same_ranks}", flush=True)
+    if len(got) != PAR_TRAIN_STEPS or not np.isfinite(got).all() or \
+            loss_err > LOSS_RTOL or norm_err > GRAD_REL_L2 or not same_ranks:
+        raise AssertionError("dp x tp training disagrees with the one-rank trainer")
+    resume = [(x["loss_a"], x["loss_b"]) for x in res]
+    print(f"  save then resume (gathered on rank 0, re-sharded): optimizer state "
+          f"(count {res[0]['count']}, every moment shard's fingerprint) equal to the "
+          f"saved on every rank: {all(x['state_equal'] for x in res)}; next-step loss "
+          f"{resume[0][0]:.6f} before, {resume[0][1]:.6f} resumed (step "
+          f"{res[0]['step']}), bit-equal on every rank: "
+          f"{all(a == b for a, b in resume)}; moments after that step against the "
+          f"saved trainer's: fingerprint err {max(x['moments_err'] for x in res):.3e} "
+          f"(limit {RESUME_MOMENT_TOL:.3g}), counts {res[0]['counts_after']}", flush=True)
+    if not all(x["state_equal"] for x in res):
+        raise AssertionError("the resumed optimizer state differs from the saved one")
+    if any(abs(a - b) > LOSS_RTOL * abs(a) for a, b in resume):
+        raise AssertionError("the resumed trainer's next step differs")
+    if any(x["moments_err"] > RESUME_MOMENT_TOL or x["counts_after"][0] != x["counts_after"][1]
+           for x in res):
+        raise AssertionError("the moments after the resumed step differ")
+    times = res[0]["times"]
+    print(f"  rank 0 training attention times at its shapes: {json.dumps(times)}",
+          flush=True)
+    return dict(res=res, ref=ref, loss_err=loss_err, norm_err=norm_err)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -2620,12 +3193,36 @@ def main() -> int:
     print("MoE training summary: " + json.dumps(dict(
         moe_slice, grouped_backward=moe_checks["grouped_backward"], **moe_depth)),
         flush=True)
+    del moe_params, tokenizer
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    print("TP/DP serving:", flush=True)
+    serve = serving_parallel_phase()
+    print("dp x tp training:", flush=True)
+    train = training_parallel_phase()
+    for r in results:
+        name = r["name"]
+        if name in SERVING_KERNELS:
+            x = serve["res"][0]
+            r["sharded"] = dict(
+                mesh=f"dp {PAR_DP} x tp {PAR_TP}, {par_layout()[0]}",
+                launches_per_rank=[y["launches"][name] for y in serve["res"]],
+                max_abs_err=max(y["errors"][name] for y in serve["res"]),
+                shape=x["shapes"], **x["times"][name])
+        if name in SERVING_KERNELS + BWD_KERNELS:
+            x = train["res"][0]
+            r["sharded_training"] = dict(
+                launches_per_rank=[y["launches"][name] for y in train["res"]],
+                max_abs_err=x["times"]["err_bwd" if name in BWD_KERNELS else "err_fwd"]
+                if name.startswith("flash") else None,
+                **(x["times"].get(name) or {}))
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",
             "k8_ms", "dream_geometry", "dream_launches", "no_skip_ms", "valid_tiles",
             "block_cache_launches", "threshold_launches", "refresh_no_rope", "cached_step",
-            "moe_training")
+            "moe_training", "sharded", "sharded_training")
     print("first designs' ms (constants from PERF.md, not measured in this run): "
           + json.dumps(FIRST_DESIGN_MS), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -16,7 +16,8 @@ import argparse
 import json
 from typing import Dict, Sequence
 
-from ct_diffusionmodelbench_tpu_torch.cli.common import add_parallel_flags, runner_from_args
+from ct_diffusionmodelbench_tpu_torch.cli.common import (
+    add_parallel_flags, rank_zero_output, runner_from_args)
 from ct_diffusionmodelbench_tpu_torch.eval.benchmark import BenchmarkConfig, DiffusionBenchmark
 from ct_diffusionmodelbench_tpu_torch.eval.lean import (
     FakeLeanVerifier,
@@ -105,7 +106,8 @@ def main(argv=None):
 
     entries = data_split if isinstance(data_split, list) else \
         [data_split[i] for i in range(len(data_split))]
-    run(args, runner, entries)
+    with rank_zero_output(args):
+        run(args, runner, entries)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,10 @@
 
 Counterpart of ``cli/chat.py``, flag for flag, with the `/exit` and
 `/reset` REPL over a chat-template history and the Lean-only system-prompt
-toggle; ``--device`` picks where it runs (the card by default).
+toggle; ``--device`` picks where it runs (the card by default).  Under
+``--dp``/``--tp`` (one process per rank, ``torchrun``) rank 0 reads the
+interactive input and hands each line to the other ranks; only rank 0
+prints.
 
     python -m ct_diffusionmodelbench_tpu_torch.cli.chat --preset llada-moe-tiny \\
         --device cpu --prompt "Prove that 1 + 1 = 2."
@@ -15,7 +18,10 @@ import os
 import time
 from typing import Dict, List, Optional
 
-from ct_diffusionmodelbench_tpu_torch.cli.common import add_parallel_flags, runner_from_args
+import torch.distributed as dist
+
+from ct_diffusionmodelbench_tpu_torch.cli.common import (
+    add_parallel_flags, rank_zero_output, runner_from_args)
 from ct_diffusionmodelbench_tpu_torch.eval.runner import ModelRunner
 from ct_diffusionmodelbench_tpu_torch.utils.logging import log
 
@@ -61,6 +67,22 @@ def run_chat(runner: ModelRunner, prompt_text: str, args) -> Dict:
     }
 
 
+def _read_line(prompt: str) -> Optional[str]:
+    """One line of user input (None at end of input), read on rank 0 and
+    shared with every rank of a process group."""
+    line = None
+    if not dist.is_initialized() or dist.get_rank() == 0:
+        try:
+            line = input(prompt)
+        except (EOFError, KeyboardInterrupt):
+            line = None
+    if dist.is_initialized():
+        box = [line]
+        dist.broadcast_object_list(box, src=0)
+        line = box[0]
+    return line
+
+
 def interactive_chat(runner: ModelRunner, args) -> None:
     sys_content = build_system(not args.no_lean_only, args.system_message)
     messages: List[Dict[str, str]] = [{"role": "system", "content": sys_content}]
@@ -68,11 +90,11 @@ def interactive_chat(runner: ModelRunner, args) -> None:
     print("\nInteractive chat started. Commands: /exit, /reset")
     print("Ask me anything. Press Enter to submit.\n")
     while True:
-        try:
-            user_text = input("You: ").strip()
-        except (EOFError, KeyboardInterrupt):
+        user_text = _read_line("You: ")
+        if user_text is None:
             print("\nExiting.")
             break
+        user_text = user_text.strip()
         if not user_text:
             continue
         if user_text.lower() == "/exit":
@@ -135,14 +157,15 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv=None):
     args = build_parser().parse_args(argv)
     runner = _load_runner(args)
-    if args.interactive or args.prompt is None:
-        interactive_chat(runner, args)
-    else:
-        result = run_chat(runner, args.prompt, args)
-        print("\n=== Generation Result ===")
-        print(f"Latency: {result['latency_sec']}s | mask_id={result['mask_id']}")
-        print("\nGenerated continuation:\n")
-        print(result["generated"])
+    with rank_zero_output(args):
+        if args.interactive or args.prompt is None:
+            interactive_chat(runner, args)
+        else:
+            result = run_chat(runner, args.prompt, args)
+            print("\n=== Generation Result ===")
+            print(f"Latency: {result['latency_sec']}s | mask_id={result['mask_id']}")
+            print("\nGenerated continuation:\n")
+            print(result["generated"])
 
 
 if __name__ == "__main__":

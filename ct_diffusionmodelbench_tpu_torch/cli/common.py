@@ -2,16 +2,31 @@
 
 Counterpart of ``cli/common.py``: every serving CLI exposes the same
 ``--dp/--tp``, ``--accel``, ``--quant`` and ``--parallel-threshold`` flags
-and the same ``--model-dir``/``--preset`` loading rules.  Meshes (``--dp``
-or ``--tp`` above 1) are not ported yet and raise; ``--accel block-cache``
-and ``--parallel-threshold`` reach the runner, which refuses them for the
-Dream/DiffuCoder families.  ``--device`` is how a caller asks for the CPU,
-where the reference reads ``JAX_PLATFORMS``: the default is the card.
+and the same ``--model-dir``/``--preset`` loading rules.  ``--accel
+block-cache`` and ``--parallel-threshold`` reach the runner, which refuses
+them for the Dream/DiffuCoder families.  ``--device`` is how a caller asks
+for the CPU, where the reference reads ``JAX_PLATFORMS``: the default is
+the card.
+
+``--dp``/``--tp`` above 1 serve over a ``parallel/`` mesh, one process per
+rank::
+
+    torchrun --nproc-per-node 2 -m ct_diffusionmodelbench_tpu_torch.cli.chat \
+        --preset llada-moe-7b --tp 2 --prompt "..."
+
+Every rank decodes; :func:`rank_zero_output` keeps the others from
+printing, verifying or writing result files.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
+import shutil
+import tempfile
+
 from ct_diffusionmodelbench_tpu_torch.eval.runner import ModelRunner
+from ct_diffusionmodelbench_tpu_torch.parallel.mesh import is_main_process
 
 
 def add_device_flag(p) -> None:
@@ -21,12 +36,7 @@ def add_device_flag(p) -> None:
 
 
 def add_parallel_flags(p) -> None:
-    p.add_argument("--dp", type=int, default=1,
-                   help="Data-parallel mesh axis (not ported yet: above 1 "
-                        "raises)")
-    p.add_argument("--tp", type=int, default=1,
-                   help="Tensor-parallel mesh axis (not ported yet: above 1 "
-                        "raises)")
+    add_mesh_flags(p)
     p.add_argument("--accel", type=str, default=None,
                    choices=["block-cache"],
                    help="Opt-in approximate acceleration: 'block-cache' = "
@@ -49,27 +59,64 @@ def add_parallel_flags(p) -> None:
     add_device_flag(p)
 
 
+def add_mesh_flags(p) -> None:
+    p.add_argument("--dp", type=int, default=1,
+                   help="Data-parallel mesh axis (batch rows split over it); "
+                        "launch dp·tp processes with torchrun")
+    p.add_argument("--tp", type=int, default=1,
+                   help="Tensor-parallel mesh axis (heads / FFN / experts / "
+                        "vocab split over it)")
+    p.add_argument("--dist-backend", type=str, default=None,
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend (default: nccl with a card "
+                        "per rank, gloo on the CPU; gloo is the choice for "
+                        "ranks sharing a card)")
+
+
+@contextlib.contextmanager
+def rank_zero_output(args):
+    """On ranks other than 0: stdout discarded, verification off and the
+    CLIs' result directories pointed at a temporary directory that is
+    removed afterwards.  Rank 0 (or a run without a process group) is
+    untouched."""
+    if is_main_process():
+        yield args
+        return
+    scratch = tempfile.mkdtemp(prefix="ctdb-rank-")
+    dirs = ("output_dir", "results_dir", "save_dir")
+    saved = {a: getattr(args, a) for a in dirs + ("no_verify",) if hasattr(args, a)}
+    for a in dirs:
+        if hasattr(args, a):
+            setattr(args, a, scratch)
+    if hasattr(args, "no_verify"):
+        args.no_verify = True
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            yield args
+    finally:
+        for a, v in saved.items():
+            setattr(args, a, v)
+        shutil.rmtree(scratch, ignore_errors=True)
+
+
 def runner_from_args(args) -> ModelRunner:
     """--preset (random weights) or --model-dir (HF or int8 checkpoint) on
-    ``--device``."""
-    dp = getattr(args, "dp", 1)
-    tp = getattr(args, "tp", 1)
-    if dp > 1 or tp > 1:
-        raise NotImplementedError(
-            f"--dp {dp} / --tp {tp}: meshes (TP/DP serving) are not ported "
-            "yet (ROADMAP Queue 1 #7)")
+    ``--device``, over a ``--dp``/``--tp`` mesh when either is above 1."""
+    mesh_kw = dict(dp=getattr(args, "dp", 1), tp=getattr(args, "tp", 1),
+                   backend=getattr(args, "dist_backend", None))
     accel = getattr(args, "accel", None)
     quant = getattr(args, "quant", None)
     mask_id = getattr(args, "mask_id", None)
     device = getattr(args, "device", None)
     if getattr(args, "preset", None):
         runner = ModelRunner.random_init(args.preset, accel=accel, quant=quant,
-                                         device=device)
+                                         device=device, **mesh_kw)
         if mask_id is not None:
             runner.mask_id = mask_id
     elif getattr(args, "model_dir", None):
         runner = ModelRunner.from_dir(args.model_dir, mask_id_override=mask_id,
-                                      accel=accel, quant=quant, device=device)
+                                      accel=accel, quant=quant, device=device,
+                                      **mesh_kw)
     else:
         raise SystemExit("need --model-dir or --preset")
     runner.parallel_threshold = getattr(args, "parallel_threshold", None)

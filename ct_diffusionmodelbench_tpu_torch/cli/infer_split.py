@@ -18,7 +18,8 @@ import json
 from datetime import datetime
 from pathlib import Path
 
-from ct_diffusionmodelbench_tpu_torch.cli.common import add_parallel_flags, runner_from_args
+from ct_diffusionmodelbench_tpu_torch.cli.common import (
+    add_parallel_flags, rank_zero_output, runner_from_args)
 from ct_diffusionmodelbench_tpu_torch.io.datasets_io import (
     NUMINA_DATASET,
     format_instruction_problem,
@@ -60,7 +61,11 @@ def build_parser():
 def main(argv=None):
     args = build_parser().parse_args(argv)
     runner = runner_from_args(args)
+    with rank_zero_output(args):
+        _infer(args, runner)
 
+
+def _infer(args, runner) -> None:
     extra = "" if args.no_lean_only else LEAN_EXTRA_SYSTEM
     raw = load_hub_or_local(args.dataset, split="train")
     formatted = raw.map(

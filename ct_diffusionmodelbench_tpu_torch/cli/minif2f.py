@@ -13,7 +13,8 @@ from __future__ import annotations
 import argparse
 from typing import Dict
 
-from ct_diffusionmodelbench_tpu_torch.cli.common import add_parallel_flags, runner_from_args
+from ct_diffusionmodelbench_tpu_torch.cli.common import (
+    add_parallel_flags, rank_zero_output, runner_from_args)
 from ct_diffusionmodelbench_tpu_torch.eval.lean import FakeLeanVerifier
 from ct_diffusionmodelbench_tpu_torch.eval.minif2f import run_minif2f_evaluation
 from ct_diffusionmodelbench_tpu_torch.eval.runner import ModelRunner
@@ -78,7 +79,9 @@ def run(args, runner: ModelRunner) -> Dict:
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    run(args, runner_from_args(args))
+    runner = runner_from_args(args)
+    with rank_zero_output(args):
+        run(args, runner)
 
 
 if __name__ == "__main__":

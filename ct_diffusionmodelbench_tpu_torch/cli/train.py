@@ -8,15 +8,26 @@ tokenizes it; :func:`run` trains on rows already tokenized.
 
     python -m ct_diffusionmodelbench_tpu_torch.cli.train --preset llada-tiny \\
         --device cpu --dataset numina.jsonl --epochs 1 --max-length 64
+
+``--dp``/``--tp``: data × tensor parallelism, one process per rank::
+
+    torchrun --nproc-per-node 4 -m ct_diffusionmodelbench_tpu_torch.cli.train \\
+        --preset llada-moe-7b --dp 2 --tp 2 --batch-size 2 ...
+
+Each rank then loads only its shard onto its card (:func:`load_model`).
+
+``--sp``/``--pp`` above 1 are not ported yet and raise (ROADMAP Queue 1 #7,
+part two).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-from typing import Dict, Sequence
+from typing import Dict, Optional, Sequence
 
-from ct_diffusionmodelbench_tpu_torch.cli.common import add_device_flag
+from ct_diffusionmodelbench_tpu_torch.cli.common import add_device_flag, add_mesh_flags
+from ct_diffusionmodelbench_tpu_torch.device import resolve_device
 from ct_diffusionmodelbench_tpu_torch.io.checkpoint import load_checkpoint
 from ct_diffusionmodelbench_tpu_torch.io.datasets_io import (
     NUMINA_DATASET,
@@ -28,6 +39,10 @@ from ct_diffusionmodelbench_tpu_torch.io.datasets_io import (
 from ct_diffusionmodelbench_tpu_torch.io.tokenizer import Tokenizer
 from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
+from ct_diffusionmodelbench_tpu_torch.parallel.mesh import (
+    Mesh, ensure_distributed, make_mesh)
+from ct_diffusionmodelbench_tpu_torch.parallel.sharding import (
+    init_sharded_params, shard_params)
 from ct_diffusionmodelbench_tpu_torch.train.trainer import TrainConfig, Trainer
 from ct_diffusionmodelbench_tpu_torch.utils.logging import log_timing
 
@@ -67,10 +82,7 @@ def build_parser():
                    help="With --remat: 'full' recomputes the whole block in "
                         "the backward; 'dots' saves matmul outputs and "
                         "recomputes only elementwise/norm work")
-    p.add_argument("--dp", type=int, default=1,
-                   help="Data-parallel mesh axis (not ported yet: above 1 raises)")
-    p.add_argument("--tp", type=int, default=1,
-                   help="Tensor-parallel mesh axis (not ported yet: above 1 raises)")
+    add_mesh_flags(p)
     p.add_argument("--sp", type=int, default=1,
                    help="Sequence-parallel mesh axis (not ported yet: above 1 "
                         "raises)")
@@ -104,11 +116,29 @@ def tokenize_rows(ds, tokenizer, max_length):
     return rows
 
 
-def load_model(args):
+def train_mesh(args) -> Optional[Mesh]:
+    """The ``--dp``/``--tp`` mesh, or None for one process.  Starts the
+    process group from ``torchrun``'s environment if none is up and sets
+    ``args.device`` to this rank's device."""
+    if args.dp * args.tp == 1:
+        return None
+    args.device = ensure_distributed(args.dp, args.tp, args.device,
+                                     args.dist_backend)
+    return make_mesh(data=args.dp, model=args.tp,
+                     device=resolve_device(args.device))
+
+
+def load_model(args, mesh: Optional[Mesh] = None):
     """(config, params, tokenizer) from ``--model-dir`` or ``--preset``, on
-    ``--device``."""
+    ``--device``.  Under ``mesh`` the params are this rank's shard: a
+    checkpoint is read on the host and each leaf sliced before it moves, a
+    preset drawn leaf by leaf (the one-process draws, sliced), so no rank
+    holds the full model on its card."""
     if args.model_dir:
-        cfg, params = load_checkpoint(args.model_dir, device=args.device)
+        cfg, params = load_checkpoint(
+            args.model_dir, device="cpu" if mesh is not None else args.device)
+        if mesh is not None:
+            params = shard_params(cfg, params, mesh)
         try:
             tokenizer = Tokenizer.from_pretrained(args.model_dir)
         except Exception:
@@ -116,7 +146,8 @@ def load_model(args):
                                                 eos_token_id=cfg.eos_token_id or 2)
     elif args.preset:
         cfg = get_config(args.preset)
-        params = init_params(cfg, seed=args.seed, device=args.device)
+        params = (init_params(cfg, seed=args.seed, device=args.device)
+                  if mesh is None else init_sharded_params(cfg, args.seed, mesh))
         tokenizer = Tokenizer.byte_fallback(vocab_size=cfg.vocab_size,
                                             eos_token_id=cfg.eos_token_id or 2)
     else:
@@ -125,9 +156,12 @@ def load_model(args):
 
 
 def run(args, cfg: ModelConfig, params: dict, tokenizer,
-        train_rows: Sequence[Dict], val_rows: Sequence[Dict]) -> Trainer:
+        train_rows: Sequence[Dict], val_rows: Sequence[Dict],
+        mesh: Optional[Mesh] = None) -> Trainer:
     """Train on tokenized rows as ``args`` configure it; returns the
-    trainer after its final save."""
+    trainer after its final save.  ``mesh``: the one ``params`` are this
+    rank's shard of (:func:`train_mesh`, :func:`load_model`); without it,
+    ``--dp``/``--tp`` shard the full ``params`` in the trainer."""
     tc = TrainConfig(
         output_dir=args.output_dir,
         num_epochs=args.epochs,
@@ -160,7 +194,8 @@ def run(args, cfg: ModelConfig, params: dict, tokenizer,
     pad = None if cfg.pad_token_id is not None or cfg.eos_token_id is not None \
         else tokenizer.pad_token_id
     trainer = Trainer(cfg, params, tc, train_rows, eval_dataset=val_rows,
-                      pad_token_id=pad, tokenizer=tokenizer, device=args.device)
+                      pad_token_id=pad, tokenizer=tokenizer, device=args.device,
+                      dist_backend=args.dist_backend, mesh=mesh)
     final = trainer.train()
     log_timing(f"Training complete! {final}")
     print(f"Model saved to: {args.output_dir}")
@@ -169,9 +204,11 @@ def run(args, cfg: ModelConfig, params: dict, tokenizer,
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
+    # Each rank on its own device before anything is placed there.
+    mesh = train_mesh(args)
 
     log_timing("Starting masked-diffusion SFT (PyTorch/CUDA)")
-    cfg, params, tokenizer = load_model(args)
+    cfg, params, tokenizer = load_model(args, mesh)
     log_timing(f"Model: {cfg.name} ({cfg.param_count() / 1e9:.2f}B params)")
 
     raw = load_hub_or_local(args.dataset, split="train")
@@ -191,7 +228,7 @@ def main(argv=None):
     log_timing("Tokenizing dataset")
     run(args, cfg, params, tokenizer,
         tokenize_rows(train_ds, tokenizer, args.max_length),
-        tokenize_rows(val_ds, tokenizer, args.max_length))
+        tokenize_rows(val_ds, tokenizer, args.max_length), mesh=mesh)
 
 
 if __name__ == "__main__":

@@ -19,8 +19,18 @@ the int8 expert stacks run through the int8 grouped kernels.  Approximate
 (``models/block_cache.py``), approximate for deep models, so opt-in.
 ``parallel_threshold`` (per call, or the runner's default): confidence-
 threshold parallel unmasking of the LLaDA families; Dream/DiffuCoder refuse
-it as the reference does, having no such decode.  Meshes are not ported yet
-and raise ``NotImplementedError`` (ROADMAP Queue 1 #7).
+it as the reference does, having no such decode.
+
+``mesh`` (or ``dp``/``tp`` on the constructors): tensor- and data-parallel
+serving over a ``parallel/`` mesh, one process per rank (``torchrun``).
+The parameters are this rank's shard; ``generate_ids`` splits the batch's
+rows over ``data`` when they divide (else every rank decodes them all, as
+the reference's wrapper replicates such a batch) and gathers the decoded
+rows, so every rank returns the whole batch.  The samplers' draws are made
+for the whole batch and sliced (``ops/sampling_ops.py::rand_rows``), so a
+sampled run draws what the one-process run draws, on every rank of a model
+group alike.  As in the reference, ``quant="int8"`` and
+``accel="block-cache"`` are single-device modes and refuse a mesh.
 """
 
 from __future__ import annotations
@@ -43,6 +53,11 @@ from ct_diffusionmodelbench_tpu_torch.models.transformer import (
     init_params, make_forward_fn)
 from ct_diffusionmodelbench_tpu_torch.ops.quant import (
     is_quantized, place_params, quantized_leaf_transform)
+from ct_diffusionmodelbench_tpu_torch.parallel.comm import all_gather
+from ct_diffusionmodelbench_tpu_torch.parallel.mesh import (
+    ensure_distributed, make_mesh, use_mesh)
+from ct_diffusionmodelbench_tpu_torch.parallel.sharding import (
+    init_sharded_params, shard_params)
 from ct_diffusionmodelbench_tpu_torch.sampling import dream_generate, llada_generate
 
 LLADA_FAMILIES = ("llada", "llada-moe")
@@ -57,6 +72,17 @@ def infer_family(cfg: ModelConfig) -> str:
     if cfg.logit_shift:
         return "dream" if "dream" in cfg.name else "diffucoder"
     return "llada-moe" if cfg.is_moe else "llada"
+
+
+def _maybe_mesh(dp: int, tp: int, device: DeviceLike = None,
+                backend: Optional[str] = None):
+    """(data=dp, model=tp) mesh, or None for the one-process path.  Starts
+    the process group from ``torchrun``'s environment if none is up; with
+    neither, raises with how to launch."""
+    if dp * tp <= 1:
+        return None
+    device = ensure_distributed(dp, tp, device, backend)
+    return make_mesh(data=dp, model=tp, device=resolve_device(device))
 
 
 @dataclass
@@ -75,24 +101,29 @@ class ModelRunner:
                  mesh=None,
                  accel: Optional[str] = None,
                  quant: Optional[str] = None,
-                 device: DeviceLike = None):
+                 device: DeviceLike = None,
+                 sharded: bool = False):
         """``params`` may lie anywhere; they are moved to ``device`` (the
         card unless told otherwise) leaf by leaf, and quantized there with
-        ``quant="int8"`` unless already quantized."""
+        ``quant="int8"`` unless already quantized.  Under ``mesh`` they are
+        the full tree, sliced to this rank's shard, or already the shard
+        (``sharded=True``)."""
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.family = family or infer_family(cfg)
         if self.family not in LLADA_FAMILIES + DREAM_FAMILIES:
             raise ValueError(f"unknown sampler family {self.family!r}")
-        if mesh is not None:
-            raise NotImplementedError(
-                "meshes (TP/DP serving) are not ported yet (ROADMAP Queue 1 #7)")
+        self.mesh = mesh
         # accel="block-cache": the dual KV-cache decode, LLaDA families only.
         self.cached_fns = None
         if accel is not None:
             if accel != "block-cache":
                 raise ValueError(f"unknown accel mode {accel!r} "
                                  "(supported: 'block-cache')")
+            if mesh is not None:
+                raise NotImplementedError(
+                    "accel='block-cache' is single-chip only — drop --dp/--tp "
+                    "or the accel flag")
             if self.family not in LLADA_FAMILIES:
                 raise NotImplementedError(
                     "accel='block-cache' supports the LLaDA block sampler "
@@ -101,10 +132,18 @@ class ModelRunner:
         self.accel = accel
         if quant is not None and quant != "int8":
             raise ValueError(f"unknown quant mode {quant!r} (supported: 'int8')")
+        if quant is not None and mesh is not None:
+            raise NotImplementedError(
+                "quant='int8' is the single-chip alternative to a mesh "
+                "— drop --dp/--tp or the quant flag")
         self.quant = quant
-        self.device = resolve_device(device)
-        quantize = quant == "int8" and not is_quantized(params["blocks"]["wq"])
-        self.params = place_params(params, self.device, quantize)
+        if mesh is not None:
+            self.device = mesh.device
+            self.params = params if sharded else shard_params(cfg, params, mesh)
+        else:
+            self.device = resolve_device(device)
+            quantize = quant == "int8" and not is_quantized(params["blocks"]["wq"])
+            self.params = place_params(params, self.device, quantize)
         self.forward_fn = make_forward_fn(cfg, device=self.device)
         # Left-pad prompts to a multiple of this (padding is numerically
         # transparent: mask-aware attention, RoPE positions restart).
@@ -126,12 +165,15 @@ class ModelRunner:
     def from_dir(cls, model_dir: str | Path, family: Optional[str] = None,
                  mask_id_override: Optional[int] = None,
                  dtype: Optional[str] = None,
+                 dp: int = 1, tp: int = 1,
                  accel: Optional[str] = None,
                  quant: Optional[str] = None,
-                 device: DeviceLike = None) -> "ModelRunner":
+                 device: DeviceLike = None,
+                 backend: Optional[str] = None) -> "ModelRunner":
         """An HF-layout directory (quantized on the device leaf by leaf with
         ``quant="int8"``) or an int8 serving directory (detected by its
-        ``config.json`` marker; implies ``quant="int8"``)."""
+        ``config.json`` marker; implies ``quant="int8"``).  ``dp``/``tp``:
+        the mesh (read on the host, each rank keeps its shard)."""
         if is_quantized_checkpoint(model_dir):
             cfg, params = load_quantized_checkpoint(model_dir, device="cpu")
             quant = quant or "int8"
@@ -143,28 +185,41 @@ class ModelRunner:
             tokenizer = Tokenizer.byte_fallback(
                 vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_id or 2)
         return cls(cfg, params, tokenizer, family=family,
-                   mask_id_override=mask_id_override, accel=accel, quant=quant,
-                   device=device)
+                   mask_id_override=mask_id_override,
+                   mesh=_maybe_mesh(dp, tp, device, backend), accel=accel,
+                   quant=quant, device=device)
 
     @classmethod
     def random_init(cls, preset: str, seed: int = 0,
                     family: Optional[str] = None,
+                    dp: int = 1, tp: int = 1,
                     accel: Optional[str] = None,
                     quant: Optional[str] = None,
-                    device: DeviceLike = None) -> "ModelRunner":
+                    device: DeviceLike = None,
+                    backend: Optional[str] = None) -> "ModelRunner":
         """Random weights of a preset, drawn on ``device``; with
         ``quant="int8"`` each leaf is quantized as it is built.  Off the card
-        bf16 presets run in f32, as the reference's off the TPU."""
-        dev = resolve_device(device)
+        bf16 presets run in f32, as the reference's off the TPU.  Under a
+        ``dp``/``tp`` mesh each rank draws its shard leaf by leaf (the one-
+        process draws, sliced)."""
+        mesh = _maybe_mesh(dp, tp, device, backend)
+        dev = mesh.device if mesh is not None else resolve_device(device)
         cfg = get_config(preset)
         if dev.type != "cuda" and cfg.dtype == "bfloat16":
             cfg = cfg.replace(dtype="float32")
-        xform = quantized_leaf_transform if quant == "int8" else None
-        params = init_params(cfg, seed=seed, device=dev, leaf_transform=xform)
+        if mesh is not None:
+            if quant is not None:
+                raise NotImplementedError(
+                    "quant='int8' is the single-chip alternative to a mesh "
+                    "— drop --dp/--tp or the quant flag")
+            params = init_sharded_params(cfg, seed, mesh)
+        else:
+            xform = quantized_leaf_transform if quant == "int8" else None
+            params = init_params(cfg, seed=seed, device=dev, leaf_transform=xform)
         tokenizer = Tokenizer.byte_fallback(vocab_size=cfg.vocab_size,
                                             eos_token_id=cfg.eos_token_id or 2)
-        return cls(cfg, params, tokenizer, family=family, accel=accel,
-                   quant=quant, device=dev)
+        return cls(cfg, params, tokenizer, family=family, mesh=mesh, accel=accel,
+                   quant=quant, device=dev, sharded=mesh is not None)
 
     # -- generation ----------------------------------------------------
 
@@ -190,6 +245,30 @@ class ModelRunner:
                 attn_mask = attn_mask[None]
         threshold = (parallel_threshold if parallel_threshold is not None
                      else self.parallel_threshold)
+        mesh = self.mesh
+        b = prompt.shape[0]
+        # Dream's batch-averaged counts couple the rows: such a batch stays
+        # whole on every rank.
+        rows = (None if mesh is None or (batch_mean_counts and self.family
+                                         in DREAM_FAMILIES) else mesh.rows(b))
+        split = rows is not None
+        if split:
+            prompt = prompt[rows]
+            attn_mask = None if attn_mask is None else attn_mask[rows]
+        with use_mesh(mesh, batch=b if split else None):
+            out = self._generate(prompt, attn_mask, threshold, seed, gen_length=gen_length,
+                                 steps=steps, block_length=block_length,
+                                 temperature=temperature, cfg_scale=cfg_scale,
+                                 remasking=remasking, avoid_eos=avoid_eos,
+                                 top_p=top_p, alg=alg, alg_temp=alg_temp,
+                                 exact=exact, batch_mean_counts=batch_mean_counts)
+        if split:
+            out = all_gather(out, mesh.data_group, mesh, dim=0)
+        return out.cpu().numpy()
+
+    def _generate(self, prompt, attn_mask, threshold, seed, *, gen_length, steps,
+                  block_length, temperature, cfg_scale, remasking, avoid_eos,
+                  top_p, alg, alg_temp, exact, batch_mean_counts) -> torch.Tensor:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         if self.family in LLADA_FAMILIES:
@@ -216,7 +295,7 @@ class ModelRunner:
                 top_p=top_p, alg=alg, alg_temp=alg_temp, mask_id=self.mask_id,
                 exact=exact, batch_mean_counts=batch_mean_counts,
                 attn_mask=attn_mask, generator=gen, device=self.device)
-        return out.cpu().numpy()
+        return out
 
     def _continuation(self, row: np.ndarray, p: int, truncate_at_eos: bool,
                       skip_special_tokens: bool):

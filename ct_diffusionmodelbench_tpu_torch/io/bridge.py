@@ -5,6 +5,10 @@ expert stacks stay ``[L, E, D, Fm]``).
 Used by the parity tests to run both frameworks on identical weights.
 ``np.asarray`` of a bf16 JAX array is an ``ml_dtypes.bfloat16`` array, which
 ``torch.from_numpy`` rejects, so bf16 leaves travel as their uint16 bits.
+
+:func:`shard_from_numpy` takes the tree straight to one rank's shard of a
+``parallel/`` mesh: each leaf is sliced on the host before it moves, so
+ranks that share a card never each hold the full model there.
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import numpy as np
 import torch
 
 from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
+from ct_diffusionmodelbench_tpu_torch.parallel.sharding import local_specs, shard_leaf
 
 
 def tensor_from_numpy(a, device: DeviceLike = None) -> torch.Tensor:
@@ -32,3 +37,14 @@ def params_from_numpy(tree, device: DeviceLike = None):
     if isinstance(tree, dict):
         return {k: params_from_numpy(v, dev) for k, v in tree.items()}
     return tensor_from_numpy(tree, dev)
+
+
+def shard_from_numpy(cfg, tree, mesh):
+    """A full parameter tree (numpy leaves) → this rank's shard on its
+    device (``parallel/sharding.py::local_specs``)."""
+    def walk(node, spec):
+        if isinstance(node, dict):
+            return {k: walk(v, spec[k]) for k, v in node.items()}
+        return tensor_from_numpy(shard_leaf(np.asarray(node), spec, mesh), mesh.device)
+
+    return walk(tree, local_specs(cfg, mesh.model))

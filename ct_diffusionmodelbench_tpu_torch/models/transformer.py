@@ -23,6 +23,16 @@ stack's ``q`` and ``s`` are split together, the expert stacks stay whole.
 and recomputes everything else (a selective-checkpoint policy, the
 reference's ``dots_with_no_batch_dims_saveable``), for the trainer;
 :func:`make_forward_fn` is the inference entry point.
+
+Under a ``parallel/`` mesh whose model axis is above 1 the forward takes
+this rank's shard of the parameters (``parallel/sharding.py``): a
+vocab-parallel embedding (each rank looks up the ids of its vocabulary
+slice, the rows are summed), head-sharded attention whose ``wo`` partial
+product is summed over the model group in f32 before the residual add, a
+column / row split FFN summed likewise (expert parallelism for MoE,
+``models/moe.py``), and a vocab-sharded LM head whose slices are gathered.
+Parts whose dimensions do not divide the model axis run whole on every
+rank (``parallel/sharding.py::tp_plan``).
 """
 
 from __future__ import annotations
@@ -42,6 +52,10 @@ from ct_diffusionmodelbench_tpu_torch.models.layers import rms_norm, rope_angles
 from ct_diffusionmodelbench_tpu_torch.models.moe import moe_block
 from ct_diffusionmodelbench_tpu_torch.ops.attention import attention
 from ct_diffusionmodelbench_tpu_torch.ops.quant import is_quantized, qdot
+from ct_diffusionmodelbench_tpu_torch.parallel.comm import (
+    copy_to_model, gather_from_model, reduce_from_model)
+from ct_diffusionmodelbench_tpu_torch.parallel.mesh import current_mesh
+from ct_diffusionmodelbench_tpu_torch.parallel.sharding import TPPlan, tp_plan
 
 EXPERT_STACK_KEYS = ("we_gate", "we_up", "we_down")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -132,11 +146,27 @@ def token_positions(attn_mask: Optional[torch.Tensor], B: int, S: int,
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
 
 
-def lm_head_logits(params: dict, x: torch.Tensor) -> torch.Tensor:
-    """Hidden states → f32 vocab logits, with the tied-embedding fallback."""
+def tp_plan_of(cfg: Optional[ModelConfig]) -> Optional[TPPlan]:
+    """The tensor-parallel plan under the active mesh (``parallel/``), or
+    None off a mesh, at tp 1 or without a config."""
+    mesh = current_mesh()
+    if cfg is None or mesh is None or mesh.model == 1:
+        return None
+    return tp_plan(cfg, mesh.model)
+
+
+def lm_head_logits(params: dict, x: torch.Tensor,
+                   cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+    """Hidden states → f32 vocab logits, with the tied-embedding fallback.
+    With ``cfg``, under a mesh whose plan shards the vocabulary, each model
+    rank computes its slice of the vocabulary and the slices are gathered:
+    every rank returns the full-vocab logits."""
     head = params.get("lm_head")
     if head is None:
         head = params["embed"].T
+    plan = tp_plan_of(cfg)
+    if plan is not None and plan.vocab:
+        return gather_from_model(qdot(copy_to_model(x), head))
     return qdot(x, head)
 
 
@@ -181,18 +211,29 @@ def split_layers(cfg: ModelConfig, params: dict):
             for li in range(cfg.num_layers)], stacks
 
 
-def embed_tokens(params: dict, input_ids: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: dict, input_ids: torch.Tensor,
+                 plan: Optional[TPPlan] = None) -> torch.Tensor:
     """Token embeddings; out-of-range ids clamp, as the reference's
-    ``mode="clip"`` gather."""
+    ``mode="clip"`` gather.  With a plan that shards the vocabulary, each
+    model rank looks up the ids in its slice (zeros elsewhere) and the
+    ranks' rows are summed."""
     embed = params["embed"]
-    return F.embedding(input_ids.clamp(0, embed.shape[0] - 1), embed)
+    if plan is None or not plan.vocab:
+        return F.embedding(input_ids.clamp(0, embed.shape[0] - 1), embed)
+    n = embed.shape[0]
+    local = input_ids.clamp(0, n * plan.tp - 1) - current_mesh().model_rank * n
+    mine = (local >= 0) & (local < n)
+    rows = F.embedding(local.clamp(0, n - 1), embed) * mine[..., None].to(embed.dtype)
+    return reduce_from_model(rows).to(embed.dtype)
 
 
-def _attn_project(cfg: ModelConfig, h: torch.Tensor, lp: dict):
+def _attn_project(cfg: ModelConfig, h: torch.Tensor, lp: dict, tp: int = 1):
     """QKV projection: [B, S, D] → q [B, S, H, Dh], k/v [B, S, KV, Dh],
-    biased and qk-normed per config, unrotated."""
+    biased and qk-normed per config, unrotated.  ``tp`` > 1: ``lp`` holds
+    this rank's H/tp and KV/tp heads (the qk-norm gain is per head dim,
+    so head sharding leaves it whole)."""
     B, S, _ = h.shape
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+    H, KV, Dh = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
     q = _project(h, lp["wq"])
     k = _project(h, lp["wk"])
     v = _project(h, lp["wv"])
@@ -204,13 +245,27 @@ def _attn_project(cfg: ModelConfig, h: torch.Tensor, lp: dict):
     k = k.reshape(B, S, KV, Dh)
     v = v.reshape(B, S, KV, Dh)
     if cfg.qk_norm:
-        q = rms_norm(q, lp["q_norm"], cfg.norm_eps)
-        k = rms_norm(k, lp["k_norm"], cfg.norm_eps)
+        # Under tp the gains meet only this rank's heads: copy_to_model sums
+        # their gradient over the model group.
+        gq, gk = lp["q_norm"], lp["k_norm"]
+        if tp > 1:
+            gq, gk = copy_to_model(gq), copy_to_model(gk)
+        q = rms_norm(q, gq, cfg.norm_eps)
+        k = rms_norm(k, gk, cfg.norm_eps)
     return q, k, v
 
 
-def _ffn_block(cfg: ModelConfig, x, lp, moe_stacks=None, layer_index=None):
-    """Post-attention FFN half of a block: residual stream → (ffn_out, aux)."""
+def _swiglu_partial(h: torch.Tensor, lp: dict) -> torch.Tensor:
+    """This rank's f32 partial of a column / row split SwiGLU."""
+    hc = copy_to_model(h)
+    a = (F.silu(qdot(hc, lp["w_gate"])) * qdot(hc, lp["w_up"])).to(h.dtype)
+    return qdot(a, lp["w_down"])
+
+
+def _ffn_block(cfg: ModelConfig, x, lp, moe_stacks=None, layer_index=None,
+               plan: Optional[TPPlan] = None):
+    """Post-attention FFN half of a block: residual stream → (ffn_out, aux).
+    Under a tp plan the output is already summed over the model group."""
     B, S, D = x.shape
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
     if cfg.is_moe:
@@ -222,23 +277,37 @@ def _ffn_block(cfg: ModelConfig, x, lp, moe_stacks=None, layer_index=None):
         out, aux = moe_block(h.reshape(B * S, D), moe_params,
                              top_k=cfg.num_experts_per_tok,
                              norm_topk=cfg.norm_topk_prob,
-                             layer_index=layer_index)
+                             layer_index=layer_index, plan=plan)
         return out.reshape(B, S, D), aux
-    ffn_out = swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"])
-    return ffn_out, torch.zeros((), dtype=torch.float32, device=x.device)
+    zero = torch.zeros((), dtype=torch.float32, device=x.device)
+    if plan is not None and plan.ffn:
+        return reduce_from_model(_swiglu_partial(h, lp)).to(x.dtype), zero
+    return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), zero
 
 
 def _block_forward(cfg: ModelConfig, x, lp, cos, sin, mask, moe_stacks=None,
-                   layer_index=None):
-    """One transformer block. x: [B, S, D]; lp: this layer's params."""
+                   layer_index=None, plan: Optional[TPPlan] = None):
+    """One transformer block. x: [B, S, D]; lp: this layer's params.
+
+    ``plan`` (tensor parallelism under the active mesh): a head-sharded
+    attention computes this rank's heads, ``wo``'s f32 partial product is
+    summed over the model group before the residual add, and the FFN's
+    likewise (``_ffn_block``); parts the plan replicates run whole."""
     B, S, _ = x.shape
     h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    q, k, v = _attn_project(cfg, h, lp)
-    attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
-                         causal=cfg.causal, rope=(cos, sin))
-    o = _project(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim), lp["wo"])
-    x = x + o
-    ffn_out, aux = _ffn_block(cfg, x, lp, moe_stacks, layer_index)
+    if plan is not None and plan.attn:
+        q, k, v = _attn_project(cfg, copy_to_model(h), lp, plan.tp)
+        attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
+                             causal=cfg.causal, rope=(cos, sin))
+        o = qdot(attn_out.reshape(B, S, -1), lp["wo"])
+        x = x + reduce_from_model(o).to(x.dtype)
+    else:
+        q, k, v = _attn_project(cfg, h, lp)
+        attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
+                             causal=cfg.causal, rope=(cos, sin))
+        x = x + _project(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim),
+                         lp["wo"])
+    ffn_out, aux = _ffn_block(cfg, x, lp, moe_stacks, layer_index, plan)
     return x + ffn_out, aux
 
 
@@ -261,7 +330,8 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
     (``torch.utils.checkpoint``, non-reentrant); ``remat="dots"``: only
     what is not a no-batch matrix product is (:data:`SAVED_DOTS`)."""
     B, S = input_ids.shape
-    x = embed_tokens(params, input_ids)
+    plan = tp_plan_of(cfg)
+    x = embed_tokens(params, input_ids, plan)
     positions = token_positions(attn_mask, B, S, x.device)
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
@@ -274,9 +344,10 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
     for li, lp in enumerate(layers):
         if remat:
             x, aux_l = checkpoint(_block_forward, cfg, x, lp, cos, sin,
-                                  attn_mask, stacks, li, **ckpt_kw)
+                                  attn_mask, stacks, li, plan, **ckpt_kw)
         else:
-            x, aux_l = _block_forward(cfg, x, lp, cos, sin, attn_mask, stacks, li)
+            x, aux_l = _block_forward(cfg, x, lp, cos, sin, attn_mask, stacks,
+                                      li, plan)
         aux = aux + aux_l
     aux = aux / max(cfg.num_layers, 1)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -290,7 +361,7 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
         # state i - 1 (block starts are always > 0).
         start = logit_start - 1 if cfg.logit_shift else logit_start
         x = x[:, start:start + logit_length]
-    logits = lm_head_logits(params, x)
+    logits = lm_head_logits(params, x, cfg)
     if cfg.logit_shift and logit_start is None:
         logits = torch.cat([logits[:, :1], logits[:, :-1]], dim=1)
     return logits, aux

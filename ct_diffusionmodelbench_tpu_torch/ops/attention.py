@@ -7,6 +7,12 @@ q [B, S, H, Dh], k/v [B, S, KV, Dh]; ``mask`` [B, S] with 1 = real token.
 Dispatch: ``causal`` always takes the reference; otherwise ``impl="auto"``
 takes the flash kernel on a CUDA tensor at every shape and the reference on
 the CPU.  ``impl="flash"`` forces the flash path (its plain version on CPU).
+
+Under a ``parallel/`` mesh the dispatch is the same: attention is head- and
+row-local, so the kernel runs on whatever heads and rows the rank holds,
+with no collective.  The reference wraps its kernel in ``shard_map``
+(``_flash_sharded``) and falls back to its reference path where the heads
+or rows do not divide the mesh; the port has no such limit.
 """
 
 from __future__ import annotations

@@ -86,10 +86,15 @@ class GroupedFFN(torch.autograd.Function):
     Every product is one :func:`grouped_mm` over the experts."""
 
     @staticmethod
-    def forward(ctx, x, topk_probs, topk_idx, we_gate, we_up, we_down):
+    def forward(ctx, x, topk_probs, topk_idx, we_gate, we_up, we_down,
+                drop_foreign=False):
         out_padded, dest, sizes, tile_m = ffn_padded(
-            x, topk_idx, we_gate, we_up, we_down)
-        ctx.save_for_backward(x, topk_probs, we_gate, we_up, we_down, out_padded,
+            x, topk_idx, we_gate, we_up, we_down, drop_foreign=drop_foreign)
+        # A dropped slot's row is zero, so its output and probability
+        # gradient are; its d_out row must be too.
+        probs_b = (topk_probs.masked_fill(topk_idx >= we_gate.shape[0], 0.0)
+                   if drop_foreign else topk_probs)
+        ctx.save_for_backward(x, probs_b, we_gate, we_up, we_down, out_padded,
                               dest, sizes)
         ctx.tile_m = tile_m
         n, k = topk_idx.shape
@@ -127,18 +132,22 @@ class GroupedFFN(torch.autograd.Function):
         dxs = grouped_mm(d_gate, wg.transpose(-2, -1), offs).float()
         dxs += grouped_mm(d_up, wu.transpose(-2, -1), offs).float()
         dx = dxs.index_select(0, dest).reshape(n, k, d).sum(dim=1).to(dt)
-        return dx, dprobs, None, dwg.to(wg.dtype), dwu.to(wu.dtype), dwd.to(wd.dtype)
+        return (dx, dprobs, None, dwg.to(wg.dtype), dwu.to(wu.dtype),
+                dwd.to(wd.dtype), None)
 
 
 def grouped_expert_ffn(x: torch.Tensor, topk_probs: torch.Tensor,
                        topk_idx: torch.Tensor, we_gate, we_up, we_down,
-                       layer_index: Optional[int] = None) -> torch.Tensor:
+                       layer_index: Optional[int] = None,
+                       drop_foreign: bool = False) -> torch.Tensor:
     """x [N, D], topk [N, K]; weights [E, D, Fm]/[E, Fm, D] or the
     layer-stacked [L, ...] forms with ``layer_index``, as tensors or as
     quantized ``{"q", "s"}`` dicts.  Differentiable for plain weights
     (:class:`GroupedFFN`); a stacked weight that needs a gradient is sliced
     to its layer here, which costs a full-stack gradient per layer: callers
-    that train hand 3-D weights."""
+    that train hand 3-D weights.  ``drop_foreign`` (expert parallelism):
+    ``topk_idx`` holds E for slots of experts this rank does not hold; they
+    add nothing (``ops/grouped_gemm_cuda.py::counting_layout``)."""
     wg = we_gate["q"] if is_quantized(we_gate) else we_gate
     if wg.ndim == 4 and layer_index is None:
         raise ValueError(
@@ -150,7 +159,9 @@ def grouped_expert_ffn(x: torch.Tensor, topk_probs: torch.Tensor,
         t.requires_grad for t in (x, topk_probs, we_gate, we_up, we_down))
     if not needs_grad:
         return grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up,
-                                       we_down, layer_index=li)
+                                       we_down, layer_index=li,
+                                       drop_foreign=drop_foreign)
     if li is not None:
         we_gate, we_up, we_down = we_gate[li], we_up[li], we_down[li]
-    return GroupedFFN.apply(x, topk_probs, topk_idx, we_gate, we_up, we_down)
+    return GroupedFFN.apply(x, topk_probs, topk_idx, we_gate, we_up, we_down,
+                            drop_foreign)

@@ -100,16 +100,24 @@ def padded_rows(m: int, e: int, tile_m: int) -> int:
     return _round_up(m, tile_m) + e * tile_m
 
 
-def counting_layout(topk_idx: torch.Tensor, e: int, tile_m: int = TILE_M):
+def counting_layout(topk_idx: torch.Tensor, e: int, tile_m: int = TILE_M,
+                    drop_foreign: bool = False):
     """Expert-aligned padded row layout without a sort.
 
     topk_idx [N, K] → (dest [N·K] padded row of each routing slot in (token,
     k) order, tile_expert [m_pad / tile_m] int32, group_sizes [E] int32,
-    m_pad)."""
+    m_pad).
+
+    ``drop_foreign`` (expert parallelism): ``topk_idx`` may hold ``e``, a
+    slot of an expert another rank holds.  Those slots form one more group
+    after the experts' (m_pad counts it); its tiles name expert e - 1 and
+    lie past that expert's real rows, so :func:`valid_tiles` marks them
+    empty and the kernels write zeros there."""
     flat = topk_idx.reshape(-1).long()
     m = flat.shape[0]
-    m_pad = padded_rows(m, e, tile_m)
-    rank, sizes = expert_rank(flat, e)
+    groups = e + 1 if drop_foreign else e
+    m_pad = padded_rows(m, groups, tile_m)
+    rank, sizes = expert_rank(flat, groups)
     padded_sizes = _round_up(sizes, tile_m)
     pend = torch.cumsum(padded_sizes, dim=0, dtype=torch.int32)
     pstarts = pend - padded_sizes
@@ -118,7 +126,7 @@ def counting_layout(topk_idx: torch.Tensor, e: int, tile_m: int = TILE_M):
                               device=flat.device) * tile_m
     tile_expert = (pend[None, :] <= tile_start[:, None]).sum(dim=1, dtype=torch.int32)
     tile_expert = torch.clamp_max(tile_expert, e - 1)
-    return dest, tile_expert, sizes, m_pad
+    return dest, tile_expert, sizes[:e], m_pad
 
 
 def _layer(w: torch.Tensor, layer_index: Optional[int]) -> torch.Tensor:
@@ -481,14 +489,15 @@ def combine(out_padded, dest, topk_probs, n: int, k: int, dtype):
 
 
 def ffn_padded(x, topk_idx, we_gate, we_up, we_down, tile_m: int = TILE_M,
-               layer_index: Optional[int] = None):
+               layer_index: Optional[int] = None, drop_foreign: bool = False):
     """The expert FFN's rows on the padded layout, before the combine:
     (out_padded [m_pad, D], dest [N·K], group sizes [E], tile_m).  Counting layout, one row gather, the gate/up and down kernels
     (their int8 forms for quantized ``{"q", "s"}`` weights, which need D and
     F to be multiples of 128, as the reference's; the fused kernel instead
     under ``CTDB_GROUPED_FUSED=1`` for plain weights with D and F multiples
     of 128 and F at most ``FUSED_MAX_F``, a cluster's reach), each with the
-    pad-skip vector."""
+    pad-skip vector.  ``drop_foreign``: see :func:`counting_layout`; the
+    dropped slots' rows come out zero."""
     quantized = is_quantized(we_gate)
     n, d = x.shape
     k = topk_idx.shape[1]
@@ -498,7 +507,8 @@ def ffn_padded(x, topk_idx, we_gate, we_up, we_down, tile_m: int = TILE_M,
     if quantized and not aligned:
         raise ValueError(f"int8 grouped FFN needs D, F % 128 == 0, got {d}, {fm}")
     tile_m = layout_tile_m(n * k, tile_m)
-    dest, tile_expert, sizes, m_pad = counting_layout(topk_idx, e, tile_m)
+    dest, tile_expert, sizes, m_pad = counting_layout(topk_idx, e, tile_m,
+                                                      drop_foreign)
     xs = gather_rows(x, dest, k, m_pad)
     valid = valid_tiles(sizes, tile_expert, tile_m, m_pad)
     if not quantized and aligned and fm <= FUSED_MAX_F and fused_mode():
@@ -514,7 +524,8 @@ def ffn_padded(x, topk_idx, we_gate, we_up, we_down, tile_m: int = TILE_M,
 
 def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
                             tile_m: int = TILE_M,
-                            layer_index: Optional[int] = None) -> torch.Tensor:
+                            layer_index: Optional[int] = None,
+                            drop_foreign: bool = False) -> torch.Tensor:
     """Full expert FFN on the padded layout: x [N, D] → [N, D].
 
     Counterpart of ``grouped_expert_ffn_pallas``: :func:`ffn_padded`, then
@@ -523,6 +534,6 @@ def grouped_expert_ffn_cuda(x, topk_probs, topk_idx, we_gate, we_up, we_down,
         plain = [] if is_quantized(we_gate) else [we_gate, we_up, we_down]
         _refuse_grad("grouped_expert_ffn_cuda", x, topk_probs, *plain)
     out_padded, dest, *_ = ffn_padded(x, topk_idx, we_gate, we_up, we_down,
-                                      tile_m, layer_index)
+                                      tile_m, layer_index, drop_foreign)
     n, k = topk_idx.shape
     return combine(out_padded, dest, topk_probs, n, k, x.dtype)

@@ -7,6 +7,11 @@ Counterpart of ``ops/sampling_ops.py``:
 - :func:`token_confidence` — chosen-token softmax probability via logsumexp.
 - :func:`rank_topk_mask`   — per-row top-k with a per-row k, static shapes,
   no host sync.
+- :func:`rand_rows`        — the samplers' uniform draws; under a mesh
+  scope whose batch is split over ``data`` (a data-parallel rank decoding
+  some rows of a batch, ``parallel/mesh.py::MeshScope``) drawn for the
+  whole batch and sliced to the rank's rows, so every row sees the draws it
+  would see in the one-process run.
 """
 
 from __future__ import annotations
@@ -14,6 +19,21 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+
+from ct_diffusionmodelbench_tpu_torch.parallel.mesh import current_scope
+
+
+def rand_rows(shape, generator: Optional[torch.Generator],
+              device) -> torch.Tensor:
+    """f32 uniforms of ``shape`` (rows first) from ``generator``."""
+    scope = current_scope()
+    rows = None if scope is None else scope.rows
+    if rows is None:
+        return torch.rand(shape, generator=generator, device=device,
+                          dtype=torch.float32)
+    full = torch.rand((scope.batch,) + tuple(shape[1:]), generator=generator,
+                      device=device, dtype=torch.float32)
+    return full[rows]
 
 
 def gumbel_rescore(logits: torch.Tensor, temperature: float,
@@ -26,8 +46,7 @@ def gumbel_rescore(logits: torch.Tensor, temperature: float,
     if temperature == 0:
         return logits
     tiny = torch.finfo(torch.float32).tiny
-    u = torch.rand(logits.shape, generator=generator, device=logits.device,
-                   dtype=torch.float32).clamp_min(tiny)
+    u = rand_rows(logits.shape, generator, logits.device).clamp_min(tiny)
     return logits.float() - temperature * torch.log(-torch.log(u))
 
 

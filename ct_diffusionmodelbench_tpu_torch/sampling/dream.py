@@ -41,7 +41,7 @@ from typing import Callable, Optional, Sequence, Tuple
 import torch
 
 from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
-from ct_diffusionmodelbench_tpu_torch.ops.sampling_ops import rank_topk_mask
+from ct_diffusionmodelbench_tpu_torch.ops.sampling_ops import rand_rows, rank_topk_mask
 from ct_diffusionmodelbench_tpu_torch.sampling.llada import _supports_logit_slice
 
 NEG_INF = float("-inf")
@@ -75,8 +75,7 @@ def _uniform(shape, device, generator, given: Optional[torch.Tensor]):
     """Uniform draws in [1e-20, 1): the given ones, else the generator's."""
     if given is not None:
         return given.to(device=device, dtype=torch.float32)
-    u = torch.rand(shape, generator=generator, device=device, dtype=torch.float32)
-    return u.clamp_min(1e-20)
+    return rand_rows(shape, generator, device).clamp_min(1e-20)
 
 
 def _top_k(work: torch.Tensor, k: int):

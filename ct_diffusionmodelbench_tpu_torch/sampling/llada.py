@@ -42,7 +42,7 @@ import torch.nn.functional as F
 
 from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
 from ct_diffusionmodelbench_tpu_torch.ops.sampling_ops import (
-    gumbel_rescore, rank_topk_mask, token_confidence)
+    gumbel_rescore, rand_rows, rank_topk_mask, token_confidence)
 from ct_diffusionmodelbench_tpu_torch.sampling.schedule import get_num_transfer_tokens
 
 NEG_INF = float("-inf")
@@ -154,8 +154,7 @@ def _denoise_loop(forward_fn, sc: LLaDASamplerConfig, x: torch.Tensor,
             if sc.confidence_dtype == "bfloat16":
                 x0_p = x0_p.to(torch.bfloat16).float()
         else:
-            x0_p = torch.rand(x_blk.shape, generator=generator,
-                              device=x_blk.device, dtype=torch.float32)
+            x0_p = rand_rows(x_blk.shape, generator, x_blk.device)
         x0 = torch.where(mask_blk, x0, x_blk)
         confidence = torch.where(mask_blk, x0_p, NEG_INF)
         return x0, confidence, mask_blk

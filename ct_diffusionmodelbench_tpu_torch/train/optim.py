@@ -44,6 +44,8 @@ from typing import Callable, Dict, Iterable, Tuple, Union
 import numpy as np
 import torch
 
+from ct_diffusionmodelbench_tpu_torch.parallel.comm import all_reduce_
+
 Schedule = Callable[[int], float]
 NO_DECAY = ("norm", "bias", "bq", "bk", "bv")  # leaf-name fragments
 QUANT_BLOCK = 256
@@ -119,15 +121,34 @@ def decays(name: str) -> bool:
     return not any(t in name for t in NO_DECAY)
 
 
+def _sum_sq(t: torch.Tensor) -> torch.Tensor:
+    """Σ x² in f32, in chunks of :data:`CHUNK_ELEMS` so no leaf-sized f32
+    square exists (a bf16 expert stack's would be 8.5 GB at full size)."""
+    flat = t.reshape(-1)
+    return sum(torch.sum(torch.square(flat[lo:lo + CHUNK_ELEMS].float()))
+               for lo in range(0, flat.numel(), CHUNK_ELEMS))
+
+
 def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
-    """sqrt(Σ_leaves Σ x²) in f32, each leaf summed in chunks of
-    :data:`CHUNK_ELEMS` so no leaf-sized f32 square exists (a bf16 expert
-    stack's would be 8.5 GB at full size)."""
-    def sum_sq(t):
-        flat = t.reshape(-1)
-        return sum(torch.sum(torch.square(flat[lo:lo + CHUNK_ELEMS].float()))
-                   for lo in range(0, flat.numel(), CHUNK_ELEMS))
-    return torch.sqrt(sum(sum_sq(t) for t in tensors))
+    """sqrt(Σ_leaves Σ x²) in f32 (:func:`_sum_sq` per leaf)."""
+    return torch.sqrt(sum(_sum_sq(t) for t in tensors))
+
+
+def sharded_global_norm(grads: Dict[str, torch.Tensor], sharded: Iterable[str],
+                        mesh) -> torch.Tensor:
+    """The global norm of a tree whose ``sharded`` leaves each model rank
+    holds a slice of (``parallel/``): their squares are summed over the
+    model group, the replicated leaves' (equal on every rank) counted once;
+    f32 throughout.  Every rank of the group gets the same norm, so the
+    clip that follows is the same everywhere."""
+    sharded = set(sharded)
+    dev = next(iter(grads.values())).device
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    part = zero + sum(_sum_sq(g) for k, g in grads.items() if k in sharded)
+    if mesh.model > 1:
+        all_reduce_(part, mesh.model_group, mesh)
+    whole = zero + sum(_sum_sq(g) for k, g in grads.items() if k not in sharded)
+    return torch.sqrt(whole + part)
 
 
 def clip_by_global_norm(grads: Dict[str, torch.Tensor], grad_norm: torch.Tensor,

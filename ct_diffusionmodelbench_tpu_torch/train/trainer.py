@@ -11,11 +11,22 @@ with tail-row ``row_mask``, ``training_logs.jsonl``,
 HF-layout save with the tokenizer, and the optimizer state saved and
 resumed under the reference's key names).
 
-Differences from the reference: data/tensor/sequence/pipeline parallelism
-(``dp``/``tp``/``sp``/``pp`` > 1) is not ported and raises.  Parameters
-update in place, so ``donate_state`` has no effect.  MoE training keeps
-the port's attention dispatch (flash on the card) where the reference
-forces its reference attention, a choice it measured on the TPU.  Each
+Data and tensor parallelism (``dp``/``tp`` > 1): one process per rank
+(``torchrun``) over a ``parallel/`` mesh.  Each rank holds its shard of the
+parameters and of the optimizer state; each data rank takes its rows of the
+global micro-batch, with the noise drawn for the global batch and sliced,
+so the loss trajectory is the one-process run's; the gradients are averaged
+over ``data`` (the per-layer expert leaves, like every sharded leaf, stay
+this rank's); the global norm sums the shards' squares over ``model``.
+Saves gather the shards on rank 0, which writes the reference's layout;
+resumes re-shard.  Evaluation runs its whole batch on every rank.
+Sequence and pipeline parallelism (``sp``/``pp`` > 1) are not ported yet
+and raise (ROADMAP Queue 1 #7, part two).
+
+Differences from the reference: parameters update in place, so
+``donate_state`` has no effect.  MoE training keeps the port's attention
+dispatch (flash on the card) where the reference forces its reference
+attention, a choice it measured on the TPU.  Each
 layer's expert weights are a gradient leaf of their own, accumulated as
 soon as their layer's backward is done.  Noise comes from a
 ``torch.Generator`` seeded like the reference's key (``seed``, ``seed +
@@ -42,11 +53,18 @@ from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
 from ct_diffusionmodelbench_tpu_torch.models.transformer import (
     EXPERT_STACK_KEYS, forward, lm_head_logits)
 from ct_diffusionmodelbench_tpu_torch.train.collator import DiffusionCollator
+from ct_diffusionmodelbench_tpu_torch.parallel.comm import (
+    all_gather, all_reduce_, mean_over_data)
+from ct_diffusionmodelbench_tpu_torch.parallel.mesh import (
+    Mesh, ensure_distributed, is_main_process, make_mesh, use_mesh)
+from ct_diffusionmodelbench_tpu_torch.parallel.sharding import (
+    gather_params, local_specs, shard_leaf, shard_params)
 from ct_diffusionmodelbench_tpu_torch.train.diffusion_loss import (
-    Noise, diffusion_sft_loss)
+    diffusion_sft_loss, draw_noise)
 from ct_diffusionmodelbench_tpu_torch.train.optim import (
-    AdamW, AdamWLowp, flatten_params, global_norm, linear_schedule,
-    load_state_tensors, state_tensors, unflatten_params,
+    AdamW, AdamWLowp, AdamWState, Quantized, _keypath, dequantize_int8, flatten_params,
+    global_norm, linear_schedule, load_state_tensors, quantize_int8,
+    sharded_global_norm, state_tensors, unflatten_params,
     warmup_cosine_decay_schedule)
 from ct_diffusionmodelbench_tpu_torch.utils.jsonutil import to_jsonable
 from ct_diffusionmodelbench_tpu_torch.utils.logging import log_timing
@@ -120,14 +138,6 @@ def make_optimizer(cfg: TrainConfig, total_steps: int):
                      update_dtype=cfg.optimizer_update_dtype, **kw), schedule
 
 
-def _micro_noise(noise: Noise, i: int) -> Noise:
-    """Micro-batch ``i``'s noise: the generator itself (drawn in order), or
-    row ``i`` of stacked ``(t [A, B], u [A, B, L])`` draws."""
-    if isinstance(noise, torch.Generator):
-        return noise
-    return noise[0][i], noise[1][i]
-
-
 def _grad_leaves(flat: Dict[str, torch.Tensor], acc: Dict[str, torch.Tensor]):
     """(gradient leaves, the tree the forward takes): aliases of the
     parameters that autograd differentiates, each accumulating its gradient
@@ -156,8 +166,25 @@ def _grad_leaves(flat: Dict[str, torch.Tensor], acc: Dict[str, torch.Tensor]):
     return leaves, unflatten_params(tree_flat)
 
 
+def sharded_names(cfg: ModelConfig, tp: int) -> Dict[str, int]:
+    """{flat leaf name: sharded dim} of the leaves a tp mesh splits."""
+    flat = flatten_params(local_specs(cfg, tp))
+    return {k: d for k, d in flat.items() if d is not None}
+
+
+def _reduce_metrics(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
+    """The data ranks' metrics combined into the global batch's: loss and
+    aux averaged, masked tokens summed, masked CE weighted by them."""
+    n = metrics["masked_tokens"].float()
+    v = torch.stack([metrics["loss"].float(), metrics["aux_loss"].float(), n,
+                     metrics["masked_ce"].float() * n])
+    all_reduce_(v, mesh.data_group, mesh)
+    return {"loss": v[0] / mesh.data, "aux_loss": v[1] / mesh.data,
+            "masked_tokens": v[2], "masked_ce": v[3] / torch.clamp_min(v[2], 1.0)}
+
+
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                    optimizer: AdamW, device: DeviceLike = None):
+                    optimizer: AdamW, device: DeviceLike = None, mesh=None):
     """(step, eval_step).
 
     ``step(params, opt_state, input_ids [A, B, L], prompt_lengths [A, B],
@@ -167,7 +194,12 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     it before it is added, as the reference's ``a + g.astype(acc_dt)``; MoE
     models add ``aux_loss_coef`` times the aux loss.  ``eval_step(params,
     input_ids [B, L], prompt_lengths [B], noise, row_mask [B]) ->
-    metrics``."""
+    metrics``.
+
+    ``mesh`` (``parallel/``): ``params`` are this rank's shard and the
+    batches global; each data rank computes its rows (the noise drawn for
+    all rows, then sliced), the gradients are averaged over ``data`` and
+    the norm summed over the shards; the metrics are the global batch's."""
     if train_cfg.grad_accum_dtype not in ACCUM_DTYPES:
         raise ValueError(f"unknown grad_accum_dtype {train_cfg.grad_accum_dtype!r}")
     acc_dt = ACCUM_DTYPES[train_cfg.grad_accum_dtype]
@@ -176,13 +208,32 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     if mask_id is None:
         raise ValueError("model config needs mask_token_id for diffusion SFT")
     dev = resolve_device(device)
+    if mesh is not None and mesh.size == 1:
+        mesh = None
+    dp = 1 if mesh is None else mesh.data
+    shards = {} if mesh is None else sharded_names(model_cfg, mesh.model)
 
     def fwd(p, ids, m=None, *, return_hidden=False):
         return forward(model_cfg, p, ids, attn_mask=m,
                        return_hidden=return_hidden, remat=train_cfg.remat)
 
-    ce_kw = (dict(head_fn=lm_head_logits, ce_chunk=train_cfg.ce_chunk)
+    def head(p, h):
+        return lm_head_logits(p, h, model_cfg)
+
+    ce_kw = (dict(head_fn=head, ce_chunk=train_cfg.ce_chunk)
              if train_cfg.ce_chunk else {})
+
+    def my_rows(t):
+        """This data rank's rows of a global batch (dim 0)."""
+        return t if dp == 1 else t[mesh.rows(t.shape[0])]
+
+    def micro_noise(noise, i, b, l):
+        if isinstance(noise, torch.Generator):
+            if dp == 1:
+                return noise
+            t, u = draw_noise(noise, b, l, dev)   # the global batch's draws
+            return my_rows(t), my_rows(u)
+        return my_rows(noise[0][i]), my_rows(noise[1][i])
 
     def loss_fn(params, input_ids, prompt_lengths, noise, row_mask=None):
         return diffusion_sft_loss(
@@ -193,43 +244,60 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     def step(params, opt_state, input_ids, prompt_lengths, noise):
         input_ids = input_ids.to(dev)
         prompt_lengths = prompt_lengths.to(dev)
-        a = input_ids.shape[0]
+        a, b, l = input_ids.shape
+        if b % dp:
+            raise ValueError(f"batch of {b} rows does not divide by dp={dp}")
         flat = flatten_params(params)
         acc = {k: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                for k, p in flat.items()}
         # The optimizer later updates the leaves' shared storage in place.
         leaves, tree = _grad_leaves(flat, acc)
         sums: Dict[str, torch.Tensor] = {}
-        for i in range(a):
-            with torch.enable_grad():
-                loss, metrics = loss_fn(tree, input_ids[i], prompt_lengths[i],
-                                        _micro_noise(noise, i))
-                loss.backward()
-            del loss
-            for k, v in metrics.items():
-                sums[k] = sums[k] + v if k in sums else v
+        with use_mesh(mesh, batch=b if dp > 1 else None, global_aux=True):
+            for i in range(a):
+                with torch.enable_grad():
+                    loss, metrics = loss_fn(tree, my_rows(input_ids[i]),
+                                            my_rows(prompt_lengths[i]),
+                                            micro_noise(noise, i, b, l))
+                    loss.backward()
+                del loss
+                for k, v in metrics.items():
+                    sums[k] = sums[k] + v if k in sums else v
         del leaves, tree
         for buf in acc.values():
             buf.div_(a)
         metrics = {k: v / a for k, v in sums.items()}
-        grad_norm = global_norm(acc.values())   # in f32, after the division
+        if mesh is None:
+            grad_norm = global_norm(acc.values())   # in f32, after the division
+        else:
+            mean_over_data(acc.values(), mesh)
+            metrics = _reduce_metrics(metrics, mesh) if dp > 1 else metrics
+            grad_norm = sharded_global_norm(acc, shards, mesh)
         opt_state = optimizer.update(acc, opt_state, flat, grad_norm)
         metrics["grad_norm"] = grad_norm
         return params, opt_state, metrics
 
     @torch.no_grad()
     def eval_step(params, input_ids, prompt_lengths, noise, row_mask):
-        _, metrics = loss_fn(params, input_ids.to(dev), prompt_lengths.to(dev),
-                             noise, row_mask)
+        # The whole batch on every rank: the loss over the real rows is then
+        # the one-process loss, tail rows and all.
+        with use_mesh(mesh):
+            _, metrics = loss_fn(params, input_ids.to(dev), prompt_lengths.to(dev),
+                                 noise, row_mask)
         return metrics
 
     return step, eval_step
 
 
 class Trainer:
-    """End-to-end SFT loop over a tokenized dataset on one device.
+    """End-to-end SFT loop over a tokenized dataset on one device, or over
+    a ``dp``/``tp`` mesh.
 
-    ``dataset`` rows: {"input_ids": list[int], "prompt_lengths": int}."""
+    ``dataset`` rows: {"input_ids": list[int], "prompt_lengths": int}.
+    Under a mesh, ``mesh`` given: ``params`` are already this rank's shard
+    over it (as ``cli/train.py`` loads them); ``mesh`` None: the mesh is
+    built and the full ``params`` sharded (a tree on the host is sliced
+    before it moves to the card)."""
 
     def __init__(
         self,
@@ -241,12 +309,35 @@ class Trainer:
         pad_token_id: Optional[int] = None,
         tokenizer=None,
         device: DeviceLike = None,
+        dist_backend: Optional[str] = None,
+        mesh: Optional[Mesh] = None,
     ):
-        if train_cfg.dp * train_cfg.tp * train_cfg.sp > 1 or train_cfg.pp > 1:
+        if train_cfg.sp > 1 or train_cfg.pp > 1:
             raise NotImplementedError(
-                "multi-device training (dp/tp/sp/pp > 1) is not ported yet "
-                "(ROADMAP Queue 1 #7)")
-        self.device = resolve_device(device)
+                "sequence and pipeline parallelism (sp/pp > 1) are not ported "
+                "yet (ROADMAP Queue 1 #7, part two)")
+        self.mesh = None
+        if train_cfg.dp * train_cfg.tp > 1:
+            if train_cfg.batch_size % train_cfg.dp:
+                raise ValueError(
+                    f"batch_size={train_cfg.batch_size} must divide by "
+                    f"dp={train_cfg.dp}")
+            if mesh is None:
+                device = ensure_distributed(train_cfg.dp, train_cfg.tp, device,
+                                            dist_backend)
+                mesh = make_mesh(data=train_cfg.dp, model=train_cfg.tp,
+                                 device=resolve_device(device))
+                params = shard_params(model_cfg, params, mesh)
+            elif (mesh.data, mesh.model) != (train_cfg.dp, train_cfg.tp):
+                raise ValueError(
+                    f"the params' mesh is {mesh.data}x{mesh.model}, the "
+                    f"config asks for dp={train_cfg.dp} x tp={train_cfg.tp}")
+            self.mesh = mesh
+            self.device = mesh.device
+        elif mesh is not None and mesh.size > 1:
+            raise ValueError(f"a {mesh.data}x{mesh.model} mesh with dp = tp = 1")
+        else:
+            self.device = resolve_device(device)
         self.model_cfg = model_cfg
         self.cfg = train_cfg
         self.params = params
@@ -271,7 +362,7 @@ class Trainer:
         self.optimizer, self.lr_schedule = make_optimizer(train_cfg, self.total_steps)
         self.opt_state = self.optimizer.init(self.params)
         self.train_step, self.eval_step = make_train_step(
-            model_cfg, train_cfg, self.optimizer, self.device)
+            model_cfg, train_cfg, self.optimizer, self.device, self.mesh)
 
         self.global_step = 0
         self.training_logs: List[Dict] = []
@@ -305,6 +396,8 @@ class Trainer:
     def _log(self, entry: Dict):
         entry = to_jsonable(entry)
         self.training_logs.append(entry)
+        if not is_main_process():
+            return
         print(f"Step {entry.get('step')}: {entry}")
         out_dir = Path(self.cfg.output_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -409,6 +502,8 @@ class Trainer:
             "status": status,
         }
         self._log(final)
+        if not is_main_process():
+            return final
 
         out_dir = Path(self.cfg.output_dir)
         out_dir.mkdir(parents=True, exist_ok=True)
@@ -433,39 +528,96 @@ class Trainer:
             }), f, indent=2)
         return final
 
+    def _gathered(self):
+        """(full params, full optimizer state) on the model group of data
+        rank 0 under a mesh (None elsewhere); the trainer's own otherwise.
+        int8 moments are gathered as f32 and quantized whole, in the
+        reference's layout for the full leaf."""
+        mesh = self.mesh
+        if mesh is None:
+            return self.params, self.opt_state
+        if mesh.data_rank != 0:
+            return None, None
+        params = gather_params(self.model_cfg, self.params, mesh)
+        shards = sharded_names(self.model_cfg, mesh.model)
+
+        def full(name, t):
+            if name not in shards:
+                return t
+            if isinstance(t, Quantized):
+                return quantize_int8(all_gather(dequantize_int8(t), mesh.model_group,
+                                                mesh, shards[name]))
+            return all_gather(t, mesh.model_group, mesh, shards[name])
+
+        st = self.opt_state
+        state = AdamWState(st.count, {k: full(k, v) for k, v in st.mu.items()},
+                           {k: full(k, v) for k, v in st.nu.items()})
+        return params, state
+
     def save(self, output_dir: Optional[str] = None):
+        """Save as the reference does; under a mesh the shards are gathered
+        and rank 0 writes."""
         output_dir = output_dir or self.cfg.output_dir
         t0 = time.time()
-        log_timing(f"Starting optimized save to {output_dir}")
-        save_checkpoint(output_dir, self.model_cfg, self.params)
-        if self.cfg.save_optimizer_state:
-            self.save_training_state(output_dir)
-        if self.tokenizer is not None:
-            self.tokenizer.save_pretrained(output_dir)
+        if is_main_process():
+            log_timing(f"Starting optimized save to {output_dir}")
+        params, state = self._gathered()
+        if is_main_process():
+            save_checkpoint(output_dir, self.model_cfg, params)
+            if self.cfg.save_optimizer_state:
+                self.save_training_state(output_dir, state)
+            if self.tokenizer is not None:
+                self.tokenizer.save_pretrained(output_dir)
+        del params, state
+        if self.mesh is not None:
+            torch.distributed.barrier()
         dt = time.time() - t0
         self.save_times.append(dt)
-        log_timing(f"Save completed in {dt:.2f} seconds")
+        if is_main_process():
+            log_timing(f"Save completed in {dt:.2f} seconds")
 
     # -- optimizer-state checkpoint / resume --------------------------------
 
-    def save_training_state(self, output_dir: str):
+    def save_training_state(self, output_dir: str, state: Optional[AdamWState] = None):
         """``optimizer.safetensors`` (the optimizer state under the
         reference's key names, ``jax.tree_util.keystr`` of its optax chain
         state) and ``trainer_state.json``: either package resumes from
-        either's files."""
+        either's files.  ``state``: the full state to write (the gathered
+        one under a mesh); default the trainer's."""
         out = Path(output_dir)
-        save_safetensors(out / "optimizer.safetensors", state_tensors(self.opt_state))
+        save_safetensors(out / "optimizer.safetensors",
+                         state_tensors(state or self.opt_state))
         with open(out / "trainer_state.json", "w") as f:
             json.dump({"global_step": self.global_step,
                        "training_logs": to_jsonable(self.training_logs)}, f)
+
+    def _shard_state_tensors(self, flat: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A full saved state (reference keys) cut to this rank's shards:
+        plain moments sliced, int8 ones dequantized, sliced and quantized
+        in the shard's own layout."""
+        flat = dict(flat)
+        for name, dim in sharded_names(self.model_cfg, self.mesh.model).items():
+            for part in ("mu", "nu"):
+                key = f"[1][0].{part}{_keypath(name)}"
+                if key in flat:
+                    flat[key] = shard_leaf(flat[key], dim, self.mesh)
+                    continue
+                whole = Quantized(flat[key + ".q"], flat[key + ".scale"],
+                                  tuple(flat[key + ".meta"].shape[1:]))
+                mine = quantize_int8(shard_leaf(dequantize_int8(whole), dim, self.mesh))
+                flat[key + ".q"], flat[key + ".scale"] = mine.q, mine.scale
+                flat[key + ".meta"] = torch.zeros((0,) + mine.shape)
+        return flat
 
     def load_training_state(self, output_dir: str):
         """Read what :meth:`save_training_state` (or the reference's) wrote
         into this trainer's optimizer state, in place and cast to its
         dtypes, and the step count and logs."""
         out = Path(output_dir)
-        self.opt_state = load_state_tensors(
-            self.opt_state, load_safetensors(out / "optimizer.safetensors"))
+        flat = load_safetensors(out / "optimizer.safetensors")
+        if self.mesh is not None:
+            flat = self._shard_state_tensors(flat)
+        self.opt_state = load_state_tensors(self.opt_state, flat)
         state_file = out / "trainer_state.json"
         if state_file.exists():
             with open(state_file) as f:

@@ -33,6 +33,9 @@ NEW_IN_INT8_SLICE = ("eval.runner", "io.checkpoint", "io.tokenizer",
 # ... and the single-prompt serving slice's.
 NEW_IN_SINGLE_PROMPT_SLICE = ("cli.chat", "cli.chat_base", "cli.common",
                               "sampling.dream", "sampling.simple")
+# ... and the tensor- / data-parallel slice's.
+NEW_IN_PARALLEL_SLICE = ("parallel", "parallel.mesh", "parallel.comm",
+                         "parallel.sharding")
 
 
 def _is_forbidden(module: str) -> bool:
@@ -113,7 +116,7 @@ def test_port_imports_no_jax_at_runtime():
     bad, names, n = res.stdout.strip().splitlines()[-3:]
     assert bad == "[]"
     assert int(n) >= 15  # every module was really imported
-    for mod in NEW_IN_INT8_SLICE + NEW_IN_SINGLE_PROMPT_SLICE:
+    for mod in NEW_IN_INT8_SLICE + NEW_IN_SINGLE_PROMPT_SLICE + NEW_IN_PARALLEL_SLICE:
         assert f"'ct_diffusionmodelbench_tpu_torch.{mod}'" in names, mod
 
 
@@ -157,8 +160,9 @@ def test_port_sources_import_no_jax():
                 continue
             found += [(f.name, n) for n in names if _is_forbidden(n)]
     assert len(files) >= 15
-    for mod in NEW_IN_INT8_SLICE + NEW_IN_SINGLE_PROMPT_SLICE:
-        assert PORT / (mod.replace(".", "/") + ".py") in files, mod
+    for mod in NEW_IN_INT8_SLICE + NEW_IN_SINGLE_PROMPT_SLICE + NEW_IN_PARALLEL_SLICE:
+        path = PORT / mod.replace(".", "/")
+        assert path.with_suffix(".py") in files or path / "__init__.py" in files, mod
     assert found == []
 
 

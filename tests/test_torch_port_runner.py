@@ -136,8 +136,13 @@ def test_runner_refuses_what_is_not_ported():
         ModelRunner(cfg, dream.params, tok, accel="block-cache", device="cpu")
     with pytest.raises(ValueError, match="accel"):
         ModelRunner(r.cfg, r.params, tok, accel="nope", device="cpu")
+    # Meshes serve (tests/test_torch_port_parallel.py); int8 and the block
+    # cache stay single-device under one, as in the reference.
     with pytest.raises(NotImplementedError, match="mesh"):
-        ModelRunner(r.cfg, r.params, tok, mesh=object(), device="cpu")
+        ModelRunner(r.cfg, r.params, tok, mesh=object(), quant="int8", device="cpu")
+    with pytest.raises(NotImplementedError, match="single-chip only"):
+        ModelRunner(r.cfg, r.params, tok, mesh=object(), accel="block-cache",
+                    device="cpu")
     with pytest.raises(ValueError, match="quant"):
         ModelRunner(r.cfg, r.params, tok, quant="int4", device="cpu")
     out = r.generate_ids(np.array([3, 4]), parallel_threshold=0.9, **GEN)

@@ -364,7 +364,9 @@ def test_chat_main_and_flags(monkeypatch, capsys):
     out = capsys.readouterr().out
     assert "=== Generation Result ===" in out and "mask_id=500" in out
     parser = tchat.build_parser()
-    with pytest.raises(NotImplementedError, match="Queue 1 #7"):
+    # --tp without a process group (not launched by torchrun): how to launch.
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    with pytest.raises(RuntimeError, match="torchrun --nproc-per-node 2"):
         tchat._load_runner(parser.parse_args(["--preset", "llada-tiny", "--tp", "2",
                                               "--device", "cpu"]))
     with pytest.raises(NotImplementedError, match="block-cache"):

@@ -27,9 +27,11 @@ def _flags(parser):
 
 def test_train_parser_matches_reference():
     """Every reference flag with its destination, default, choices and
-    type; the port adds ``--device`` (the card unless told otherwise)."""
+    type; the port adds ``--device`` (the card unless told otherwise) and
+    ``--dist-backend`` (the torch.distributed backend of a --dp/--tp run)."""
     ref, port = _flags(j_train_cli.build_parser()), _flags(t_train_cli.build_parser())
     assert port.pop(("--device",))[:2] == ("device", None)
+    assert port.pop(("--dist-backend",))[:3] == ("dist_backend", None, ["nccl", "gloo"])
     assert port == ref
 
 
