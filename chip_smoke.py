@@ -177,6 +177,30 @@ Phases, in order:
    next step's loss the same, and the moments after that step, which the
    loaded state fed, within 1e-2 of the saved trainer's after its step.
 
+24. sequence-parallel training: ``cli/train.py``'s ``build_parser`` →
+   ``train_mesh`` → ``run`` with ``--dp 1 --sp 2 --tp 2`` on four spawned
+   ranks, each drawing its shard: llada-moe-7b at full width cut to 2
+   layers, L 4096, B 2, 3 steps, remat, bf16 moments and accumulation,
+   against the one-rank trainer on the same weights and data (run first in
+   this process): loss and gradient norm per step, exact launches a rank
+   (K8 sp chunks a layer and step, twice under remat; K10 / K11 sp; K1 / K2
+   twice), exact tensors sent point to point, peak memory, s/step and the
+   p2p and all-reduce seconds' share of the steps (each synchronized to be
+   timed).  Then, on every rank, ring attention at its heads (8 q / 2 kv),
+   B 2, L 4096, forward and backward, against the flash kernels over the
+   whole sequence; on rank 0, K8 with lse at the ring chunk (B 2, S 2048, no
+   RoPE) and K10 / K11 on the chunk with the ring's global o / lse against
+   their plain versions, timed beside them, SDPA and their bounds.
+25. pipeline training: (a) the same CLI path with ``--pp 4
+   --pp-microbatches 4``: llada-moe-7b at full width cut to 4 layers (one a
+   stage), B 4, L 512, 3 steps, bf16 moments and accumulation, against the
+   one-rank trainer: loss and gradient norm, exact launches a rank (K8, K10,
+   K11, K1, K2 once a microbatch and step), exact tensors sent, peak
+   memory; (b) ``llada-8b`` at full width cut to 2 layers on 2 stages × tp
+   2, each rank drawing its stage's column / row shard: the pipelined
+   logits against the one-rank forward on the gathered weights, and one
+   training step's loss and gradient norm against one rank's.
+
 The bf16 MoE weights are freed before phase 11, the int8 ones before
 phase 15, Dream's before phase 16, the dense training state before phase
 19, the MoE training state before phase 22.  A rank that fails, or does
@@ -2533,7 +2557,22 @@ PAR_TRAIN_LAYERS, PAR_TRAIN_STEPS, PAR_TRAIN_BATCH = 2, 3, 2
 # summed in another order moves it by far less.
 RESUME_MOMENT_TOL = 1e-2
 # A rank that has not answered by then fails its phase.
-PAR_TIMEOUT_S = {"serve": 480, "train": 300}
+PAR_TIMEOUT_S = {"serve": 480, "train": 300, "sp": 480, "pp": 300, "pptp": 300}
+# Sequence-parallel training (phase 24): dp 1 x sp 2 x tp 2 on llada-moe-7b
+# at full width cut to 2 layers, L 4096 (twice the reference's training
+# length), B 2, 3 steps, per-block remat, bf16 moments and accumulation.
+SP_DP, SP_SP, SP_TP = 1, 2, 2
+SP_LAYERS, SP_SEQ, SP_BATCH, SP_STEPS = 2, 4096, 2, 3
+SP_FLAGS = ("--max-length", str(SP_SEQ), "--batch-size", str(SP_BATCH), "--remat")
+# Pipeline training (phase 25): (a) 4 stages of one llada-moe-7b layer each,
+# 4 microbatches of one row, L 512, 3 steps; (b) 2 stages x tp 2 of llada-8b
+# cut to 2 layers, B 2 in 2 microbatches, L 512.  L 512: the head is whole on
+# every stage and computes [B, L, 157184] f32 logits, about 1.3 GB at (a)'s
+# B 4, three times over with their gradient, beside the 6.4 GB of embedding
+# and head state a rank holds.
+PP_STAGES, PP_MICRO, PP_LAYERS, PP_BATCH, PP_SEQ, PP_STEPS = 4, 4, 4, 4, 512, 3
+PP_FLAGS = ("--max-length", str(PP_SEQ), "--batch-size", str(PP_BATCH))
+PPTP_STAGES, PPTP_TP, PPTP_LAYERS, PPTP_BATCH = 2, 2, 2, 2
 
 
 def par_layout():
@@ -2566,7 +2605,7 @@ def _par_rank_main(task, rank, port, backend, device, args, results):
             dist.destroy_process_group()
 
 
-def run_ranks(task: str, *args):
+def run_ranks(task: str, *args, layout: str = f"dp {PAR_DP} x tp {PAR_TP}"):
     """``task(rank, *args)`` on PAR_WORLD spawned ranks; their results in
     rank order.  A rank that fails, or does not answer within the phase's
     time, fails the phase; every rank is stopped before this returns."""
@@ -2577,7 +2616,7 @@ def run_ranks(task: str, *args):
 
     backend, device, per_card = par_layout()
     print(f"  backend {backend}, world {PAR_WORLD}, ranks per card {per_card} "
-          f"(dp {PAR_DP} x tp {PAR_TP}; {torch.cuda.device_count()} card(s))", flush=True)
+          f"({layout}; {torch.cuda.device_count()} card(s))", flush=True)
     with socket.socket() as sk:
         sk.bind(("localhost", 0))
         port = sk.getsockname()[1]
@@ -2792,16 +2831,17 @@ def serving_parallel_phase():
     return dict(res=res, secs=secs, tokens_per_s=BATCH * GEN / secs, steps=steps)
 
 
-def par_train_rows():
+def par_train_rows(seed=22, n=PAR_TRAIN_STEPS * PAR_TRAIN_BATCH, length=TRAIN_SEQ):
     import numpy as np
 
-    rng = np.random.default_rng(22)
-    n = PAR_TRAIN_STEPS * PAR_TRAIN_BATCH
+    rng = np.random.default_rng(seed)
     return [{"input_ids": r.tolist(), "prompt_lengths": TRAIN_PROMPT}
-            for r in rng.integers(10, 150000, (n, TRAIN_SEQ))]
+            for r in rng.integers(10, 150000, (n, length))]
 
 
-def par_train_args(out_dir, dp, tp):
+def par_train_args(out_dir, dp, tp, *extra):
+    """The training CLI's arguments of phase 23; ``extra`` flags come last
+    and override."""
     from ct_diffusionmodelbench_tpu_torch.cli import train as train_cli
 
     return train_cli.build_parser().parse_args([
@@ -2809,26 +2849,31 @@ def par_train_args(out_dir, dp, tp):
         "--grad-accum-dtype", "bfloat16", "--max-length", str(TRAIN_SEQ),
         "--batch-size", str(PAR_TRAIN_BATCH), "--grad-accum", "1", "--epochs", "1",
         "--eval-steps", "0", "--logging-steps", "1", "--output-dir", out_dir,
-        "--seed", "0", "--dp", str(dp), "--tp", str(tp)])
+        "--seed", "0", "--dp", str(dp), "--tp", str(tp), *extra])
 
 
-def par_train_run(dp, tp, out_dir):
-    """2-layer llada-moe-7b trained PAR_TRAIN_STEPS steps through
-    cli/train.py's ``train_mesh`` and ``run``: seeded weights, whole on one
-    rank, under a mesh each rank's shard of the same draws (as
-    ``load_model`` draws a preset)."""
+def par_train_run(dp, tp, out_dir, layers=PAR_TRAIN_LAYERS, rows=None, extra=()):
+    """llada-moe-7b cut to ``layers`` trained through cli/train.py's
+    ``train_mesh`` and ``run`` (``extra`` flags: the seq or stage axis, the
+    shape): seeded weights, whole on one rank, under a mesh each rank's
+    shard of the same draws (its stage's layers under ``--pp``), as
+    ``load_model`` draws a preset."""
     from ct_diffusionmodelbench_tpu_torch.cli import train as train_cli
     from ct_diffusionmodelbench_tpu_torch.io.tokenizer import Tokenizer
     from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
+    from ct_diffusionmodelbench_tpu_torch.parallel.pipeline import init_pp_params
     from ct_diffusionmodelbench_tpu_torch.parallel.sharding import init_sharded_params
 
-    cfg = get_config("llada-moe-7b").replace(num_layers=PAR_TRAIN_LAYERS)
-    args = par_train_args(out_dir, dp, tp)
+    cfg = get_config("llada-moe-7b").replace(num_layers=layers)
+    args = par_train_args(out_dir, dp, tp, *extra)
     mesh = train_cli.train_mesh(args)
-    params = (init_params(cfg, seed=0) if mesh is None
-              else init_sharded_params(cfg, 0, mesh))
+    if mesh is None:
+        params = init_params(cfg, seed=0)
+    else:
+        params = (init_pp_params if mesh.stage > 1 else init_sharded_params)(cfg, 0, mesh)
     tok = Tokenizer.byte_fallback(vocab_size=cfg.vocab_size, eos_token_id=2)
-    trainer = train_cli.run(args, cfg, params, tok, par_train_rows(), [], mesh=mesh)
+    trainer = train_cli.run(args, cfg, params, tok, rows or par_train_rows(), [],
+                            mesh=mesh)
     del params
     logs = [(e["loss"], e["grad_norm"]) for e in trainer.training_logs if "grad_norm" in e]
     return cfg, tok, trainer, logs
@@ -2940,20 +2985,22 @@ def digest_err(want, got):
 
 
 def par_train_attention_times(c, dev, H, KV):
-    """K8 with lse, K10 and K11 at a rank's training shape (B 1, S 2048, H,
-    KV, Dh 128, RoPE): kernel, plain version and SDPA's forward / backward,
-    timed, with their bounds."""
+    """K8 with lse, K10 and K11 at a rank's training shape (phase 23: B 1,
+    S 2048, H, KV, Dh 128, RoPE; phase 24: a ring chunk, no RoPE): kernel,
+    plain version and SDPA's forward / backward, timed, with their
+    bounds."""
     from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
     from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
 
-    B, S, Dh = 1, TRAIN_SEQ, 128
+    B, S, _, Dh = c.q.shape
+    rope = c.rope or ()
     sdpa = torch.nn.functional.scaled_dot_product_attention
     qt, kt, vt = c.qr.transpose(1, 2), c.kr.transpose(1, 2), c.v.transpose(1, 2)
     t = time_turns({"kernel": lambda: fa.flash_attention_cuda(
         c.q, c.k, c.v, rope=c.rope, with_lse=True),
         "library": lambda: sdpa(qt, kt, vt, enable_gqa=True)}, 20)
     flops = 4.0 * B * H * S * S * Dh
-    b = bound_ms(flops, nbytes(c.q, c.k, c.v, c.out, c.lse, *c.rope))
+    b = bound_ms(flops, nbytes(c.q, c.k, c.v, c.out, c.lse, *rope))
     out = {"flash_attention_fwd": dict(ms=t["kernel"], library_ms=t["library"],
            plain_ms=time_ms(lambda: fa.flash_attention_plain(
                c.q, c.k, c.v, rope=c.rope, with_lse=True), 3, warmup=1),
@@ -3047,6 +3094,368 @@ def training_parallel_phase():
     print(f"  rank 0 training attention times at its shapes: {json.dumps(times)}",
           flush=True)
     return dict(res=res, ref=ref, loss_err=loss_err, norm_err=norm_err)
+
+
+def sp_launches_per_rank():
+    """Phase 24's launches a rank, from the code: per layer and step, K8
+    runs sp chunks in the forward and again in remat's recompute, K10 and
+    K11 sp chunks in the backward, K1 and K2 once in the forward and once
+    in the recompute (the grouped backward runs on ``torch._grouped_mm``)."""
+    per = SP_LAYERS * SP_STEPS
+    want = {"flash_attention_fwd": 2 * SP_SP * per, "flash_attention_bwd_dq": SP_SP * per,
+            "flash_attention_bwd_dkv": SP_SP * per, "grouped_gateup": 2 * per,
+            "grouped_down": 2 * per}
+    # Tensors sent a layer and step: (k, v) at each of sp - 1 forward
+    # rotations, twice (remat); (k, v, dk, dv) at each of sp - 1 backward
+    # rotations and (dk, dv) on their last hop home.
+    p2p = (2 * 2 * (SP_SP - 1) + 4 * (SP_SP - 1) + 2) * per
+    return want, p2p
+
+
+def ring_attention_check(rank, mesh, dev):
+    """Ring attention over this rank's seq group at its heads (16 / tp q,
+    4 / tp kv), B 2, the whole L split over seq, forward and backward,
+    against the flash kernels over the whole sequence (one rank's path);
+    then the inputs of one ring chunk for the kernel checks."""
+    from types import SimpleNamespace
+
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops.ring_attention import (
+        ring_attention, ring_attention_local)
+
+    H, KV = 16 // SP_TP, 4 // SP_TP
+    q, k, v, do, _, _ = attention_case(dev, SP_BATCH, SP_SEQ, H, KV, 128, 240)
+    pos = mesh.seq_slice(SP_SEQ)
+    mine = [t[:, pos].contiguous().requires_grad_(True) for t in (q, k, v)]
+    out_r = ring_attention(*mine, mesh=mesh)
+    out_r.backward(do[:, pos].contiguous())
+    whole = [t.detach().clone().requires_grad_(True) for t in (q, k, v)]
+    out_w = fa.flash_attention(*whole)
+    out_w.backward(do)
+    torch.cuda.synchronize()
+    err_fwd = compare(f"rank {rank} ring attention out (seq rank {mesh.seq_rank}) "
+                      "against flash over the whole sequence", out_r.detach(),
+                      out_w[:, pos].detach(), **FLASH_TOL)
+    err_bwd = compare_bwd(f"rank {rank} ring attention", [t.grad for t in mine],
+                          [t.grad[:, pos] for t in whole])
+    ql, kl, vl = (t.detach() for t in mine)
+    o, lse = ring_attention_local(ql, kl, vl, mesh=mesh)   # the global o / lse
+    return err_fwd, err_bwd, SimpleNamespace(
+        q=ql, k=kl, v=vl, do=do[:, pos].contiguous(), rope=None, qr=ql, kr=kl,
+        bias=fa.mask_bias(None, SP_BATCH, SP_SEQ // SP_SP, dev), out=o, lse=lse)
+
+
+def chunk_kernel_check(c, dev):
+    """K8 with lse at the ring chunk's shape (no RoPE) and K10 / K11 on the
+    chunk with the ring's global o and lse, each against its plain
+    version."""
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
+
+    out, lse = fa.flash_attention_cuda(c.q, c.k, c.v, with_lse=True)
+    out_p, lse_p = fa.flash_attention_plain(c.q, c.k, c.v, with_lse=True)
+    got = fab.flash_attention_bwd_cuda(c.q, c.k, c.v, c.bias, c.out, c.do, c.lse)
+    want = fab.flash_attention_bwd_plain(c.q, c.k, c.v, c.bias, c.out, c.do, c.lse)
+    torch.cuda.synchronize()
+    shape = "x".join(map(str, c.q.shape))
+    err_fwd = max(compare(f"rank 0 K8 with lse at the chunk ({shape}) out", out, out_p,
+                          **FLASH_TOL),
+                  compare("rank 0 K8 with lse at the chunk lse", lse, lse_p, 0.0, LSE_ATOL))
+    err_bwd = compare_bwd(f"rank 0 K10 / K11 at the chunk with the ring's o / lse",
+                          got, want)
+    return err_fwd, err_bwd
+
+
+def par_sp_task(rank, out_dir):
+    """Phase 24 on one rank: the dp 1 x sp 2 x tp 2 training run through
+    the training CLI, the ring attention against the flash kernels over the
+    whole sequence, and (rank 0) the kernels at the ring chunk's shape."""
+    import torch.distributed as dist
+
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.parallel import comm
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    reset_launch_counts()
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with comm.timed():
+        cfg, _, trainer, logs = par_train_run(
+            SP_DP, SP_TP, os.path.join(out_dir, "run"), layers=SP_LAYERS,
+            rows=par_train_rows(24, SP_STEPS * SP_BATCH, SP_SEQ),
+            extra=SP_FLAGS + ("--sp", str(SP_SP)))
+    launches = {name: kk.launches for name, kk in KERNELS.items()}
+    counts, secs = dict(comm.COUNTS), dict(comm.SECONDS)
+    peak = torch.cuda.max_memory_allocated()
+    step_s, mesh = list(trainer.step_times), trainer.mesh
+    want, p2p = sp_launches_per_rank()
+    want = {n: want.get(n, 0) for n in KERNELS}
+    if launches != want:
+        raise AssertionError(f"rank {rank}: launches {launches}, expected {want}")
+    if counts["p2p"] != p2p:
+        raise AssertionError(f"rank {rank}: {counts['p2p']} tensors sent, expected {p2p}")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    err_ring_fwd, err_ring_bwd, c = ring_attention_check(rank, mesh, dev)
+    times = err_chunk = None
+    if rank == 0:
+        err_chunk = chunk_kernel_check(c, dev)
+        times = par_train_attention_times(c, dev, c.q.shape[2], c.k.shape[2])
+    dist.barrier()
+    return dict(logs=logs, launches=launches, counts=counts, secs=secs,
+                peak_gib=peak / 2**30, step_s=step_s, err_ring=(err_ring_fwd, err_ring_bwd),
+                err_chunk=err_chunk, times=times, chunk=list(c.q.shape),
+                coords=(mesh.data_rank, mesh.seq_rank, mesh.model_rank))
+
+
+def sp_training_phase():
+    """Phase 24: dp 1 x sp 2 x tp 2 training on spawned ranks against the
+    one-rank trainer on the same weights and data (run first, in this
+    process)."""
+    import numpy as np
+
+    print(f"  llada-moe-7b at full width cut to {SP_LAYERS} layers; L {SP_SEQ}, B "
+          f"{SP_BATCH}, {SP_STEPS} steps, remat, bf16 moments and accumulation; "
+          f"ring chunk L/sp {SP_SEQ // SP_SP}", flush=True)
+    out_dir = tempfile.mkdtemp(prefix="ctdb-sp-train-")
+    rows = par_train_rows(24, SP_STEPS * SP_BATCH, SP_SEQ)
+    try:
+        t0 = time.perf_counter()
+        torch.cuda.reset_peak_memory_stats()
+        _, _, trainer, ref = par_train_run(1, 1, os.path.join(out_dir, "one"),
+                                           layers=SP_LAYERS, rows=rows, extra=SP_FLAGS)
+        one_s, one_peak = list(trainer.step_times), torch.cuda.max_memory_allocated()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  one rank: loss / grad_norm per step "
+              + ", ".join(f"{a:.5f} / {g:.5f}" for a, g in ref)
+              + f"; s/step {[round(x, 4) for x in one_s]}; peak {one_peak / 2**30:.3f} GiB "
+              f"({time.perf_counter() - t0:.1f} s with init)", flush=True)
+        res = run_ranks("par_sp_task", out_dir,
+                        layout=f"dp {SP_DP} x sp {SP_SP} x tp {SP_TP}")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r, x in enumerate(res):
+        wall = sum(x["step_s"])
+        print(f"  rank {r} (data, seq, model) {x['coords']}: loss / grad_norm per step "
+              + ", ".join(f"{a:.5f} / {g:.5f}" for a, g in x["logs"])
+              + f"; s/step {[round(t, 4) for t in x['step_s']]}; peak "
+              f"{x['peak_gib']:.3f} GiB; collectives {json.dumps(x['counts'])}; p2p "
+              f"{x['secs']['p2p']:.4f} s ({x['secs']['p2p'] / wall:.4f} of the steps' "
+              f"wall), all-reduce {x['secs']['all_reduce']:.4f} s "
+              f"({x['secs']['all_reduce'] / wall:.4f}), all-gather "
+              f"{x['secs']['all_gather']:.4f} s (the vocab-parallel head's logits, one "
+              f"gather over model a CE chunk and pass; on seq rank 0 the save's too; "
+              f"each collective synchronized to be timed); launches "
+              f"{json.dumps({k: v for k, v in x['launches'].items() if v})}", flush=True)
+    got, want = np.asarray(res[0]["logs"]), np.asarray(ref)
+    loss_err = float(np.max(np.abs(got[:, 0] - want[:, 0]) / np.abs(want[:, 0])))
+    norm_err = float(np.max(np.abs(got[:, 1] - want[:, 1]) / np.abs(want[:, 1])))
+    same_ranks = all(x["logs"] == res[0]["logs"] for x in res)
+    print(f"  dp {SP_DP} x sp {SP_SP} x tp {SP_TP} against one rank: loss rel err "
+          f"{loss_err:.3e} (limit {LOSS_RTOL:.3g}), grad norm rel err {norm_err:.3e} "
+          f"(limit {GRAD_REL_L2:.3g}); every rank logs the same: {same_ranks}", flush=True)
+    if len(got) != SP_STEPS or not np.isfinite(got).all() or \
+            loss_err > LOSS_RTOL or norm_err > GRAD_REL_L2 or not same_ranks:
+        raise AssertionError("sp training disagrees with the one-rank trainer")
+    print(f"  rank 0 kernel times at the ring chunk {res[0]['chunk']} (no RoPE, the "
+          f"ring's o / lse): {json.dumps(res[0]['times'])}", flush=True)
+    return dict(res=res, ref=ref, loss_err=loss_err, norm_err=norm_err, one_s=one_s,
+                one_peak_gib=one_peak / 2**30)
+
+
+def pp_launches_per_rank():
+    """Phase 25 (a)'s launches a rank, from the code: each stage runs its
+    one layer on each microbatch of each step, K8, K1 and K2 in the
+    forward, K10 and K11 in the backward (no remat)."""
+    n = PP_LAYERS // PP_STAGES * PP_MICRO * PP_STEPS
+    return {"flash_attention_fwd": n, "flash_attention_bwd_dq": n,
+            "flash_attention_bwd_dkv": n, "grouped_gateup": n, "grouped_down": n}
+
+
+def par_pp_task(rank, out_dir):
+    """Phase 25 (a) on one rank: 4 stages of one llada-moe-7b layer through
+    the training CLI (``--pp 4 --pp-microbatches 4``)."""
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.parallel import comm
+
+    reset_launch_counts()
+    comm.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    with comm.timed():
+        _, _, trainer, logs = par_train_run(
+            1, 1, os.path.join(out_dir, "run"), layers=PP_LAYERS,
+            rows=par_train_rows(25, PP_STEPS * PP_BATCH, PP_SEQ),
+            extra=PP_FLAGS + ("--pp", str(PP_STAGES), "--pp-microbatches", str(PP_MICRO)))
+    launches = {name: kk.launches for name, kk in KERNELS.items()}
+    want = pp_launches_per_rank()
+    want = {n: want.get(n, 0) for n in KERNELS}
+    if launches != want:
+        raise AssertionError(f"rank {rank}: launches {launches}, expected {want}")
+    st = trainer.mesh.stage_rank
+    p2p = PP_MICRO * PP_STEPS * ((st < PP_STAGES - 1) + (st > 0))
+    if comm.COUNTS["p2p"] != p2p:
+        raise AssertionError(f"rank {rank}: {comm.COUNTS['p2p']} tensors sent, "
+                             f"expected {p2p}")
+    return dict(logs=logs, launches=launches, counts=dict(comm.COUNTS),
+                secs=dict(comm.SECONDS), peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                step_s=list(trainer.step_times), stage=st)
+
+
+def pptp_inputs():
+    """Phase 25 (b)'s batch and noise, drawn on the host from a seed (the
+    same on every rank and in the parent)."""
+    gen = torch.Generator().manual_seed(25)
+    ids = torch.randint(10, 120000, (1, PPTP_BATCH, PP_SEQ), generator=gen)
+    plens = torch.full((1, PPTP_BATCH), TRAIN_PROMPT)
+    t = torch.rand((1, PPTP_BATCH), generator=gen)
+    u = torch.rand((1, PPTP_BATCH, PP_SEQ), generator=gen)
+    return ids, plens, (t, u)
+
+
+def pptp_config():
+    from ct_diffusionmodelbench_tpu_torch.models import get_config
+    from ct_diffusionmodelbench_tpu_torch.train.trainer import TrainConfig
+
+    cfg = get_config("llada-8b").replace(num_layers=PPTP_LAYERS)
+    return cfg, lambda **kw: TrainConfig(
+        batch_size=PPTP_BATCH, grad_accum=1, max_length=PP_SEQ,
+        optimizer_state_dtype="bfloat16", grad_accum_dtype="bfloat16", **kw)
+
+
+def par_pptp_task(rank):
+    """Phase 25 (b) on one rank: llada-8b cut to 2 layers on 2 stages x tp
+    2, each rank drawing its stage's layers, column / row split: the
+    pipelined logits against the one-rank forward on the gathered weights
+    (rank 0), then one training step."""
+    import torch.distributed as dist
+
+    from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.parallel.pipeline import (
+        gather_params_pp, init_pp_params, make_pp_forward, make_pp_mesh)
+    from ct_diffusionmodelbench_tpu_torch.train.trainer import Trainer
+
+    dev = torch.device("cuda", torch.cuda.current_device())
+    cfg, tcfg = pptp_config()
+    mesh = make_pp_mesh(PPTP_STAGES, model=PPTP_TP, device=dev)
+    params = init_pp_params(cfg, 0, mesh)
+    ids, plens, noise = pptp_inputs()
+    with torch.inference_mode():
+        logits, _ = make_pp_forward(cfg, mesh, 2)(params, ids[0])
+        full = gather_params_pp(cfg, params, mesh)
+        err = None
+        if rank == 0:
+            want, _ = make_forward_fn(cfg, dev)(full, ids[0])
+            err = float((logits - want).abs().max() / want.abs().max())
+            del want
+        del full, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    dist.barrier()
+    trainer = Trainer(cfg, params, tcfg(pp=PPTP_STAGES, tp=PPTP_TP, pp_microbatches=2),
+                      [{"input_ids": [5] * 8, "prompt_lengths": 1}], mesh=mesh)
+    del params
+    reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    _, _, m = trainer.train_step(trainer.params, trainer.opt_state, ids, plens, noise)
+    torch.cuda.synchronize()
+    return dict(err=err, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                launches={name: kk.launches for name, kk in KERNELS.items()},
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                coords=(mesh.stage_rank, mesh.model_rank))
+
+
+def pp_training_phase():
+    """Phase 25: (a) pp 4 training of llada-moe-7b cut to 4 layers and (b)
+    pp 2 x tp 2 on llada-8b cut to 2 layers, on spawned ranks, against
+    one-rank runs in this process."""
+    import numpy as np
+
+    from ct_diffusionmodelbench_tpu_torch.models import init_params
+    from ct_diffusionmodelbench_tpu_torch.train.trainer import Trainer
+
+    print(f"  (a) llada-moe-7b at full width cut to {PP_LAYERS} layers, {PP_STAGES} "
+          f"stages of {PP_LAYERS // PP_STAGES}, {PP_MICRO} microbatches of "
+          f"{PP_BATCH // PP_MICRO} row; L {PP_SEQ}, B {PP_BATCH}, {PP_STEPS} steps, bf16 "
+          "moments and accumulation", flush=True)
+    out_dir = tempfile.mkdtemp(prefix="ctdb-pp-train-")
+    rows = par_train_rows(25, PP_STEPS * PP_BATCH, PP_SEQ)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _, _, trainer, ref = par_train_run(1, 1, os.path.join(out_dir, "one"),
+                                           layers=PP_LAYERS, rows=rows, extra=PP_FLAGS)
+        one_s, one_peak = list(trainer.step_times), torch.cuda.max_memory_allocated()
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"  (a) one rank: loss / grad_norm per step "
+              + ", ".join(f"{a:.5f} / {g:.5f}" for a, g in ref)
+              + f"; s/step {[round(x, 4) for x in one_s]}; peak {one_peak / 2**30:.3f} GiB",
+              flush=True)
+        res = run_ranks("par_pp_task", out_dir,
+                        layout=f"dp 1 x pp {PP_STAGES} x tp 1, {PP_MICRO} microbatches")
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+    for r, x in enumerate(res):
+        wall = sum(x["step_s"])
+        print(f"  (a) rank {r} (stage {x['stage']}): loss / grad_norm per step "
+              + ", ".join(f"{a:.5f} / {g:.5f}" for a, g in x["logs"])
+              + f"; s/step {[round(t, 4) for t in x['step_s']]}; peak "
+              f"{x['peak_gib']:.3f} GiB; collectives {json.dumps(x['counts'])}; p2p "
+              f"{x['secs']['p2p']:.4f} s ({x['secs']['p2p'] / wall:.4f} of the steps' "
+              f"wall), all-reduce {x['secs']['all_reduce']:.4f} s "
+              f"({x['secs']['all_reduce'] / wall:.4f}; each synchronized); launches "
+              f"{json.dumps({k: v for k, v in x['launches'].items() if v})}", flush=True)
+    got, want = np.asarray(res[0]["logs"]), np.asarray(ref)
+    loss_err = float(np.max(np.abs(got[:, 0] - want[:, 0]) / np.abs(want[:, 0])))
+    norm_err = float(np.max(np.abs(got[:, 1] - want[:, 1]) / np.abs(want[:, 1])))
+    same_ranks = all(x["logs"] == res[0]["logs"] for x in res)
+    print(f"  (a) pp {PP_STAGES} against one rank: loss rel err {loss_err:.3e} (limit "
+          f"{LOSS_RTOL:.3g}; the aux loss per microbatch is the reference's GPipe "
+          f"approximation), grad norm rel err {norm_err:.3e} (limit {GRAD_REL_L2:.3g}); "
+          f"every rank logs the same: {same_ranks}", flush=True)
+    if len(got) != PP_STEPS or not np.isfinite(got).all() or \
+            loss_err > LOSS_RTOL or norm_err > GRAD_REL_L2 or not same_ranks:
+        raise AssertionError("pp training disagrees with the one-rank trainer")
+
+    cfg, tcfg = pptp_config()
+    print(f"  (b) llada-8b at full width cut to {PPTP_LAYERS} layers, {PPTP_STAGES} "
+          f"stages x tp {PPTP_TP}, B {PPTP_BATCH} in 2 microbatches, L {PP_SEQ}",
+          flush=True)
+    ids, plens, noise = pptp_inputs()
+    one = Trainer(cfg, init_params(cfg, seed=0), tcfg(),
+                  [{"input_ids": [5] * 8, "prompt_lengths": 1}])
+    _, _, m = one.train_step(one.params, one.opt_state, ids, plens, noise)
+    ref_b = (float(m["loss"]), float(m["grad_norm"]))
+    del one, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    res_b = run_ranks("par_pptp_task", layout=f"dp 1 x pp {PPTP_STAGES} x tp {PPTP_TP}")
+    for r, x in enumerate(res_b):
+        print(f"  (b) rank {r} (stage, model) {x['coords']}: step loss / grad_norm "
+              f"{x['loss']:.5f} / {x['grad_norm']:.5f}; peak {x['peak_gib']:.3f} GiB; "
+              f"launches {json.dumps({k: v for k, v in x['launches'].items() if v})}",
+              flush=True)
+    err_b = res_b[0]["err"]
+    loss_err_b = abs(res_b[0]["loss"] - ref_b[0]) / abs(ref_b[0])
+    norm_err_b = abs(res_b[0]["grad_norm"] - ref_b[1]) / abs(ref_b[1])
+    print(f"  (b) pipelined logits against the one-rank forward: max err / max |logit| "
+          f"{err_b:.3e} (limit {LOGITS_RTOL_OF_MAX:.3g}); one step against one rank "
+          f"({ref_b[0]:.5f} / {ref_b[1]:.5f}): loss rel err {loss_err_b:.3e} (limit "
+          f"{LOSS_RTOL:.3g}), grad norm rel err {norm_err_b:.3e} (limit "
+          f"{GRAD_REL_L2:.3g})", flush=True)
+    want_b = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
+              "flash_attention_bwd_dkv": 2}
+    for r, x in enumerate(res_b):
+        if {k: v for k, v in x["launches"].items() if v} != want_b:
+            raise AssertionError(f"(b) rank {r}: launches {x['launches']}, expected {want_b}")
+    if err_b > LOGITS_RTOL_OF_MAX or loss_err_b > LOSS_RTOL or norm_err_b > GRAD_REL_L2:
+        raise AssertionError("pp x tp disagrees with one rank")
+    return dict(res=res, ref=ref, res_b=res_b, loss_err=loss_err, norm_err=norm_err,
+                err_b=err_b, one_s=one_s, one_peak_gib=one_peak / 2**30)
 
 
 def main() -> int:
@@ -3201,6 +3610,14 @@ def main() -> int:
     serve = serving_parallel_phase()
     print("dp x tp training:", flush=True)
     train = training_parallel_phase()
+    t0 = time.perf_counter()
+    print("sequence-parallel training:", flush=True)
+    sp = sp_training_phase()
+    print(f"  phase 24: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("pipeline training:", flush=True)
+    pp = pp_training_phase()
+    print(f"  phase 25: {time.perf_counter() - t0:.1f} s", flush=True)
     for r in results:
         name = r["name"]
         if name in SERVING_KERNELS:
@@ -3217,12 +3634,25 @@ def main() -> int:
                 max_abs_err=x["times"]["err_bwd" if name in BWD_KERNELS else "err_fwd"]
                 if name.startswith("flash") else None,
                 **(x["times"].get(name) or {}))
+        if name in SERVING_KERNELS + BWD_KERNELS:
+            x = sp["res"][0]
+            chunk_err = x["err_chunk"][1 if name in BWD_KERNELS else 0] \
+                if name.startswith("flash") else None
+            r["sequence_parallel"] = dict(
+                mesh=f"dp {SP_DP} x sp {SP_SP} x tp {SP_TP}, {par_layout()[0]}",
+                launches_per_rank=[y["launches"][name] for y in sp["res"]],
+                chunk_shape=x["chunk"], max_abs_err=chunk_err,
+                **(x["times"].get(name) or {}))
+            r["pipeline"] = dict(
+                launches_per_rank_pp4=[y["launches"][name] for y in pp["res"]],
+                launches_per_rank_pp2_tp2=[y["launches"][name] for y in pp["res_b"]])
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",
             "k8_ms", "dream_geometry", "dream_launches", "no_skip_ms", "valid_tiles",
             "block_cache_launches", "threshold_launches", "refresh_no_rope", "cached_step",
-            "moe_training", "sharded", "sharded_training")
+            "moe_training", "sharded", "sharded_training", "sequence_parallel",
+            "pipeline")
     print("first designs' ms (constants from PERF.md, not measured in this run): "
           + json.dumps(FIRST_DESIGN_MS), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -15,9 +15,19 @@ tokenizes it; :func:`run` trains on rows already tokenized.
         --preset llada-moe-7b --dp 2 --tp 2 --batch-size 2 ...
 
 Each rank then loads only its shard onto its card (:func:`load_model`).
+``--sp`` adds the sequence-parallel axis (ring attention; a (data, seq,
+model) mesh of dp·sp·tp ranks) and ``--pp`` the pipeline's stages (GPipe,
+``--pp-microbatches`` microbatches a step; a (data, stage, model) mesh of
+dp·pp·tp ranks, each rank loading only its stage's layers)::
 
-``--sp``/``--pp`` above 1 are not ported yet and raise (ROADMAP Queue 1 #7,
-part two).
+    torchrun --nproc-per-node 4 -m ct_diffusionmodelbench_tpu_torch.cli.train \
+        --preset llada-moe-7b --sp 2 --tp 2 --max-length 4096 ...
+    torchrun --nproc-per-node 4 -m ct_diffusionmodelbench_tpu_torch.cli.train \
+        --preset llada-moe-7b --pp 4 --pp-microbatches 4 --batch-size 4 ...
+
+``--pp`` composes with ``--dp`` and ``--tp`` (dense models), not with
+``--sp``.  Ranks that share a card (or the CPU) add ``--dist-backend
+gloo``.
 """
 
 from __future__ import annotations
@@ -41,9 +51,12 @@ from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
 from ct_diffusionmodelbench_tpu_torch.parallel.mesh import (
     Mesh, ensure_distributed, make_mesh)
+from ct_diffusionmodelbench_tpu_torch.parallel.pipeline import (
+    init_pp_params, make_pp_mesh, shard_params_pp)
 from ct_diffusionmodelbench_tpu_torch.parallel.sharding import (
     init_sharded_params, shard_params)
-from ct_diffusionmodelbench_tpu_torch.train.trainer import TrainConfig, Trainer
+from ct_diffusionmodelbench_tpu_torch.train.trainer import (
+    PP_SP_ERROR, TrainConfig, Trainer)
 from ct_diffusionmodelbench_tpu_torch.utils.logging import log_timing
 
 
@@ -84,10 +97,11 @@ def build_parser():
                         "recomputes only elementwise/norm work")
     add_mesh_flags(p)
     p.add_argument("--sp", type=int, default=1,
-                   help="Sequence-parallel mesh axis (not ported yet: above 1 "
-                        "raises)")
+                   help="Sequence-parallel mesh axis (ring attention over "
+                        "'seq')")
     p.add_argument("--pp", type=int, default=1,
-                   help="Pipeline-parallel stages (not ported yet: above 1 raises)")
+                   help="Pipeline-parallel stages (GPipe over 'stage'; "
+                        "composes with --dp/--tp, not --sp)")
     p.add_argument("--pp-microbatches", type=int, default=0,
                    help="GPipe microbatches per step (0 = one per stage); "
                         "batch-size must divide by it")
@@ -117,28 +131,35 @@ def tokenize_rows(ds, tokenizer, max_length):
 
 
 def train_mesh(args) -> Optional[Mesh]:
-    """The ``--dp``/``--tp`` mesh, or None for one process.  Starts the
-    process group from ``torchrun``'s environment if none is up and sets
-    ``args.device`` to this rank's device."""
-    if args.dp * args.tp == 1:
+    """The ``--dp``/``--sp``/``--tp`` mesh, or the ``--dp``/``--pp``/``--tp``
+    one, or None for one process.  Starts the process group from
+    ``torchrun``'s environment if none is up and sets ``args.device`` to
+    this rank's device."""
+    if args.dp * args.tp * args.sp * args.pp == 1:
         return None
+    if args.pp > 1 and args.sp > 1:
+        raise ValueError(PP_SP_ERROR)
     args.device = ensure_distributed(args.dp, args.tp, args.device,
-                                     args.dist_backend)
-    return make_mesh(data=args.dp, model=args.tp,
-                     device=resolve_device(args.device))
+                                     args.dist_backend, seq=args.sp, stages=args.pp)
+    device = resolve_device(args.device)
+    if args.pp > 1:
+        return make_pp_mesh(args.pp, data=args.dp, model=args.tp, device=device)
+    return make_mesh(data=args.dp, model=args.tp, seq=args.sp, device=device)
 
 
 def load_model(args, mesh: Optional[Mesh] = None):
     """(config, params, tokenizer) from ``--model-dir`` or ``--preset``, on
-    ``--device``.  Under ``mesh`` the params are this rank's shard: a
-    checkpoint is read on the host and each leaf sliced before it moves, a
-    preset drawn leaf by leaf (the one-process draws, sliced), so no rank
-    holds the full model on its card."""
+    ``--device``.  Under ``mesh`` the params are this rank's shard (under
+    ``--pp`` its stage's layers): a checkpoint is read on the host and each
+    leaf sliced before it moves, a preset drawn leaf by leaf (the
+    one-process draws, sliced), so no rank holds the full model on its
+    card."""
+    pp = mesh is not None and mesh.stage > 1
     if args.model_dir:
         cfg, params = load_checkpoint(
             args.model_dir, device="cpu" if mesh is not None else args.device)
         if mesh is not None:
-            params = shard_params(cfg, params, mesh)
+            params = (shard_params_pp if pp else shard_params)(cfg, params, mesh)
         try:
             tokenizer = Tokenizer.from_pretrained(args.model_dir)
         except Exception:
@@ -146,8 +167,8 @@ def load_model(args, mesh: Optional[Mesh] = None):
                                                 eos_token_id=cfg.eos_token_id or 2)
     elif args.preset:
         cfg = get_config(args.preset)
-        params = (init_params(cfg, seed=args.seed, device=args.device)
-                  if mesh is None else init_sharded_params(cfg, args.seed, mesh))
+        params = (init_params(cfg, seed=args.seed, device=args.device) if mesh is None
+                  else (init_pp_params if pp else init_sharded_params)(cfg, args.seed, mesh))
         tokenizer = Tokenizer.byte_fallback(vocab_size=cfg.vocab_size,
                                             eos_token_id=cfg.eos_token_id or 2)
     else:

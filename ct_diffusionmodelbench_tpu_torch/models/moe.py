@@ -17,9 +17,9 @@ and the shared expert's partials (the shared expert splits column / row)
 are added and summed over the model group once, in f32.  The reference
 takes its one-hot dense path under a mesh, a constraint of GSPMD, not of
 the function.  The load-balancing loss is computed once, from the
-replicated router probabilities; when the batch is split over ``data`` and
-the scope asks for the whole batch's loss, its token counts and mean
-probabilities are summed over ``data``.
+replicated router probabilities; when the batch is split over ``data`` or
+its sequence over ``seq`` and the scope asks for the whole batch's loss,
+its token counts and mean probabilities are summed over those axes.
 """
 
 from __future__ import annotations
@@ -33,7 +33,7 @@ from ct_diffusionmodelbench_tpu_torch.models.layers import swiglu
 from ct_diffusionmodelbench_tpu_torch.ops.grouped_gemm import grouped_expert_ffn
 from ct_diffusionmodelbench_tpu_torch.ops.quant import dequantize_tensor, is_quantized, qdot
 from ct_diffusionmodelbench_tpu_torch.parallel.comm import (
-    copy_to_model, reduce_from_model, sum_over_data)
+    copy_to_model, reduce_from_model, sum_over_data, sum_over_seq)
 from ct_diffusionmodelbench_tpu_torch.parallel.mesh import current_mesh, current_scope
 
 
@@ -58,19 +58,27 @@ def load_balancing_loss(full_probs: torch.Tensor, topk_idx: torch.Tensor,
                         num_experts: int) -> torch.Tensor:
     """Switch-transformer aux loss: E * sum_e f_e * P_e (f32 scalar).
 
-    Under a scope whose batch is split over ``data`` and that asks for the
-    whole batch's loss, the counts and probability sums are summed over
-    ``data`` first (``sum_over_data``: its backward sums the data ranks'
-    cotangents, so the training step's gradient mean stays exact)."""
+    Under a scope whose batch is split over ``data`` (or its sequence over
+    ``seq``) and that asks for the whole batch's loss, the counts and
+    probability sums are summed over ``data`` (``seq``) first.
+    ``sum_over_data``'s backward sums the data ranks' cotangents, so the
+    training step's gradient mean over ``data`` stays exact;
+    ``sum_over_seq``'s is the identity, as the step sums the gradients over
+    ``seq``."""
     flat = topk_idx.reshape(-1)
     counts = torch.zeros(num_experts, dtype=torch.float32, device=flat.device)
     counts.index_add_(0, flat, torch.ones_like(flat, dtype=torch.float32))
     scope = current_scope()
-    if scope is not None and scope.batch is not None and scope.global_aux:
-        mesh = scope.mesh
-        counts = sum_over_data(counts, mesh)
-        frac_probs = sum_over_data(full_probs.sum(dim=0), mesh) / (
-            full_probs.shape[0] * mesh.data)
+    over_data = scope is not None and scope.global_aux and scope.batch is not None
+    over_seq = scope is not None and scope.global_aux and scope.positions is not None
+    if over_data or over_seq:
+        mesh, n = scope.mesh, full_probs.shape[0]
+        probs = full_probs.sum(dim=0)
+        if over_seq:
+            counts, probs, n = sum_over_seq(counts, mesh), sum_over_seq(probs, mesh), n * mesh.seq
+        if over_data:
+            counts, probs, n = sum_over_data(counts, mesh), sum_over_data(probs, mesh), n * mesh.data
+        frac_probs = probs / n
     else:
         frac_probs = full_probs.mean(dim=0)
     frac_tokens = counts / torch.clamp_min(counts.sum(), 1.0)

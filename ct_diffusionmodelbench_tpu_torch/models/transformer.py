@@ -33,6 +33,15 @@ column / row split FFN summed likewise (expert parallelism for MoE,
 ``models/moe.py``), and a vocab-sharded LM head whose slices are gathered.
 Parts whose dimensions do not divide the model axis run whole on every
 rank (``parallel/sharding.py::tp_plan``).
+
+Under a scope that splits the sequence over ``seq`` (``parallel/mesh.py``)
+the forward takes this rank's slice of the tokens: RoPE at the global
+positions (the real tokens before the slice are counted over ``seq``),
+ring attention (``ops/attention.py``), the FFN / MoE on the local tokens
+(the MoE statistics summed over ``seq``) and the local logits.  A logit
+range (``logit_start``) gathers the final hidden states over ``seq`` first,
+so every seq rank returns the whole range; the shifted-logit families take
+the previous seq rank's last hidden state (``parallel/comm.py::shift_seq``).
 """
 
 from __future__ import annotations
@@ -53,8 +62,9 @@ from ct_diffusionmodelbench_tpu_torch.models.moe import moe_block
 from ct_diffusionmodelbench_tpu_torch.ops.attention import attention
 from ct_diffusionmodelbench_tpu_torch.ops.quant import is_quantized, qdot
 from ct_diffusionmodelbench_tpu_torch.parallel.comm import (
-    copy_to_model, gather_from_model, reduce_from_model)
-from ct_diffusionmodelbench_tpu_torch.parallel.mesh import current_mesh
+    all_gather, copy_to_model, gather_from_model, gather_from_seq,
+    reduce_from_model, shift_seq)
+from ct_diffusionmodelbench_tpu_torch.parallel.mesh import current_mesh, current_scope
 from ct_diffusionmodelbench_tpu_torch.parallel.sharding import TPPlan, tp_plan
 
 EXPERT_STACK_KEYS = ("we_gate", "we_up", "we_down")
@@ -144,6 +154,21 @@ def token_positions(attn_mask: Optional[torch.Tensor], B: int, S: int,
         pos = torch.cumsum(attn_mask.to(torch.int32), dim=-1, dtype=torch.int32) - 1
         return torch.clamp_min(pos, 0)
     return torch.arange(S, dtype=torch.int32, device=device)[None].expand(B, S)
+
+
+def seq_positions(attn_mask: Optional[torch.Tensor], B: int, S: int, scope,
+                  device: torch.device) -> torch.Tensor:
+    """:func:`token_positions` of the whole row, at this seq rank's slice
+    (S local positions): the real tokens of the earlier slices are counted
+    over ``seq``."""
+    mesh, lo = scope.mesh, scope.positions.start
+    if attn_mask is None:
+        return torch.arange(lo, lo + S, dtype=torch.int32, device=device)[None].expand(B, S)
+    m = attn_mask.to(torch.int32)
+    counts = all_gather(m.sum(dim=-1, keepdim=True), mesh.seq_group, mesh, dim=1)
+    before = counts[:, :mesh.seq_rank].sum(dim=1, keepdim=True, dtype=torch.int32)
+    pos = torch.cumsum(m, dim=-1, dtype=torch.int32) + before - 1
+    return torch.clamp_min(pos, 0)
 
 
 def tp_plan_of(cfg: Optional[ModelConfig]) -> Optional[TPPlan]:
@@ -316,6 +341,38 @@ def _save_dots(ctx, op, *args, **kwargs):
             else CheckpointPolicy.PREFER_RECOMPUTE)
 
 
+def run_blocks(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
+               attn_mask, plan: Optional[TPPlan] = None,
+               remat: "bool | str" = False):
+    """The ``cfg.num_layers`` blocks of ``params`` on x: (x, the sum of the
+    layers' aux losses).  ``remat``: see :func:`forward`."""
+    layers, stacks = split_layers(cfg, params)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ckpt_kw = dict(use_reentrant=False)
+    if remat == "dots":
+        ckpt_kw["context_fn"] = partial(create_selective_checkpoint_contexts,
+                                        _save_dots)
+    for li, lp in enumerate(layers):
+        if remat:
+            x, aux_l = checkpoint(_block_forward, cfg, x, lp, cos, sin,
+                                  attn_mask, stacks, li, plan, **ckpt_kw)
+        else:
+            x, aux_l = _block_forward(cfg, x, lp, cos, sin, attn_mask, stacks,
+                                      li, plan)
+        aux = aux + aux_l
+    return x, aux
+
+
+def shift_right(x: torch.Tensor, scope=None) -> torch.Tensor:
+    """The shifted-logit families' hidden states: position i takes i - 1's
+    (the first keeps its own).  Under a scope that splits the sequence, the
+    slice's first position takes the previous seq rank's last."""
+    if scope is None or scope.positions is None:
+        return torch.cat([x[:, :1], x[:, :-1]], dim=1)
+    prev = shift_seq(x[:, -1:].contiguous(), x[:, :1], scope.mesh)
+    return torch.cat([prev, x[:, :-1]], dim=1)
+
+
 def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
             attn_mask: Optional[torch.Tensor] = None,
             logit_start: Optional[int] = None,
@@ -331,38 +388,34 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
     what is not a no-batch matrix product is (:data:`SAVED_DOTS`)."""
     B, S = input_ids.shape
     plan = tp_plan_of(cfg)
+    scope = current_scope()
+    if scope is not None and scope.positions is None:
+        scope = None   # only a split sequence changes the forward below
     x = embed_tokens(params, input_ids, plan)
-    positions = token_positions(attn_mask, B, S, x.device)
+    positions = (token_positions(attn_mask, B, S, x.device) if scope is None
+                 else seq_positions(attn_mask, B, S, scope, x.device))
     cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
-    layers, stacks = split_layers(cfg, params)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    ckpt_kw = dict(use_reentrant=False)
-    if remat == "dots":
-        ckpt_kw["context_fn"] = partial(create_selective_checkpoint_contexts,
-                                        _save_dots)
-    for li, lp in enumerate(layers):
-        if remat:
-            x, aux_l = checkpoint(_block_forward, cfg, x, lp, cos, sin,
-                                  attn_mask, stacks, li, plan, **ckpt_kw)
-        else:
-            x, aux_l = _block_forward(cfg, x, lp, cos, sin, attn_mask, stacks,
-                                      li, plan)
-        aux = aux + aux_l
+    x, aux = run_blocks(cfg, params, x, cos, sin, attn_mask, plan, remat)
     aux = aux / max(cfg.num_layers, 1)
     x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+    if scope is not None and logit_start is not None:
+        x = gather_from_seq(x, scope.mesh)   # the range may cross slices
+        scope = None
 
     if return_hidden:
         if cfg.logit_shift:
-            x = torch.cat([x[:, :1], x[:, :-1]], dim=1)
+            x = shift_right(x, scope)
         return x, aux
     if logit_start is not None:
         # Shifted-logit families read position i's prediction from hidden
         # state i - 1 (block starts are always > 0).
         start = logit_start - 1 if cfg.logit_shift else logit_start
         x = x[:, start:start + logit_length]
+    elif cfg.logit_shift and scope is not None:
+        x = shift_right(x, scope)
     logits = lm_head_logits(params, x, cfg)
-    if cfg.logit_shift and logit_start is None:
+    if cfg.logit_shift and logit_start is None and scope is None:
         logits = torch.cat([logits[:, :1], logits[:, :-1]], dim=1)
     return logits, aux
 

@@ -8,11 +8,24 @@ Dispatch: ``causal`` always takes the reference; otherwise ``impl="auto"``
 takes the flash kernel on a CUDA tensor at every shape and the reference on
 the CPU.  ``impl="flash"`` forces the flash path (its plain version on CPU).
 
-Under a ``parallel/`` mesh the dispatch is the same: attention is head- and
-row-local, so the kernel runs on whatever heads and rows the rank holds,
-with no collective.  The reference wraps its kernel in ``shard_map``
-(``_flash_sharded``) and falls back to its reference path where the heads
-or rows do not divide the mesh; the port has no such limit.
+Under a ``parallel/`` mesh whose scope holds the whole sequence the
+dispatch is the same: attention is head- and row-local, so the kernel runs
+on whatever heads and rows the rank holds, with no collective.  The
+reference wraps its kernel in ``shard_map`` (``_flash_sharded``) and falls
+back to its reference path where the heads or rows do not divide the mesh;
+the port has no such limit.
+
+Where the scope splits the sequence over ``seq`` (each rank holds S/sp
+positions of q, k and v), non-causal ``impl="auto"`` takes the ring
+(``ops/ring_attention.py``) on the rotated q / k, as the reference's
+dispatch does.  An explicit ``impl`` wins, as in the reference, and so does
+``causal``: q, k, v and the mask are then gathered over ``seq`` (the
+gather's backward sums the ranks' cotangents), the impl runs on the whole
+sequence and the rank keeps its rows, which is what GSPMD makes of the
+reference's dense attention on a sharded sequence.  Where the sequence
+does not divide by ``seq`` the callers keep it whole on every seq rank
+(``parallel/sharding.py``, ``train/trainer.py``), and the flash kernel runs
+over all of it: the reference's dense fallback.
 """
 
 from __future__ import annotations
@@ -21,7 +34,10 @@ from typing import Optional, Tuple
 
 import torch
 
+from ct_diffusionmodelbench_tpu_torch.ops import ring_attention as ring
 from ct_diffusionmodelbench_tpu_torch.ops.flash_attention import flash_attention
+from ct_diffusionmodelbench_tpu_torch.parallel.comm import gather_from_seq
+from ct_diffusionmodelbench_tpu_torch.parallel.mesh import current_scope
 
 NEG_INF = -1e30
 
@@ -56,7 +72,10 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               causal: bool = False,
               rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
     """``rope=(cos, sin)``: q/k arrive unrotated; the flash path rotates
-    inside the kernel, the reference path rotates first."""
+    inside the kernel, the reference path and the ring rotate first."""
+    scope = current_scope()
+    if scope is not None and scope.positions is not None:
+        return _seq_split_attention(q, k, v, mask, impl, causal, rope, scope)
     if causal:
         impl = "reference"
     elif impl == "auto":
@@ -73,3 +92,26 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             k = apply_rope(k, rope[0], rope[1])
         return attention_reference(q, k, v, mask=mask, causal=causal)
     raise ValueError(f"unknown attention impl {impl!r}")
+
+
+def _seq_split_attention(q, k, v, mask, impl, causal, rope, scope):
+    """Attention of this rank's slice of a sequence split over ``seq``."""
+    if rope is not None:
+        from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope
+
+        q = apply_rope(q, rope[0], rope[1])
+        k = apply_rope(k, rope[0], rope[1])
+    mesh = scope.mesh
+    if not causal and impl == "auto":
+        return ring.ring_attention(q, k, v, mask=mask, mesh=mesh)
+    whole = [gather_from_seq(t, mesh) for t in (q, k, v)]
+    mask = None if mask is None else gather_from_seq(mask, mesh)
+    if causal:
+        out = attention_reference(*whole, mask=mask, causal=True)
+    elif impl == "flash":
+        out = flash_attention(*whole, mask=mask)
+    elif impl == "reference":
+        out = attention_reference(*whole, mask=mask)
+    else:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    return out[:, scope.positions]

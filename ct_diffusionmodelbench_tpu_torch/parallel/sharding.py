@@ -1,5 +1,5 @@
 """Parameter sharding rules (megatron tensor parallelism + data-parallel
-batches) and the sharded forward.
+batches + sequence-parallel slices) and the sharded forward.
 
 Counterpart of ``parallel/sharding.py``.  :func:`param_specs` is the
 reference's tree, each leaf the dimension that shards over ``model`` (None:
@@ -172,30 +172,42 @@ def make_sharded_forward(cfg: "ModelConfig", mesh: Mesh, remat=False,
                          attn_impl: str = "auto"):
     """``f(params, input_ids, attn_mask=None, logit_start=None,
     logit_length=None) -> (logits, aux)`` on this rank's shard of the
-    parameters (:func:`shard_params`).
+    parameters (:func:`shard_params`; replicated over ``seq``).
 
     ``input_ids`` is the whole batch, on every rank.  When B divides by
     ``data``, each data rank runs its own rows and the logits are gathered
     over ``data``; otherwise every rank runs the whole batch (TP stays on,
-    DP idles), as the reference's wrapper.  Every rank returns the whole
-    batch's full-vocab logits and the aux loss of the whole batch."""
+    DP idles), as the reference's wrapper.  Under a ``seq`` axis each seq
+    rank runs its slice of the sequence (ring attention) and the logits are
+    gathered over ``seq``, unless the length does not divide by ``seq``:
+    then every seq rank runs the whole sequence, as the reference's
+    ``seq_ax = None``.  Every rank returns the whole batch's full-vocab
+    logits and the aux loss of the whole batch."""
     from ct_diffusionmodelbench_tpu_torch.models.transformer import forward
 
     cfg = cfg.replace(attn_impl=attn_impl)
 
     def fn(params, input_ids, attn_mask=None, logit_start=None, logit_length=None):
-        b = input_ids.shape[0]
+        b, s = input_ids.shape
         rows = mesh.rows(b)
         split = rows is not None
+        seq_split = mesh.seq > 1 and s % mesh.seq == 0
         ids = input_ids.to(mesh.device)
         mask = None if attn_mask is None else attn_mask.to(mesh.device)
         if split:
             ids = ids[rows]
             mask = None if mask is None else mask[rows]
-        with use_mesh(mesh, batch=b if split else None, global_aux=split):
+        if seq_split:
+            pos = mesh.seq_slice(s)
+            ids = ids[:, pos]
+            mask = None if mask is None else mask[:, pos]
+        with use_mesh(mesh, batch=b if split else None, global_aux=split or seq_split,
+                      seq_len=s if seq_split else None):
             logits, aux = forward(cfg, params, ids, attn_mask=mask,
                                   logit_start=logit_start,
                                   logit_length=logit_length, remat=remat)
+        if seq_split and logit_start is None:
+            logits = all_gather(logits, mesh.seq_group, mesh, dim=1)
         if split:
             logits = all_gather(logits, mesh.data_group, mesh, dim=0)
         return logits, aux

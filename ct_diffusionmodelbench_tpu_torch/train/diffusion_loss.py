@@ -14,6 +14,14 @@ Noise: ``jax.random`` bits cannot be reproduced in PyTorch, so the draws are
 either taken from a ``torch.Generator`` (``t`` first, then ``u``, per call)
 or given explicitly as ``(t [B], u [B, L])``, which lets the tests feed both
 frameworks the same numbers.
+
+Under a mesh scope that splits the sequence over ``seq``
+(``parallel/mesh.py``) the batch holds this rank's slice of each row: the
+prompt is located and the answer length computed on the whole row, and the
+loss's numerator, the masked-token count and the masked CE's numerator are
+summed over ``seq`` (``parallel/comm.py::sum_over_seq``, whose backward is
+the identity: the training step sums the gradients over ``seq``), so every
+seq rank returns the whole rows' loss and metrics.
 """
 
 from __future__ import annotations
@@ -22,6 +30,9 @@ from typing import Callable, Optional, Tuple, Union
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ct_diffusionmodelbench_tpu_torch.parallel.comm import sum_over_seq
+from ct_diffusionmodelbench_tpu_torch.parallel.mesh import current_scope
 
 Noise = Union[torch.Generator, Tuple[torch.Tensor, torch.Tensor]]
 
@@ -94,11 +105,17 @@ def diffusion_sft_loss(
     noisy, pre_restore_mask, p_mask = forward_process(input_ids, mask_id, noise, eps)
     p_mask = torch.clamp(p_mask, 1e-6, 1.0)
 
-    positions = torch.arange(l, device=input_ids.device)[None, :]
+    scope = current_scope()
+    lo, whole = 0, l
+    if scope is not None and scope.positions is not None:
+        lo, whole = scope.positions.start, scope.seq_len
+    else:
+        scope = None
+    positions = torch.arange(lo, lo + l, device=input_ids.device)[None, :]
     prompt_region = positions < prompt_lengths[:, None]
     noisy = torch.where(prompt_region, input_ids, noisy)   # never noise the prompt
 
-    answer_lengths = torch.clamp_min(l - prompt_lengths, 1).float()  # [B]
+    answer_lengths = torch.clamp_min(whole - prompt_lengths, 1).float()  # [B]
 
     if head_fn is not None and ce_chunk and l % ce_chunk:
         ce_chunk = next((c for c in range(min(ce_chunk, l), 63, -1)
@@ -127,8 +144,12 @@ def diffusion_sft_loss(
         row_mask = row_mask.to(device=input_ids.device, dtype=torch.float32)
         w = w * row_mask[:, None]
         denom = torch.clamp_min(row_mask.sum(), 1.0)
-    loss = torch.sum(token_loss * w) / denom
-    n_masked = torch.sum(w)
+    sums = torch.stack([torch.sum(token_loss * w), torch.sum(w),
+                        torch.sum((lse - target_logit).detach() * w)])
+    if scope is not None:
+        sums = sum_over_seq(sums, scope.mesh)
+    loss = sums[0] / denom
+    n_masked = sums[1].detach()
 
     if aux_coef:
         loss = loss + aux_coef * aux
@@ -139,8 +160,7 @@ def diffusion_sft_loss(
     metrics = {
         "loss": loss.detach(),
         "aux_loss": aux.detach().float(),
-        "masked_tokens": n_masked.detach(),
-        "masked_ce": (torch.sum((lse - target_logit) * w)
-                      / torch.clamp_min(n_masked, 1.0)).detach(),
+        "masked_tokens": n_masked,
+        "masked_ce": (sums[2] / torch.clamp_min(n_masked, 1.0)).detach(),
     }
     return loss, metrics

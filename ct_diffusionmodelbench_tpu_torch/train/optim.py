@@ -135,19 +135,27 @@ def global_norm(tensors: Iterable[torch.Tensor]) -> torch.Tensor:
 
 
 def sharded_global_norm(grads: Dict[str, torch.Tensor], sharded: Iterable[str],
-                        mesh) -> torch.Tensor:
+                        mesh, staged: Iterable[str] = ()) -> torch.Tensor:
     """The global norm of a tree whose ``sharded`` leaves each model rank
     holds a slice of (``parallel/``): their squares are summed over the
     model group, the replicated leaves' (equal on every rank) counted once;
-    f32 throughout.  Every rank of the group gets the same norm, so the
-    clip that follows is the same everywhere."""
-    sharded = set(sharded)
+    f32 throughout.  ``staged`` leaves (a pipeline's layer stacks) each
+    stage holds its own layers of: their squares, model-summed where they
+    are also ``sharded``, are summed over the stage group.  Every rank of
+    the groups gets the same norm, so the clip that follows is the same
+    everywhere."""
+    sharded, staged = set(sharded), set(staged) if mesh.stage > 1 else set()
     dev = next(iter(grads.values())).device
     zero = torch.zeros((), dtype=torch.float32, device=dev)
     part = zero + sum(_sum_sq(g) for k, g in grads.items() if k in sharded)
     if mesh.model > 1:
         all_reduce_(part, mesh.model_group, mesh)
-    whole = zero + sum(_sum_sq(g) for k, g in grads.items() if k not in sharded)
+    if staged:
+        part = part + sum(_sum_sq(g) for k, g in grads.items()
+                          if k in staged and k not in sharded)
+        all_reduce_(part, mesh.stage_group, mesh)
+    whole = zero + sum(_sum_sq(g) for k, g in grads.items()
+                       if k not in sharded and k not in staged)
     return torch.sqrt(whole + part)
 
 

@@ -20,8 +20,22 @@ over ``data`` (the per-layer expert leaves, like every sharded leaf, stay
 this rank's); the global norm sums the shards' squares over ``model``.
 Saves gather the shards on rank 0, which writes the reference's layout;
 resumes re-shard.  Evaluation runs its whole batch on every rank.
-Sequence and pipeline parallelism (``sp``/``pp`` > 1) are not ported yet
-and raise (ROADMAP Queue 1 #7, part two).
+
+Sequence parallelism (``sp`` > 1, the (data, seq, model) mesh): each seq
+rank takes its slice of every row (the noise drawn for the whole batch,
+then sliced), its forward runs ring attention, the loss's sums are summed
+over ``seq`` inside the loss and the gradients after the backward, then
+averaged over ``data``.  A padded length that does not divide by ``sp``
+runs whole on every seq rank, with nothing summed over ``seq``.
+
+Pipeline parallelism (``pp`` > 1, the (data, stage, model) mesh,
+``parallel/pipeline.py``): each rank holds its stage's layers; the step
+runs the GPipe forward of ``pp_microbatches`` microbatches (one per stage
+by default) on the logits path (no CE chunking, as the reference keeps it
+for a pipeline forward); each data rank takes its rows of every
+microbatch.  The norm sums the stages' squares; saves gather the stages,
+resumes cut them again.  ``pp`` composes with ``dp`` and ``tp`` (dense
+blocks), not with ``sp``, as in the reference.
 
 Differences from the reference: parameters update in place, so
 ``donate_state`` has no effect.  MoE training keeps the port's attention
@@ -54,11 +68,14 @@ from ct_diffusionmodelbench_tpu_torch.models.transformer import (
     EXPERT_STACK_KEYS, forward, lm_head_logits)
 from ct_diffusionmodelbench_tpu_torch.train.collator import DiffusionCollator
 from ct_diffusionmodelbench_tpu_torch.parallel.comm import (
-    all_gather, all_reduce_, mean_over_data)
+    all_reduce_, mean_over_data, sum_over_seq_)
 from ct_diffusionmodelbench_tpu_torch.parallel.mesh import (
     Mesh, ensure_distributed, is_main_process, make_mesh, use_mesh)
+from ct_diffusionmodelbench_tpu_torch.parallel.pipeline import (
+    PipelineForward, stage_leaf, gather_leaf, make_pp_forward,
+    make_pp_mesh, pp_param_specs, shard_params_pp, validate as validate_pp)
 from ct_diffusionmodelbench_tpu_torch.parallel.sharding import (
-    gather_params, local_specs, shard_leaf, shard_params)
+    local_specs, shard_params)
 from ct_diffusionmodelbench_tpu_torch.train.diffusion_loss import (
     diffusion_sft_loss, draw_noise)
 from ct_diffusionmodelbench_tpu_torch.train.optim import (
@@ -166,10 +183,44 @@ def _grad_leaves(flat: Dict[str, torch.Tensor], acc: Dict[str, torch.Tensor]):
     return leaves, unflatten_params(tree_flat)
 
 
-def sharded_names(cfg: ModelConfig, tp: int) -> Dict[str, int]:
-    """{flat leaf name: sharded dim} of the leaves a tp mesh splits."""
-    flat = flatten_params(local_specs(cfg, tp))
-    return {k: d for k, d in flat.items() if d is not None}
+PP_SP_ERROR = ("pp composes with dp and tp, not sp (ring attention runs on "
+               "the sharded forward, parallel/sharding.py; see "
+               "parallel/pipeline.py)")
+
+
+def leaf_specs(cfg: ModelConfig, mesh: Mesh) -> Dict[str, tuple]:
+    """{flat leaf name: (dim split over ``stage``, dim split over
+    ``model``)} under ``mesh``, None where the leaf is whole."""
+    if mesh.stage > 1:
+        specs = pp_param_specs(cfg, mesh.model)
+        flat = {f"blocks/{k}": v for k, v in specs["blocks"].items()}
+        flat.update({k: v for k, v in specs.items() if k != "blocks"})
+        return flat
+    return {k: (None, d) for k, d in flatten_params(local_specs(cfg, mesh.model)).items()}
+
+
+def microbatches(train_cfg: "TrainConfig") -> int:
+    """The GPipe microbatches a step: ``pp_microbatches``, else one per
+    stage."""
+    return train_cfg.pp_microbatches or train_cfg.pp
+
+
+def check_layout(model_cfg: ModelConfig, train_cfg: "TrainConfig") -> None:
+    """The parallel layout's checks that need no process group."""
+    tc = train_cfg
+    if tc.pp > 1:
+        if tc.sp > 1:
+            raise ValueError(PP_SP_ERROR)
+        m = microbatches(tc)
+        if tc.batch_size % m:
+            raise ValueError(f"batch_size={tc.batch_size} must divide by "
+                             f"pp_microbatches={m}")
+        if (tc.batch_size // m) % tc.dp:
+            raise ValueError(f"per-microbatch rows {tc.batch_size // m} "
+                             f"must divide by dp={tc.dp}")
+        validate_pp(model_cfg, tc.pp, tc.tp)
+    elif tc.batch_size % tc.dp:
+        raise ValueError(f"batch_size={tc.batch_size} must divide by dp={tc.dp}")
 
 
 def _reduce_metrics(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.Tensor]:
@@ -184,7 +235,8 @@ def _reduce_metrics(metrics: Dict[str, torch.Tensor], mesh) -> Dict[str, torch.T
 
 
 def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
-                    optimizer: AdamW, device: DeviceLike = None, mesh=None):
+                    optimizer: AdamW, device: DeviceLike = None, mesh=None,
+                    pipeline: Optional[PipelineForward] = None):
     """(step, eval_step).
 
     ``step(params, opt_state, input_ids [A, B, L], prompt_lengths [A, B],
@@ -197,9 +249,12 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     metrics``.
 
     ``mesh`` (``parallel/``): ``params`` are this rank's shard and the
-    batches global; each data rank computes its rows (the noise drawn for
-    all rows, then sliced), the gradients are averaged over ``data`` and
-    the norm summed over the shards; the metrics are the global batch's."""
+    batches global; each data rank computes its rows and each seq rank its
+    slice of them (the noise drawn for all rows, then sliced), the
+    gradients are summed over ``seq`` and averaged over ``data`` and the
+    norm summed over the shards; the metrics are the global batch's.
+    ``pipeline``: the GPipe forward over ``mesh`` (``stage`` axis), whose
+    :meth:`~PipelineForward.rows` are this data rank's rows."""
     if train_cfg.grad_accum_dtype not in ACCUM_DTYPES:
         raise ValueError(f"unknown grad_accum_dtype {train_cfg.grad_accum_dtype!r}")
     acc_dt = ACCUM_DTYPES[train_cfg.grad_accum_dtype]
@@ -211,9 +266,14 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     if mesh is not None and mesh.size == 1:
         mesh = None
     dp = 1 if mesh is None else mesh.data
-    shards = {} if mesh is None else sharded_names(model_cfg, mesh.model)
+    sp = 1 if mesh is None else mesh.seq
+    specs = {} if mesh is None else leaf_specs(model_cfg, mesh)
+    shards = {k for k, (_, d) in specs.items() if d is not None}
+    staged = {k for k, (st, _) in specs.items() if st is not None}
 
     def fwd(p, ids, m=None, *, return_hidden=False):
+        if pipeline is not None:   # this data rank's rows
+            return pipeline.local(p, ids, m)
         return forward(model_cfg, p, ids, attn_mask=m,
                        return_hidden=return_hidden, remat=train_cfg.remat)
 
@@ -221,23 +281,27 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         return lm_head_logits(p, h, model_cfg)
 
     ce_kw = (dict(head_fn=head, ce_chunk=train_cfg.ce_chunk)
-             if train_cfg.ce_chunk else {})
+             if train_cfg.ce_chunk and pipeline is None else {})
 
     def my_rows(t):
         """This data rank's rows of a global batch (dim 0)."""
+        if pipeline is not None:
+            idx = pipeline.rows(t.shape[0])
+            return t if idx is None else t[idx.to(t.device)]
         return t if dp == 1 else t[mesh.rows(t.shape[0])]
 
-    def micro_noise(noise, i, b, l):
+    def micro_noise(noise, i, b, l, pos):
         if isinstance(noise, torch.Generator):
-            if dp == 1:
+            if dp == 1 and pos == slice(None):
                 return noise
             t, u = draw_noise(noise, b, l, dev)   # the global batch's draws
-            return my_rows(t), my_rows(u)
-        return my_rows(noise[0][i]), my_rows(noise[1][i])
+            return my_rows(t), my_rows(u)[:, pos]
+        return my_rows(noise[0][i]), my_rows(noise[1][i])[:, pos]
 
-    def loss_fn(params, input_ids, prompt_lengths, noise, row_mask=None):
+    def loss_fn(params, input_ids, prompt_lengths, noise, row_mask=None,
+                forward_fn=None):
         return diffusion_sft_loss(
-            fwd, params, input_ids, prompt_lengths, mask_id, noise,
+            forward_fn or fwd, params, input_ids, prompt_lengths, mask_id, noise,
             aux_coef=aux_coef, mask_variant=train_cfg.mask_variant,
             row_mask=row_mask, **ce_kw)
 
@@ -245,20 +309,26 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         input_ids = input_ids.to(dev)
         prompt_lengths = prompt_lengths.to(dev)
         a, b, l = input_ids.shape
-        if b % dp:
+        if pipeline is None and b % dp:
             raise ValueError(f"batch of {b} rows does not divide by dp={dp}")
+        # The sequence splits over seq where its padded length divides.
+        split = sp > 1 and l % sp == 0
+        pos = mesh.seq_slice(l) if split else slice(None)
         flat = flatten_params(params)
         acc = {k: torch.zeros(p.shape, dtype=acc_dt, device=p.device)
                for k, p in flat.items()}
         # The optimizer later updates the leaves' shared storage in place.
         leaves, tree = _grad_leaves(flat, acc)
         sums: Dict[str, torch.Tensor] = {}
-        with use_mesh(mesh, batch=b if dp > 1 else None, global_aux=True):
+        # The pipeline forward sets its stages' own scope.
+        with use_mesh(None if pipeline is not None else mesh,
+                      batch=b if dp > 1 else None, global_aux=True,
+                      seq_len=l if split else None):
             for i in range(a):
                 with torch.enable_grad():
-                    loss, metrics = loss_fn(tree, my_rows(input_ids[i]),
+                    loss, metrics = loss_fn(tree, my_rows(input_ids[i])[:, pos],
                                             my_rows(prompt_lengths[i]),
-                                            micro_noise(noise, i, b, l))
+                                            micro_noise(noise, i, b, l, pos))
                     loss.backward()
                 del loss
                 for k, v in metrics.items():
@@ -270,9 +340,11 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
         if mesh is None:
             grad_norm = global_norm(acc.values())   # in f32, after the division
         else:
+            if split:
+                sum_over_seq_(acc.values(), mesh)
             mean_over_data(acc.values(), mesh)
             metrics = _reduce_metrics(metrics, mesh) if dp > 1 else metrics
-            grad_norm = sharded_global_norm(acc, shards, mesh)
+            grad_norm = sharded_global_norm(acc, shards, mesh, staged)
         opt_state = optimizer.update(acc, opt_state, flat, grad_norm)
         metrics["grad_norm"] = grad_norm
         return params, opt_state, metrics
@@ -281,9 +353,9 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
     def eval_step(params, input_ids, prompt_lengths, noise, row_mask):
         # The whole batch on every rank: the loss over the real rows is then
         # the one-process loss, tail rows and all.
-        with use_mesh(mesh):
+        with use_mesh(None if pipeline is not None else mesh):
             _, metrics = loss_fn(params, input_ids.to(dev), prompt_lengths.to(dev),
-                                 noise, row_mask)
+                                 noise, row_mask, forward_fn=pipeline)
         return metrics
 
     return step, eval_step
@@ -291,7 +363,7 @@ def make_train_step(model_cfg: ModelConfig, train_cfg: TrainConfig,
 
 class Trainer:
     """End-to-end SFT loop over a tokenized dataset on one device, or over
-    a ``dp``/``tp`` mesh.
+    a ``dp``/``tp``/``sp`` or ``dp``/``pp``/``tp`` mesh.
 
     ``dataset`` rows: {"input_ids": list[int], "prompt_lengths": int}.
     Under a mesh, ``mesh`` given: ``params`` are already this rank's shard
@@ -312,30 +384,32 @@ class Trainer:
         dist_backend: Optional[str] = None,
         mesh: Optional[Mesh] = None,
     ):
-        if train_cfg.sp > 1 or train_cfg.pp > 1:
-            raise NotImplementedError(
-                "sequence and pipeline parallelism (sp/pp > 1) are not ported "
-                "yet (ROADMAP Queue 1 #7, part two)")
         self.mesh = None
-        if train_cfg.dp * train_cfg.tp > 1:
-            if train_cfg.batch_size % train_cfg.dp:
-                raise ValueError(
-                    f"batch_size={train_cfg.batch_size} must divide by "
-                    f"dp={train_cfg.dp}")
+        self.pipeline = None
+        tc = train_cfg
+        check_layout(model_cfg, tc)
+        if tc.dp * tc.tp * tc.sp * tc.pp > 1:
             if mesh is None:
-                device = ensure_distributed(train_cfg.dp, train_cfg.tp, device,
-                                            dist_backend)
-                mesh = make_mesh(data=train_cfg.dp, model=train_cfg.tp,
-                                 device=resolve_device(device))
-                params = shard_params(model_cfg, params, mesh)
-            elif (mesh.data, mesh.model) != (train_cfg.dp, train_cfg.tp):
+                device = ensure_distributed(tc.dp, tc.tp, device, dist_backend,
+                                            seq=tc.sp, stages=tc.pp)
+                device = resolve_device(device)
+                if tc.pp > 1:
+                    mesh = make_pp_mesh(tc.pp, data=tc.dp, model=tc.tp, device=device)
+                    params = shard_params_pp(model_cfg, params, mesh)
+                else:
+                    mesh = make_mesh(data=tc.dp, model=tc.tp, seq=tc.sp, device=device)
+                    params = shard_params(model_cfg, params, mesh)
+            elif (mesh.data, mesh.seq, mesh.stage, mesh.model) != (tc.dp, tc.sp, tc.pp, tc.tp):
                 raise ValueError(
-                    f"the params' mesh is {mesh.data}x{mesh.model}, the "
-                    f"config asks for dp={train_cfg.dp} x tp={train_cfg.tp}")
+                    f"the params' mesh is {mesh.shape}, the config asks for "
+                    f"dp={tc.dp} x sp={tc.sp} x pp={tc.pp} x tp={tc.tp}")
             self.mesh = mesh
             self.device = mesh.device
+            if tc.pp > 1:
+                self.pipeline = make_pp_forward(model_cfg, mesh, microbatches(tc),
+                                                remat=tc.remat)
         elif mesh is not None and mesh.size > 1:
-            raise ValueError(f"a {mesh.data}x{mesh.model} mesh with dp = tp = 1")
+            raise ValueError(f"a {mesh.shape} mesh with dp = tp = sp = pp = 1")
         else:
             self.device = resolve_device(device)
         self.model_cfg = model_cfg
@@ -362,7 +436,8 @@ class Trainer:
         self.optimizer, self.lr_schedule = make_optimizer(train_cfg, self.total_steps)
         self.opt_state = self.optimizer.init(self.params)
         self.train_step, self.eval_step = make_train_step(
-            model_cfg, train_cfg, self.optimizer, self.device, self.mesh)
+            model_cfg, train_cfg, self.optimizer, self.device, self.mesh,
+            self.pipeline)
 
         self.global_step = 0
         self.training_logs: List[Dict] = []
@@ -529,30 +604,42 @@ class Trainer:
         return final
 
     def _gathered(self):
-        """(full params, full optimizer state) on the model group of data
-        rank 0 under a mesh (None elsewhere); the trainer's own otherwise.
+        """(full params, full optimizer state or None when it is not saved)
+        on rank 0 under a mesh, None elsewhere; the trainer's own
+        otherwise.  The ranks of data rank 0 and seq rank 0 take part in
+        every leaf's gathers over ``model`` and ``stage``, and all but rank 0
+        drop the leaf at once, so only rank 0 ever holds the full model.
         int8 moments are gathered as f32 and quantized whole, in the
         reference's layout for the full leaf."""
         mesh = self.mesh
         if mesh is None:
             return self.params, self.opt_state
-        if mesh.data_rank != 0:
+        if mesh.data_rank != 0 or mesh.seq_rank != 0:
             return None, None
-        params = gather_params(self.model_cfg, self.params, mesh)
-        shards = sharded_names(self.model_cfg, mesh.model)
+        specs = leaf_specs(self.model_cfg, mesh)
+        keep = mesh.rank == 0
 
         def full(name, t):
-            if name not in shards:
+            if specs[name] == (None, None):
                 return t
             if isinstance(t, Quantized):
-                return quantize_int8(all_gather(dequantize_int8(t), mesh.model_group,
-                                                mesh, shards[name]))
-            return all_gather(t, mesh.model_group, mesh, shards[name])
+                return quantize_int8(gather_leaf(dequantize_int8(t), specs[name], mesh))
+            return gather_leaf(t, specs[name], mesh)
 
-        st = self.opt_state
-        state = AdamWState(st.count, {k: full(k, v) for k, v in st.mu.items()},
-                           {k: full(k, v) for k, v in st.nu.items()})
-        return params, state
+        def gathered(flat):
+            out = {}
+            for name, t in flat.items():
+                whole = full(name, t)
+                if keep:
+                    out[name] = whole
+            return out
+
+        params = gathered(flatten_params(self.params))
+        state = None
+        if self.cfg.save_optimizer_state:
+            st = self.opt_state
+            state = AdamWState(st.count, gathered(st.mu), gathered(st.nu))
+        return (unflatten_params(params), state) if keep else (None, None)
 
     def save(self, output_dir: Optional[str] = None):
         """Save as the reference does; under a mesh the shards are gathered
@@ -596,15 +683,18 @@ class Trainer:
         plain moments sliced, int8 ones dequantized, sliced and quantized
         in the shard's own layout."""
         flat = dict(flat)
-        for name, dim in sharded_names(self.model_cfg, self.mesh.model).items():
+        for name, spec in leaf_specs(self.model_cfg, self.mesh).items():
+            if spec == (None, None):
+                continue
             for part in ("mu", "nu"):
                 key = f"[1][0].{part}{_keypath(name)}"
                 if key in flat:
-                    flat[key] = shard_leaf(flat[key], dim, self.mesh)
+                    flat[key] = stage_leaf(flat[key], spec, self.mesh).contiguous()
                     continue
                 whole = Quantized(flat[key + ".q"], flat[key + ".scale"],
                                   tuple(flat[key + ".meta"].shape[1:]))
-                mine = quantize_int8(shard_leaf(dequantize_int8(whole), dim, self.mesh))
+                mine = quantize_int8(stage_leaf(dequantize_int8(whole), spec,
+                                                 self.mesh).contiguous())
                 flat[key + ".q"], flat[key + ".scale"] = mine.q, mine.scale
                 flat[key + ".meta"] = torch.zeros((0,) + mine.shape)
         return flat

@@ -1344,3 +1344,60 @@ def test_tiny_moe_train_step_kernels_against_plain(cuda_device, monkeypatch, rem
                         "flash_attention_bwd_dkv": cfg.num_layers * 2}
     assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
     assert state.count == 1
+
+
+def _chunks(dev, b, s, h, kv, dh, seed, n=2):
+    """q, dO and ``n`` key / value chunks of a ring (bf16)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    q, do = (torch.randn((b, s, h, dh), generator=g, device=dev, dtype=torch.bfloat16)
+             for _ in range(2))
+    kvs = [tuple(torch.randn((b, s, kv, dh), generator=g, device=dev,
+                             dtype=torch.bfloat16) for _ in range(2)) for _ in range(n)]
+    return q, do, kvs
+
+
+@pytest.mark.parametrize("b,s,h,kv", [(2, 2048, 8, 2), (1, 300, 16, 4), (3, 64, 4, 4)])
+def test_flash_kernels_at_a_ring_chunk(cuda_device, b, s, h, kv):
+    """The ring's use of the kernels: K8 with lse and no RoPE on each chunk
+    (phase 24's shape first: B 2, S 2048, 8 q / 2 kv heads), then K10 / K11
+    on each chunk with the o / lse combined over both chunks, which the
+    kernels did not produce themselves, against their plain versions."""
+    from ct_diffusionmodelbench_tpu_torch.ops import ring_attention as ring
+
+    dev = cuda_device
+    q, do, chunks = _chunks(dev, b, s, h, kv, 128, b * s + h)
+    o = torch.zeros((b, s, h, 128), dtype=torch.float32, device=dev)
+    lse = torch.full((b, h, s), ring.NEG_INF, dtype=torch.float32, device=dev)
+    for k, v in chunks:
+        o_i, lse_i = fa.flash_attention_cuda(q, k, v, with_lse=True)
+        o_p, lse_p = fa.flash_attention_plain(q, k, v, with_lse=True)
+        torch.testing.assert_close(o_i, o_p, **FLASH_TOL)
+        torch.testing.assert_close(lse_i, lse_p, **LSE_TOL)
+        o, lse = ring.combine(o, lse, o_i, lse_i)
+    o = o.to(torch.bfloat16)
+    bias = fa.mask_bias(None, b, s, dev)
+    for k, v in chunks:
+        got = fab.flash_attention_bwd_cuda(q, k, v, bias, o, do, lse)
+        _bwd_close(got, fab.flash_attention_bwd_plain(q, k, v, bias, o, do, lse))
+
+
+def test_padded_ring_chunk_has_zero_weight(cuda_device):
+    """A chunk whose every key is padding (a left-padded prompt's first
+    chunk): K8's lse is about -1e30, its weight in the combine is exactly
+    0, so the combined o / lse are the real chunk's; with them K10 / K11
+    give the padded chunk zero dq, dk and dv."""
+    from ct_diffusionmodelbench_tpu_torch.ops import ring_attention as ring
+
+    dev, b, s, h, kv = cuda_device, 2, 256, 8, 2
+    q, do, ((k0, v0), (k1, v1)) = _chunks(dev, b, s, h, kv, 128, 7)
+    pad = torch.zeros((b, s), dtype=torch.int32, device=dev)
+    o_pad, lse_pad = fa.flash_attention_cuda(q, k0, v0, mask=pad, with_lse=True)
+    assert torch.isfinite(o_pad).all() and (lse_pad < -1e29).all()
+    o_real, lse_real = fa.flash_attention_cuda(q, k1, v1, with_lse=True)
+    o = torch.zeros((b, s, h, 128), dtype=torch.float32, device=dev)
+    lse = torch.full((b, h, s), ring.NEG_INF, dtype=torch.float32, device=dev)
+    o, lse = ring.combine(*ring.combine(o, lse, o_pad, lse_pad), o_real, lse_real)
+    assert torch.equal(o, o_real.float()) and torch.equal(lse, lse_real)
+    dq, dk, dv = fab.flash_attention_bwd_cuda(q, k0, v0, fa.mask_bias(pad, b, s, dev),
+                                              o.to(torch.bfloat16), do, lse)
+    assert not dq.any() and not dk.any() and not dv.any()

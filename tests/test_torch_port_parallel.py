@@ -75,7 +75,21 @@ def test_mesh_shapes(pool):
     kind, msg = pool.run("mesh_error", 3, None)[0]
     assert kind == "ValueError"
     kind, msg = pool.run("mesh_error", 1, 1, seq=2)[0]
-    assert kind == "NotImplementedError" and "Queue 1 #7" in msg
+    assert kind == "ValueError" and "needs WORLD_SIZE 2, have 4" in msg
+    # The seq axis sits between data and model, as jax.make_mesh lays out
+    # (data, seq, model): rank = seq_rank * model + model_rank; each seq
+    # group holds the ranks of one model coordinate, in seq order.
+    info = pool.run("rank_info", 1, 2, seq=2)
+    assert [i["shape"] for i in info] == [{"data": 1, "seq": 2, "model": 2}] * 4
+    assert [(i["seq_rank"], i["model_rank"]) for i in info] == [
+        (0, 0), (0, 1), (1, 0), (1, 1)]
+    assert [i["mid_group"] for i in info] == [[0, 2], [1, 3], [0, 2], [1, 3]]
+    info = pool.run("rank_info", 2, None, seq=2)
+    assert [(i["data_rank"], i["seq_rank"]) for i in info] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert info[0]["shape"] == {"data": 2, "seq": 2, "model": 1}
+    info = pool.run("rank_info", 2, 1, stages=2)
+    assert [(i["data_rank"], i["stage_rank"]) for i in info] == [(0, 0), (0, 1), (1, 0), (1, 1)]
+    assert [i["mid_group"] for i in info] == [[0, 1], [0, 1], [2, 3], [2, 3]]
 
 
 @pytest.mark.parametrize("preset", ["llada-tiny", "llada-moe-tiny"])
@@ -392,4 +406,4 @@ def test_collective_counts(pool):
     layers = cfg.num_layers
     for c in counts:
         assert c == {"all_reduce": 2 * layers + 1 + 2 * layers, "all_gather": 2,
-                     "host_staged": 0}
+                     "p2p": 0, "host_staged": 0}

@@ -449,17 +449,18 @@ def test_safetensors_round_trip_and_jax_reader(tmp_path, dtype):
 
 
 def test_trainer_refuses_what_is_not_ported(tiny, monkeypatch):
-    """Only sequence and pipeline parallelism still raise; dp / tp outside
-    a torchrun launch say how to launch; MoE configs, bf16 / int8 moments,
-    bf16 accumulation and saving the optimizer state construct."""
+    """Pipeline with sequence parallelism raises the reference's error;
+    dp / tp / sp / pp outside a torchrun launch say how to launch; MoE
+    configs, bf16 / int8 moments, bf16 accumulation and saving the
+    optimizer state construct."""
     _, params_j, cfg_t = tiny
     params = _bridge(params_j)
     rows = [{"input_ids": [5] * 8, "prompt_lengths": 1}] * 4
-    for bad in (dict(sp=2), dict(pp=2)):
-        with pytest.raises(NotImplementedError, match="Queue 1 #7"):
-            ttr.Trainer(cfg_t, params, ttr.TrainConfig(**bad), rows, device="cpu")
+    with pytest.raises(ValueError, match="pp composes with dp and tp, not sp"):
+        ttr.Trainer(cfg_t, params, ttr.TrainConfig(sp=2, pp=2), rows, device="cpu")
     monkeypatch.delenv("WORLD_SIZE", raising=False)
-    for bad in (dict(dp=2, batch_size=2), dict(tp=2)):
+    for bad in (dict(dp=2, batch_size=2), dict(tp=2), dict(sp=2),
+                dict(pp=2, batch_size=2)):
         with pytest.raises(RuntimeError, match="torchrun"):
             ttr.Trainer(cfg_t, params, ttr.TrainConfig(**bad), rows, device="cpu")
     moe = get_config("llada-moe-tiny", dtype="float32")

@@ -74,10 +74,20 @@ class RankPool:
     def run(self, name: str, *args, **kwargs) -> list:
         """``name(*args, **kwargs)`` on every rank; their results in rank
         order.  Raises with the failing rank's traceback."""
+        return self.run_beside(lambda: None, name, *args, **kwargs)[1]
+
+    def run_beside(self, local, name: str, *args, **kwargs) -> tuple:
+        """(``local()``, :meth:`run`'s results): the ranks run the task
+        while this process computes ``local()``."""
         if not self.procs:
             self._start()
         for q in self.tasks:
             q.put((name, args, kwargs))
+        try:
+            mine = local()
+        except BaseException:
+            self.close(kill=True)
+            raise
         out = [None] * self.world
         try:
             for _ in range(self.world):
@@ -88,7 +98,7 @@ class RankPool:
         except (RuntimeError, queue.Empty):
             self.close(kill=True)
             raise
-        return out
+        return mine, out
 
     def close(self, kill: bool = False):
         for p, q in zip(self.procs, getattr(self, "tasks", [])):
@@ -111,13 +121,22 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.detach().cpu().numpy()
 
 
-def rank_info(dp: int, tp: int):
+def rank_info(dp: int, tp: int, seq: int = 1, stages: int = 1):
+    """This rank's coordinates on the mesh, and the ranks of its seq or
+    stage group, as an all-gather over that group sees them."""
     from ct_diffusionmodelbench_tpu_torch.parallel import make_mesh
+    from ct_diffusionmodelbench_tpu_torch.parallel.comm import all_gather
+    from ct_diffusionmodelbench_tpu_torch.parallel.pipeline import make_pp_mesh
 
-    mesh = make_mesh(data=dp, model=tp)
+    mesh = (make_pp_mesh(stages, data=dp, model=tp) if stages > 1
+            else make_mesh(data=dp, model=tp, seq=seq))
+    group = mesh.seq_group if seq > 1 else mesh.stage_group
+    mid = (None if group is None else
+           all_gather(torch.tensor([[mesh.rank]]), group, mesh, dim=1)[0].tolist())
     return dict(rank=mesh.rank, data_rank=mesh.data_rank,
-                model_rank=mesh.model_rank, shape=mesh.shape,
-                backend=mesh.backend)
+                model_rank=mesh.model_rank, seq_rank=mesh.seq_rank,
+                stage_rank=mesh.stage_rank, shape=mesh.shape,
+                backend=mesh.backend, mid_group=mid)
 
 
 def mesh_error(dp, tp, seq=1):
@@ -132,21 +151,23 @@ def mesh_error(dp, tp, seq=1):
 
 
 def sharded_forward(preset: str, params_np: dict, ids: np.ndarray, dp: int, tp: int,
-                    mask=None, attn_impl="auto", **over):
-    """The port's sharded forward at dp×tp on bridged weights: (logits,
-    aux, the wq shard's shape)."""
+                    mask=None, attn_impl="auto", seq=1, logit_start=None,
+                    logit_length=None, **over):
+    """The port's sharded forward at dp×tp (×seq) on bridged weights:
+    (logits, aux, the wq shard's shape)."""
     from ct_diffusionmodelbench_tpu_torch.io.bridge import shard_from_numpy
     from ct_diffusionmodelbench_tpu_torch.models import get_config
     from ct_diffusionmodelbench_tpu_torch.parallel import (
         make_mesh, make_sharded_forward)
 
     cfg = get_config(preset, dtype="float32", **over)
-    mesh = make_mesh(data=dp, model=tp)
+    mesh = make_mesh(data=dp, model=tp, seq=seq)
     params = shard_from_numpy(cfg, params_np, mesh)
     fwd = make_sharded_forward(cfg, mesh, attn_impl=attn_impl)
     with torch.inference_mode():
         logits, aux = fwd(params, torch.as_tensor(ids),
-                          None if mask is None else torch.as_tensor(mask))
+                          None if mask is None else torch.as_tensor(mask),
+                          logit_start=logit_start, logit_length=logit_length)
     return _np(logits), float(aux), tuple(params["blocks"]["wq"].shape)
 
 
@@ -183,6 +204,19 @@ def train_cli_shard(argv: list):
     mesh = train_cli.train_mesh(args)
     _, params, _ = train_cli.load_model(args, mesh)
     return mesh.model_rank, {k: _np(v.float()) for k, v in flatten_params(params).items()}
+
+
+def train_cli_stage_shard(argv: list):
+    """As :func:`train_cli_shard` under ``--pp``: (this rank's (stage,
+    model) coordinates, its shard's leaves as f32 numpy by flat name)."""
+    from ct_diffusionmodelbench_tpu_torch.cli import train as train_cli
+    from ct_diffusionmodelbench_tpu_torch.train.optim import flatten_params
+
+    args = train_cli.build_parser().parse_args(argv)
+    mesh = train_cli.train_mesh(args)
+    _, params, _ = train_cli.load_model(args, mesh)
+    return ((mesh.stage_rank, mesh.model_rank),
+            {k: _np(v.float()) for k, v in flatten_params(params).items()})
 
 
 def sharded_generate(preset: str, params_np: dict, prompts: np.ndarray,
@@ -276,3 +310,97 @@ def forward_counts(preset: str, params_np: dict, dp: int, tp: int):
     comm.reset_counts()
     sharded_forward(preset, params_np, np.full((4, 16), 9), dp, tp)
     return dict(comm.COUNTS)
+
+
+def ring_piece(q, k, v, mask, dp: int, sp: int, tp: int, impl="auto",
+               split=True, grad=False):
+    """This rank's rows, positions (``split``) and heads (over ``model``) of
+    q/k/v through ``attention(..., impl)`` under a dp×sp×tp mesh; with
+    ``grad``, the gradients of Σ tanh(out) over every rank's piece.
+    Returns the rank's coordinates, its output, its gradients and the
+    collectives it issued."""
+    from ct_diffusionmodelbench_tpu_torch.ops.attention import attention
+    from ct_diffusionmodelbench_tpu_torch.parallel import comm, make_mesh, use_mesh
+
+    mesh = make_mesh(data=dp, model=tp, seq=sp)
+    b, s = q.shape[:2]
+    rows = mesh.rows(b) or slice(None)
+    pos = mesh.seq_slice(s) if split else slice(None)
+    hq, hk, m = q.shape[2] // tp, k.shape[2] // tp, mesh.model_rank
+    q, k, v = (torch.as_tensor(t[rows][:, pos][:, :, m * h:(m + 1) * h]).requires_grad_(grad)
+               for t, h in ((q, hq), (k, hk), (v, hk)))
+    mask = None if mask is None else torch.as_tensor(mask[rows][:, pos])
+    comm.reset_counts()
+    with torch.set_grad_enabled(grad), use_mesh(
+            mesh, batch=b if dp > 1 else None, seq_len=s if split else None):
+        out = attention(q, k, v, mask, impl=impl)
+        if grad:
+            torch.tanh(out).sum().backward()
+    return dict(coords=(mesh.data_rank, mesh.seq_rank, mesh.model_rank),
+                out=_np(out), counts=dict(comm.COUNTS),
+                grads=tuple(_np(t.grad) for t in (q, k, v)) if grad else None)
+
+
+def pp_forward(preset: str, params_np: dict, ids: np.ndarray, stages: int,
+               micro: int, dp: int = 1, tp: int = 1, mask=None, grad=False,
+               **over):
+    """The port's GPipe forward on bridged weights: (logits, aux, this
+    rank's (stage, model) coordinates, with ``grad`` the gradients of
+    mean(tanh(logits[..., :64])) by flat name, this rank's shards)."""
+    from ct_diffusionmodelbench_tpu_torch.io.bridge import params_from_numpy
+    from ct_diffusionmodelbench_tpu_torch.models import get_config
+    from ct_diffusionmodelbench_tpu_torch.parallel.pipeline import (
+        make_pp_forward, make_pp_mesh, shard_params_pp)
+    from ct_diffusionmodelbench_tpu_torch.train.optim import flatten_params
+
+    cfg = get_config(preset, dtype="float32", **over)
+    mesh = make_pp_mesh(stages, data=dp, model=tp)
+    params = shard_params_pp(cfg, params_from_numpy(params_np, device="cpu"), mesh)
+    flat = flatten_params(params)
+    for t in flat.values():
+        t.requires_grad_(grad)
+    pp = make_pp_forward(cfg, mesh, micro)
+    with torch.set_grad_enabled(grad):
+        logits, aux = pp(params, torch.as_tensor(ids),
+                         None if mask is None else torch.as_tensor(mask))
+        if grad:
+            torch.tanh(logits[..., :64]).mean().backward()
+    grads = {k: _np(t.grad) for k, t in flat.items()} if grad else None
+    return _np(logits), float(aux.detach()), (mesh.stage_rank, mesh.model_rank), grads
+
+
+def gathered_where(preset: str, params_np: dict, dp: int, tp: int, **tc):
+    """Which parts of the full tree ``Trainer._gathered`` (the save's
+    gather) leaves on this rank: (params held, optimizer state held)."""
+    from ct_diffusionmodelbench_tpu_torch.io.bridge import params_from_numpy
+    from ct_diffusionmodelbench_tpu_torch.models import get_config
+    from ct_diffusionmodelbench_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = get_config(preset, dtype="float32")
+    rows = [{"input_ids": [5] * 8, "prompt_lengths": 1}]
+    tr = Trainer(cfg, params_from_numpy(params_np, device="cpu"),
+                 TrainConfig(dp=dp, tp=tp, **tc), rows, device="cpu")
+    params, state = tr._gathered()
+    return params is not None, state is not None
+
+
+def train_steps(preset: str, params_np: dict, batches: list, **tc):
+    """``Trainer.train_step`` on explicit batches and noise ``[(ids [A, B,
+    L], prompt lengths [A, B], t [A, B], u [A, B, L])]`` under the mesh
+    ``tc`` asks for: each step's (loss, grad norm)."""
+    from ct_diffusionmodelbench_tpu_torch.io.bridge import params_from_numpy
+    from ct_diffusionmodelbench_tpu_torch.models import get_config
+    from ct_diffusionmodelbench_tpu_torch.train.trainer import TrainConfig, Trainer
+
+    cfg = get_config(preset, dtype="float32")
+    rows = [{"input_ids": [5] * 8, "prompt_lengths": 1}]
+    tr = Trainer(cfg, params_from_numpy(params_np, device="cpu"), TrainConfig(**tc),
+                 rows, device="cpu")
+    out = []
+    for ids, plens, t, u in batches:
+        _, tr.opt_state, m = tr.train_step(tr.params, tr.opt_state,
+                                           torch.as_tensor(ids).long(),
+                                           torch.as_tensor(plens).long(),
+                                           (torch.as_tensor(t), torch.as_tensor(u)))
+        out.append((float(m["loss"]), float(m["grad_norm"])))
+    return out
