@@ -201,6 +201,27 @@ Phases, in order:
    logits against the one-rank forward on the gathered weights, and one
    training step's loss and gradient norm against one rank's.
 
+26. busy time: ``utils/profiling.onchip_device_seconds`` around a loop of
+   K8 at the main shape (B 8, S 320, H 16, KV 4, Dh 128, RoPE, left
+   padding): a number, no larger than the loop's CUDA-event window, and
+   within 10 % of the kernels' summed time in ``key_averages`` of a second
+   trace of the same loop.
+27. headline bench: ``python -m ct_diffusionmodelbench_tpu_torch.bench`` as
+   a subprocess (full-size ``llada-moe-7b``, B 8, the main path's
+   configuration): rc 0, exactly one stdout line, ``chip_kind`` the card's
+   name, ``value`` > 0, ``mfu`` not null, ``onchip_seconds_per_batch`` no
+   larger than ``seconds_per_batch``; the line is printed.
+28. entry forward: ``entry.entry()`` (``llada-8b`` whole, bf16) on ones at
+   (1, 320): 32 launches of K8 and no other kernel, finite logits of shape
+   (1, 320, vocab), peak memory.
+29. dry run: ``entry.dryrun_multichip(8)`` (8 spawned ranks: nccl with a
+   card each where there are eight, else all on cuda:0 with gloo): its
+   four lines (dp × tp, sp, pp, pp-tp).
+30. sweep: ``bench_sweep``'s ``attention_crossover``, ``grouped_gemm`` and
+   ``sft_train_step`` sections at their full shapes, rows printed; a
+   section's error fails the phase.  The sweep's heavy sections drive
+   paths that phases 12-15 and 20 drive; they run through its CLI.
+
 The bf16 MoE weights are freed before phase 11, the int8 ones before
 phase 15, Dream's before phase 16, the dense training state before phase
 19, the MoE training state before phase 22.  A rank that fails, or does
@@ -3458,6 +3479,140 @@ def pp_training_phase():
                 err_b=err_b, one_s=one_s, one_peak_gib=one_peak / 2**30)
 
 
+# ---------------------------------------------------------------------------
+# The measuring entry points (phases 26-30)
+# ---------------------------------------------------------------------------
+
+# Phase 26: K8 launches in the traced loop; the on-chip busy time against
+# the kernels' summed time.
+BUSY_ITERS = 200
+BUSY_REL_TOL = 0.10
+BENCH_TIMEOUT_S = 600
+SWEEP_SECTIONS = ("attention_crossover", "grouped_gemm", "sft_train_step")
+
+
+def profiling_phase(dev):
+    """Phase 26: ``onchip_device_seconds`` of a K8 loop against the loop's
+    CUDA-event window and against ``key_averages``' kernel sum."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from ct_diffusionmodelbench_tpu_torch.ops.flash_attention import flash_attention
+    from ct_diffusionmodelbench_tpu_torch.utils.profiling import onchip_device_seconds
+
+    q, k, v, _, mask, rope = attention_case(dev, BATCH, SEQ, 16, 4, 128, seed=26,
+                                            pad=PROMPT // 2)
+    window = {}
+
+    @torch.inference_mode()
+    def loop():
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        start.record()
+        for _ in range(BUSY_ITERS):
+            flash_attention(q, k, v, mask=mask, rope=rope)
+        end.record()
+        torch.cuda.synchronize()
+        window["s"] = start.elapsed_time(end) / 1e3
+
+    loop()
+    busy = onchip_device_seconds(loop)
+    if not isinstance(busy, float):
+        raise AssertionError(f"onchip_device_seconds gave {busy!r} for {BUSY_ITERS} K8 launches")
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        loop()
+    kernel_s = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA) / 1e6
+    rel = abs(busy - kernel_s) / kernel_s
+    print(f"  {BUSY_ITERS} K8 launches at B {BATCH}, S {SEQ}, H 16, KV 4: busy "
+          f"{busy * 1e3:.3f} ms (union of device intervals), CUDA-event window of the "
+          f"traced loop {window['s'] * 1e3:.3f} ms, kernels' sum in key_averages "
+          f"{kernel_s * 1e3:.3f} ms (rel diff {rel:.4f}, limit {BUSY_REL_TOL})", flush=True)
+    if busy > window["s"]:
+        raise AssertionError("busy time exceeds the CUDA-event window")
+    if rel > BUSY_REL_TOL:
+        raise AssertionError("busy time and the kernels' summed time disagree")
+
+
+def bench_phase(dev):
+    """Phase 27: the headline bench's CLI in a subprocess, its one line
+    checked and printed."""
+    run = subprocess.run([sys.executable, "-m", "ct_diffusionmodelbench_tpu_torch.bench"],
+                         capture_output=True, text=True, timeout=BENCH_TIMEOUT_S)
+    lines = run.stdout.strip().splitlines()
+    if run.returncode != 0 or len(lines) != 1:
+        raise AssertionError(f"bench: rc {run.returncode}, {len(lines)} stdout lines:\n"
+                             f"{run.stdout[-2000:]}\n{run.stderr[-4000:]}")
+    print(f"  {lines[0]}", flush=True)
+    res = json.loads(lines[0])
+    head = res["config"]["headline"]
+    checks = {
+        "chip_kind names the card": res["config"]["chip_kind"] == torch.cuda.get_device_name(dev),
+        "value > 0": (res["value"] or 0) > 0,
+        "mfu not null": head.get("mfu") is not None,
+        "on-chip seconds <= wall seconds":
+            head.get("onchip_seconds_per_batch", float("inf")) <= head["seconds_per_batch"],
+    }
+    print(f"  busy share of the headline (on-chip / wall seconds per batch): "
+          f"{head.get('onchip_seconds_per_batch', float('nan')) / head['seconds_per_batch']:.4f}; "
+          + ", ".join(f"{k}: {'ok' if v else 'FAILED'}" for k, v in checks.items()), flush=True)
+    if not all(checks.values()):
+        raise AssertionError(f"bench line fails {[k for k, v in checks.items() if not v]}")
+
+
+def entry_phase(dev):
+    """Phase 28: ``entry()``'s forward of llada-8b on the card."""
+    from ct_diffusionmodelbench_tpu_torch.entry import entry
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    fn, (params, ids) = entry()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    logits = fn(params, ids)
+    torch.cuda.synchronize()
+    fwd_s = time.perf_counter() - t0
+    launches = {name: kk.launches for name, kk in KERNELS.items() if kk.launches}
+    vocab = params["lm_head"].shape[-1] if "lm_head" in params else params["embed"].shape[0]
+    finite = bool(torch.isfinite(logits).all())
+    print(f"  llada-8b: init {init_s:.2f} s, first forward {fwd_s:.3f} s, logits "
+          f"{tuple(logits.shape)} {logits.dtype}, finite {finite}, launches "
+          f"{json.dumps(launches)}, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
+          flush=True)
+    if launches != {"flash_attention_fwd": 32}:
+        raise AssertionError(f"entry forward launches {launches}, expected 32 of K8 only")
+    if tuple(logits.shape) != (1, 320, vocab) or not finite:
+        raise AssertionError("entry forward: wrong shape or non-finite logits")
+    del fn, params, ids, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def dryrun_phase(dev):
+    """Phase 29: the eight-rank dry run and its four lines."""
+    from ct_diffusionmodelbench_tpu_torch.entry import dryrun_multichip
+
+    res = dryrun_multichip(8)
+    print(f"  rank 0: {json.dumps(res)}", flush=True)
+    if set(res) < {"loss", "grad_norm", "sp_loss", "pp_err", "pptp_err"}:
+        raise AssertionError(f"dry run returned {res}")
+
+
+def sweep_phase(dev):
+    """Phase 30: three of the sweep's sections at full shape."""
+    from ct_diffusionmodelbench_tpu_torch import bench_sweep
+
+    ledger = bench_sweep.sweep(set(SWEEP_SECTIONS))
+    for name in SWEEP_SECTIONS:
+        rows = ledger[name] if isinstance(ledger[name], list) else [ledger[name]]
+        for row in rows:
+            print(f"  {name}: {json.dumps(row)}", flush=True)
+    bad = bench_sweep.erred(ledger)
+    if bad:
+        raise AssertionError(f"sweep sections failed: {bad}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3646,6 +3801,15 @@ def main() -> int:
             r["pipeline"] = dict(
                 launches_per_rank_pp4=[y["launches"][name] for y in pp["res"]],
                 launches_per_rank_pp2_tp2=[y["launches"][name] for y in pp["res_b"]])
+    for number, label, phase in ((26, "busy time", profiling_phase),
+                                 (27, "headline bench", bench_phase),
+                                 (28, "entry forward", entry_phase),
+                                 (29, "dry run", dryrun_phase),
+                                 (30, "sweep", sweep_phase)):
+        t0 = time.perf_counter()
+        print(f"{label}:", flush=True)
+        phase(dev)
+        print(f"  phase {number}: {time.perf_counter() - t0:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",

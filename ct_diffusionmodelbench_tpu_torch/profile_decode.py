@@ -46,6 +46,7 @@ from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
 from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params, make_forward_fn
 from ct_diffusionmodelbench_tpu_torch.ops.quant import quantized_leaf_transform
 from ct_diffusionmodelbench_tpu_torch.sampling import llada_generate
+from ct_diffusionmodelbench_tpu_torch.utils.profiling import device_intervals, union_seconds
 
 BATCH, PROMPT, GEN, BLOCK = 8, 64, 256, 32
 STEPS = GEN // BLOCK  # one step per block: same per-step work as 128 steps
@@ -65,7 +66,9 @@ def _kernel_us(evt) -> float:
 def trace(run, activities):
     """One call of ``run`` (which must end in a device sync) under
     ``torch.profiler``: (events, [(kernel, device ms, calls)] by time,
-    device busy ms, window ms)."""
+    device busy ms, window ms).  Busy is the union of the device intervals
+    (``utils/profiling.py``): kernels, copies and sets on any stream, each
+    instant counted once."""
     with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         run()
@@ -73,7 +76,7 @@ def trace(run, activities):
     events = prof.key_averages()
     dev = sorted(((e.key, _kernel_us(e) / 1e3, e.count) for e in events
                   if _kernel_us(e) > 0), key=lambda r: -r[1])
-    busy_ms = sum(ms for _, ms, _ in dev)
+    busy_ms = union_seconds(device_intervals(prof)) * 1e3
     if busy_ms <= 0:
         raise RuntimeError("the profiler recorded no device time")
     return events, dev, busy_ms, window_ms

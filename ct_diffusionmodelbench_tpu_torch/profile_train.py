@@ -9,8 +9,9 @@ grad-accum 4, prompt 64, remat, CE chunk 512, AdamW) through
 full-size ``llada-moe-7b`` (18 layers), int8 moments, bf16 accumulation,
 remat, the same shape.  Each: one step to warm up, two timed unprofiled,
 one under ``torch.profiler`` tracing the device only, for the device time
-by kernel, by kernel family and the idle share of that same window.  The
-MoE cell also times one step by phase with CUDA events around the forward,
+by kernel, by kernel family, the device busy time (the union of the
+device intervals, ``profile_decode.trace``) and the idle share of that
+same window.  The MoE cell also times one step by phase with CUDA events around the forward,
 the backward, the grouped FFN's backward inside it and the optimizer
 update (device-clock spans, summed over the micro-batches), and times a
 step with ``attn_impl="reference"`` against the flash kernels, in turns.

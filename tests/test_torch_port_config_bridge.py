@@ -36,6 +36,9 @@ NEW_IN_SINGLE_PROMPT_SLICE = ("cli.chat", "cli.chat_base", "cli.common",
 # ... and the tensor- / data-parallel slice's.
 NEW_IN_PARALLEL_SLICE = ("parallel", "parallel.mesh", "parallel.comm",
                          "parallel.sharding")
+# ... and the measuring entry points' (profiling, bench, sweep, entry, probes).
+NEW_IN_MEASURE_SLICE = ("utils.profiling", "bench", "bench_sweep", "entry",
+                        "probe_models")
 
 
 def _is_forbidden(module: str) -> bool:
@@ -116,7 +119,8 @@ def test_port_imports_no_jax_at_runtime():
     bad, names, n = res.stdout.strip().splitlines()[-3:]
     assert bad == "[]"
     assert int(n) >= 15  # every module was really imported
-    for mod in NEW_IN_INT8_SLICE + NEW_IN_SINGLE_PROMPT_SLICE + NEW_IN_PARALLEL_SLICE:
+    for mod in (NEW_IN_INT8_SLICE + NEW_IN_SINGLE_PROMPT_SLICE + NEW_IN_PARALLEL_SLICE
+                + NEW_IN_MEASURE_SLICE):
         assert f"'ct_diffusionmodelbench_tpu_torch.{mod}'" in names, mod
 
 
@@ -160,7 +164,8 @@ def test_port_sources_import_no_jax():
                 continue
             found += [(f.name, n) for n in names if _is_forbidden(n)]
     assert len(files) >= 15
-    for mod in NEW_IN_INT8_SLICE + NEW_IN_SINGLE_PROMPT_SLICE + NEW_IN_PARALLEL_SLICE:
+    for mod in (NEW_IN_INT8_SLICE + NEW_IN_SINGLE_PROMPT_SLICE + NEW_IN_PARALLEL_SLICE
+                + NEW_IN_MEASURE_SLICE):
         path = PORT / mod.replace(".", "/")
         assert path.with_suffix(".py") in files or path / "__init__.py" in files, mod
     assert found == []
@@ -192,3 +197,17 @@ def test_entry_points_raise_without_card(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_train_step(cfg, TrainConfig(), opt)
     assert Trainer(cfg, params, TrainConfig(), rows, device="cpu").device.type == "cpu"
+
+    from ct_diffusionmodelbench_tpu_torch import bench, bench_sweep, entry, probe_models
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.entry()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.dryrun_multichip(2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        bench.run(bench.parse_args([]), bench.Budget(60.0))
+    for section in bench_sweep.SECTIONS.values():
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            section()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        probe_models.make_runner("llada", "llada-tiny", None, None)
