@@ -31,6 +31,12 @@ for the whole batch and sliced (``ops/sampling_ops.py::rand_rows``), so a
 sampled run draws what the one-process run draws, on every rank of a model
 group alike.  As in the reference, ``quant="int8"`` and
 ``accel="block-cache"`` are single-device modes and refuse a mesh.
+
+With the tracer on (``utils/profiling.py``), ``generate_ids`` is a
+``runner.generate`` span holding ``sampler.decode`` (the sampler's call)
+and ``runner.output`` (the output's copy to the host, a device sync), and
+counts ``runner.positions`` (B·(P+G)) and ``runner.pad_positions`` (the
+zeros of the host's attention mask).
 """
 
 from __future__ import annotations
@@ -59,6 +65,7 @@ from ct_diffusionmodelbench_tpu_torch.parallel.mesh import (
 from ct_diffusionmodelbench_tpu_torch.parallel.sharding import (
     init_sharded_params, shard_params)
 from ct_diffusionmodelbench_tpu_torch.sampling import dream_generate, llada_generate
+from ct_diffusionmodelbench_tpu_torch.utils.profiling import count, span
 
 LLADA_FAMILIES = ("llada", "llada-moe")
 DREAM_FAMILIES = ("dream", "diffucoder")
@@ -236,66 +243,72 @@ class ModelRunner:
         LLaDA families read ``block_length``, ``cfg_scale``, ``remasking``
         and ``avoid_eos``; Dream/DiffuCoder read ``top_p``, ``alg``,
         ``alg_temp``, ``exact`` and ``batch_mean_counts``."""
-        prompt = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.long)
-        if prompt.ndim == 1:
-            prompt = prompt[None]
-        if attn_mask is not None:
-            attn_mask = torch.as_tensor(np.asarray(attn_mask))
-            if attn_mask.ndim == 1:
-                attn_mask = attn_mask[None]
-        threshold = (parallel_threshold if parallel_threshold is not None
-                     else self.parallel_threshold)
-        mesh = self.mesh
-        b = prompt.shape[0]
-        # Dream's batch-averaged counts couple the rows: such a batch stays
-        # whole on every rank.
-        rows = (None if mesh is None or (batch_mean_counts and self.family
-                                         in DREAM_FAMILIES) else mesh.rows(b))
-        split = rows is not None
-        if split:
-            prompt = prompt[rows]
-            attn_mask = None if attn_mask is None else attn_mask[rows]
-        with use_mesh(mesh, batch=b if split else None):
-            out = self._generate(prompt, attn_mask, threshold, seed, gen_length=gen_length,
-                                 steps=steps, block_length=block_length,
-                                 temperature=temperature, cfg_scale=cfg_scale,
-                                 remasking=remasking, avoid_eos=avoid_eos,
-                                 top_p=top_p, alg=alg, alg_temp=alg_temp,
-                                 exact=exact, batch_mean_counts=batch_mean_counts)
-        if split:
-            out = all_gather(out, mesh.data_group, mesh, dim=0)
-        return out.cpu().numpy()
+        with span("runner.generate"):
+            prompt = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.long)
+            if prompt.ndim == 1:
+                prompt = prompt[None]
+            count("runner.positions", prompt.shape[0] * (prompt.shape[1] + gen_length))
+            if attn_mask is not None:
+                attn_mask = torch.as_tensor(np.asarray(attn_mask))
+                if attn_mask.ndim == 1:
+                    attn_mask = attn_mask[None]
+                count("runner.pad_positions", int((attn_mask == 0).sum()))
+            threshold = (parallel_threshold if parallel_threshold is not None
+                         else self.parallel_threshold)
+            mesh = self.mesh
+            b = prompt.shape[0]
+            # Dream's batch-averaged counts couple the rows: such a batch stays
+            # whole on every rank.
+            rows = (None if mesh is None or (batch_mean_counts and self.family
+                                             in DREAM_FAMILIES) else mesh.rows(b))
+            split = rows is not None
+            if split:
+                prompt = prompt[rows]
+                attn_mask = None if attn_mask is None else attn_mask[rows]
+            with use_mesh(mesh, batch=b if split else None):
+                out = self._generate(prompt, attn_mask, threshold, seed,
+                                     gen_length=gen_length, steps=steps,
+                                     block_length=block_length, temperature=temperature,
+                                     cfg_scale=cfg_scale, remasking=remasking,
+                                     avoid_eos=avoid_eos, top_p=top_p, alg=alg,
+                                     alg_temp=alg_temp, exact=exact,
+                                     batch_mean_counts=batch_mean_counts)
+            if split:
+                out = all_gather(out, mesh.data_group, mesh, dim=0)
+            with span("runner.output"):
+                return out.cpu().numpy()
 
     def _generate(self, prompt, attn_mask, threshold, seed, *, gen_length, steps,
                   block_length, temperature, cfg_scale, remasking, avoid_eos,
                   top_p, alg, alg_temp, exact, batch_mean_counts) -> torch.Tensor:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
-        if self.family in LLADA_FAMILIES:
-            out = llada_generate(
-                self.forward_fn, self.params, prompt, steps=steps,
-                gen_length=gen_length, block_length=block_length,
-                temperature=temperature, cfg_scale=cfg_scale,
-                remasking=remasking, mask_id=self.mask_id, avoid_eos=avoid_eos,
-                eos_token_id=self.eos_token_id,
-                block_cache=self.cached_fns is not None,
-                cached_fns=self.cached_fns, parallel_threshold=threshold,
-                attn_mask=attn_mask, generator=gen, device=self.device)
-        else:
-            if threshold is not None:
-                # As the reference: running Dream's fixed schedule while the
-                # caller asked for threshold decoding would mislabel a run.
-                raise NotImplementedError(
-                    "--parallel-threshold is a LLaDA-family decode "
-                    "(confidence-threshold parallel unmasking); the Dream/"
-                    "DiffuCoder sampler has no equivalent")
-            out, _ = dream_generate(
-                self.forward_fn, self.params, prompt, steps=steps,
-                max_new_tokens=gen_length, temperature=temperature,
-                top_p=top_p, alg=alg, alg_temp=alg_temp, mask_id=self.mask_id,
-                exact=exact, batch_mean_counts=batch_mean_counts,
-                attn_mask=attn_mask, generator=gen, device=self.device)
-        return out
+        with span("sampler.decode"):
+            if self.family in LLADA_FAMILIES:
+                out = llada_generate(
+                    self.forward_fn, self.params, prompt, steps=steps,
+                    gen_length=gen_length, block_length=block_length,
+                    temperature=temperature, cfg_scale=cfg_scale,
+                    remasking=remasking, mask_id=self.mask_id, avoid_eos=avoid_eos,
+                    eos_token_id=self.eos_token_id,
+                    block_cache=self.cached_fns is not None,
+                    cached_fns=self.cached_fns, parallel_threshold=threshold,
+                    attn_mask=attn_mask, generator=gen, device=self.device)
+            else:
+                if threshold is not None:
+                    # As the reference: running Dream's fixed schedule while the
+                    # caller asked for threshold decoding would mislabel a run.
+                    raise NotImplementedError(
+                        "--parallel-threshold is a LLaDA-family decode "
+                        "(confidence-threshold parallel unmasking); the Dream/"
+                        "DiffuCoder sampler has no equivalent")
+                out, _ = dream_generate(
+                    self.forward_fn, self.params, prompt, steps=steps,
+                    max_new_tokens=gen_length, temperature=temperature,
+                    top_p=top_p, alg=alg, alg_temp=alg_temp, mask_id=self.mask_id,
+                    exact=exact, batch_mean_counts=batch_mean_counts,
+                    attn_mask=attn_mask, generator=gen, device=self.device)
+            return out
 
     def _continuation(self, row: np.ndarray, p: int, truncate_at_eos: bool,
                       skip_special_tokens: bool):

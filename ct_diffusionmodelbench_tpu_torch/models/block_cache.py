@@ -23,6 +23,10 @@ cannot drift apart.  The refresh's attention takes the rotated q/k without
 ``rope`` (the flash kernel with no fused rotation on a CUDA tensor); the
 cached step's rectangular attention (block queries × S keys) is the plain
 ``attention_reference``, as in the reference.
+
+With the tracer on (``utils/profiling.py``), each refresh and each cached
+step is a ``model.forward`` span, counted as one pass over the positions
+it runs (B·S for a refresh, B·block_length for a cached step).
 """
 
 from __future__ import annotations
@@ -35,9 +39,10 @@ import torch
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
 from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rms_norm, rope_angles
 from ct_diffusionmodelbench_tpu_torch.models.transformer import (
-    _attn_project, _ffn_block, _project, embed_tokens, lm_head_logits,
+    _attn_project, _ffn_block, _project, count_pass, embed_tokens, lm_head_logits,
     split_layers, token_positions)
 from ct_diffusionmodelbench_tpu_torch.ops.attention import attention, attention_reference
+from ct_diffusionmodelbench_tpu_torch.utils.profiling import span
 
 
 def _check_supported(cfg: ModelConfig) -> None:
@@ -131,11 +136,15 @@ def make_cached_fns(cfg: ModelConfig):
     _check_supported(cfg)
 
     def refresh_fn(params, x, attn_mask, block_start, block_length):
-        return forward_refresh(cfg, params, x, attn_mask, block_start, block_length)
+        with span("model.forward"):
+            count_pass(x)
+            return forward_refresh(cfg, params, x, attn_mask, block_start, block_length)
 
     def step_fn(params, block_ids, block_start, k_cache, v_cache, attn_mask):
-        return forward_cached_step(cfg, params, block_ids, block_start, k_cache,
-                                   v_cache, attn_mask)
+        with span("model.forward"):
+            count_pass(block_ids)
+            return forward_cached_step(cfg, params, block_ids, block_start, k_cache,
+                                       v_cache, attn_mask)
 
     def init_cache_fn(params, B, S):
         shape = (cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim)

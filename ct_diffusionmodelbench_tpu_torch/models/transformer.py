@@ -24,6 +24,13 @@ and recomputes everything else (a selective-checkpoint policy, the
 reference's ``dots_with_no_batch_dims_saveable``), for the trainer;
 :func:`make_forward_fn` is the inference entry point.
 
+With the tracer on (``utils/profiling.py``), each call of the inference
+entry point is a ``model.forward`` span with its counters
+(:func:`count_pass`), and :func:`forward` records ``model.embed``, one
+``model.attn`` (``attn_norm`` through the residual add) and one
+``model.ffn`` (``ffn_norm`` through the FFN's add) a layer, and
+``model.head`` (final norm, slice, LM head).
+
 Under a ``parallel/`` mesh whose model axis is above 1 the forward takes
 this rank's shard of the parameters (``parallel/sharding.py``): a
 vocab-parallel embedding (each rank looks up the ids of its vocabulary
@@ -66,6 +73,7 @@ from ct_diffusionmodelbench_tpu_torch.parallel.comm import (
     reduce_from_model, shift_seq)
 from ct_diffusionmodelbench_tpu_torch.parallel.mesh import current_mesh, current_scope
 from ct_diffusionmodelbench_tpu_torch.parallel.sharding import TPPlan, tp_plan
+from ct_diffusionmodelbench_tpu_torch.utils.profiling import count, span
 
 EXPERT_STACK_KEYS = ("we_gate", "we_up", "we_down")
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
@@ -319,21 +327,24 @@ def _block_forward(cfg: ModelConfig, x, lp, cos, sin, mask, moe_stacks=None,
     summed over the model group before the residual add, and the FFN's
     likewise (``_ffn_block``); parts the plan replicates run whole."""
     B, S, _ = x.shape
-    h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-    if plan is not None and plan.attn:
-        q, k, v = _attn_project(cfg, copy_to_model(h), lp, plan.tp)
-        attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
-                             causal=cfg.causal, rope=(cos, sin))
-        o = qdot(attn_out.reshape(B, S, -1), lp["wo"])
-        x = x + reduce_from_model(o).to(x.dtype)
-    else:
-        q, k, v = _attn_project(cfg, h, lp)
-        attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
-                             causal=cfg.causal, rope=(cos, sin))
-        x = x + _project(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim),
-                         lp["wo"])
-    ffn_out, aux = _ffn_block(cfg, x, lp, moe_stacks, layer_index, plan)
-    return x + ffn_out, aux
+    with span("model.attn"):
+        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+        if plan is not None and plan.attn:
+            q, k, v = _attn_project(cfg, copy_to_model(h), lp, plan.tp)
+            attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
+                                 causal=cfg.causal, rope=(cos, sin))
+            o = qdot(attn_out.reshape(B, S, -1), lp["wo"])
+            x = x + reduce_from_model(o).to(x.dtype)
+        else:
+            q, k, v = _attn_project(cfg, h, lp)
+            attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
+                                 causal=cfg.causal, rope=(cos, sin))
+            x = x + _project(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim),
+                             lp["wo"])
+    with span("model.ffn"):
+        ffn_out, aux = _ffn_block(cfg, x, lp, moe_stacks, layer_index, plan)
+        x = x + ffn_out
+    return x, aux
 
 
 def _save_dots(ctx, op, *args, **kwargs):
@@ -391,33 +402,42 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
     scope = current_scope()
     if scope is not None and scope.positions is None:
         scope = None   # only a split sequence changes the forward below
-    x = embed_tokens(params, input_ids, plan)
-    positions = (token_positions(attn_mask, B, S, x.device) if scope is None
-                 else seq_positions(attn_mask, B, S, scope, x.device))
-    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+    with span("model.embed"):
+        x = embed_tokens(params, input_ids, plan)
+        positions = (token_positions(attn_mask, B, S, x.device) if scope is None
+                     else seq_positions(attn_mask, B, S, scope, x.device))
+        cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
 
     x, aux = run_blocks(cfg, params, x, cos, sin, attn_mask, plan, remat)
     aux = aux / max(cfg.num_layers, 1)
-    x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-    if scope is not None and logit_start is not None:
-        x = gather_from_seq(x, scope.mesh)   # the range may cross slices
-        scope = None
+    with span("model.head"):
+        x = rms_norm(x, params["final_norm"], cfg.norm_eps)
+        if scope is not None and logit_start is not None:
+            x = gather_from_seq(x, scope.mesh)   # the range may cross slices
+            scope = None
 
-    if return_hidden:
-        if cfg.logit_shift:
+        if return_hidden:
+            if cfg.logit_shift:
+                x = shift_right(x, scope)
+            return x, aux
+        if logit_start is not None:
+            # Shifted-logit families read position i's prediction from hidden
+            # state i - 1 (block starts are always > 0).
+            start = logit_start - 1 if cfg.logit_shift else logit_start
+            x = x[:, start:start + logit_length]
+        elif cfg.logit_shift and scope is not None:
             x = shift_right(x, scope)
-        return x, aux
-    if logit_start is not None:
-        # Shifted-logit families read position i's prediction from hidden
-        # state i - 1 (block starts are always > 0).
-        start = logit_start - 1 if cfg.logit_shift else logit_start
-        x = x[:, start:start + logit_length]
-    elif cfg.logit_shift and scope is not None:
-        x = shift_right(x, scope)
-    logits = lm_head_logits(params, x, cfg)
-    if cfg.logit_shift and logit_start is None and scope is None:
-        logits = torch.cat([logits[:, :1], logits[:, :-1]], dim=1)
+        logits = lm_head_logits(params, x, cfg)
+        if cfg.logit_shift and logit_start is None and scope is None:
+            logits = torch.cat([logits[:, :1], logits[:, :-1]], dim=1)
     return logits, aux
+
+
+def count_pass(input_ids: torch.Tensor) -> None:
+    """The tracer's counters of one model call: a pass, and the B·S
+    positions it runs (from the shape; no device read)."""
+    count("model.forward", 1)
+    count("model.positions", input_ids.shape[0] * input_ids.shape[1])
 
 
 def make_forward_fn(cfg: ModelConfig, device: DeviceLike = None):
@@ -429,11 +449,13 @@ def make_forward_fn(cfg: ModelConfig, device: DeviceLike = None):
     @torch.inference_mode()
     def fn(params, input_ids, attn_mask=None, logit_start=None,
            logit_length=None, *, return_hidden=False):
-        input_ids = input_ids.to(dev)
-        if attn_mask is not None:
-            attn_mask = attn_mask.to(dev)
-        return forward(cfg, params, input_ids, attn_mask=attn_mask,
-                       logit_start=logit_start, logit_length=logit_length,
-                       return_hidden=return_hidden)
+        with span("model.forward"):
+            count_pass(input_ids)
+            input_ids = input_ids.to(dev)
+            if attn_mask is not None:
+                attn_mask = attn_mask.to(dev)
+            return forward(cfg, params, input_ids, attn_mask=attn_mask,
+                           logit_start=logit_start, logit_length=logit_length,
+                           return_hidden=return_hidden)
 
     return fn

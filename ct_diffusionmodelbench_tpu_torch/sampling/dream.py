@@ -16,7 +16,9 @@ Counterpart of ``sampling/dream.py``:
         positions are sampled ∝ softmax(score / alg_temp) by Gumbel-top-k.
 
 Every op runs full-width [B, S(, V)] with -inf masking, as the reference.
-The step loop is a Python loop over host-known step indices.
+The step loop is a Python loop over host-known step indices.  With the
+tracer on (``utils/profiling.py``) each step is a ``sampler.step`` span:
+the model call (``model.forward``) and ``sampler.select``, the rest.
 
 Top-p / top-k filter the ``TOP_P_PREFILTER`` largest logits (the whole
 vocabulary with ``exact``), as the reference.  The reference takes those
@@ -43,6 +45,7 @@ import torch
 from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
 from ct_diffusionmodelbench_tpu_torch.ops.sampling_ops import rand_rows, rank_topk_mask
 from ct_diffusionmodelbench_tpu_torch.sampling.llada import _supports_logit_slice
+from ct_diffusionmodelbench_tpu_torch.utils.profiling import span
 
 NEG_INF = float("-inf")
 TOP_P_PREFILTER = 64
@@ -167,6 +170,48 @@ def _timesteps(steps: int, eps: float) -> torch.Tensor:
     return torch.cat([head.float(), stop[None]])
 
 
+def _select(sc: DreamSamplerConfig, x: torch.Tensor, x_gen: torch.Tensor,
+            logits: torch.Tensor, generator: Optional[torch.Generator],
+            u_tok: Optional[torch.Tensor], u_pos: Optional[torch.Tensor],
+            timesteps: torch.Tensor, i: int, lo: int) -> None:
+    """Step ``i``'s selection: samples and scores the masked positions of
+    ``x_gen`` (``x[:, lo:]``) from the step's logits and writes the
+    transferred ones into ``x``."""
+    b = x.shape[0]
+    mask_index = x_gen == sc.mask_id
+    x0, conf = _filter_and_sample(logits.float(), sc, generator, u_tok)
+    x0 = x0.to(x.device)
+    conf = conf.to(x.device)
+    # The reference's f32 1 - s/t (a step index known on the host).
+    frac = float(1.0 - timesteps[i + 1] / timesteps[i])
+    is_last = i == sc.steps - 1
+
+    if sc.alg == "origin":
+        p_transfer = 1.0 if is_last else frac
+        u = _uniform(x_gen.shape, x.device, generator, u_pos)
+        transfer = mask_index & (u < p_transfer)
+    else:
+        if sc.batch_mean_counts:
+            # One count for the whole batch: floor of the mean mask
+            # count per row times the fraction.
+            mean = mask_index.sum().float() / mask_index.shape[0]
+            kc = mean if is_last else mean * frac
+            k_count = kc.to(torch.int64).expand(b)
+        else:
+            mask_num = mask_index.sum(dim=1)
+            k_count = mask_num if is_last else (
+                mask_num.float() * frac).to(torch.int64)
+        full_conf = torch.where(mask_index, conf, NEG_INF)
+        if sc.alg_temp and sc.alg_temp > 0:
+            # Gumbel-top-k: k positions without replacement
+            # ∝ softmax(conf / alg_temp).
+            u = _uniform(full_conf.shape, x.device, generator, u_pos)
+            g = -torch.log(-torch.log(u))
+            full_conf = torch.where(mask_index, full_conf / sc.alg_temp + g, NEG_INF)
+        transfer = rank_topk_mask(full_conf, k_count) & mask_index
+    x[:, lo:] = torch.where(transfer, x0.to(x.dtype), x_gen)
+
+
 def _dream_loop(forward_fn, sc: DreamSamplerConfig, x: torch.Tensor,
                 attn_mask: Optional[torch.Tensor],
                 generator: Optional[torch.Generator],
@@ -185,46 +230,17 @@ def _dream_loop(forward_fn, sc: DreamSamplerConfig, x: torch.Tensor,
     lo = prompt_len if sliced else 0
     history = []
     for i in range(sc.steps):
-        u_tok, u_pos = (None, None) if uniforms is None else uniforms[i]
-        x_gen = x[:, lo:]
-        mask_index = x_gen == sc.mask_id
-        if sliced:
-            logits, _ = forward_fn(x, attn_mask, logit_start=lo, logit_length=s - lo)
-        else:
-            logits, _ = forward_fn(x, attn_mask)
-        x0, conf = _filter_and_sample(logits.float(), sc, generator, u_tok)
-        x0 = x0.to(x.device)
-        conf = conf.to(x.device)
-        # The reference's f32 1 - s/t (a step index known on the host).
-        frac = float(1.0 - timesteps[i + 1] / timesteps[i])
-        is_last = i == sc.steps - 1
-
-        if sc.alg == "origin":
-            p_transfer = 1.0 if is_last else frac
-            u = _uniform(x_gen.shape, x.device, generator, u_pos)
-            transfer = mask_index & (u < p_transfer)
-        else:
-            if sc.batch_mean_counts:
-                # One count for the whole batch: floor of the mean mask
-                # count per row times the fraction.
-                mean = mask_index.sum().float() / mask_index.shape[0]
-                kc = mean if is_last else mean * frac
-                k_count = kc.to(torch.int64).expand(b)
+        with span("sampler.step"):
+            u_tok, u_pos = (None, None) if uniforms is None else uniforms[i]
+            x_gen = x[:, lo:]
+            if sliced:
+                logits, _ = forward_fn(x, attn_mask, logit_start=lo, logit_length=s - lo)
             else:
-                mask_num = mask_index.sum(dim=1)
-                k_count = mask_num if is_last else (
-                    mask_num.float() * frac).to(torch.int64)
-            full_conf = torch.where(mask_index, conf, NEG_INF)
-            if sc.alg_temp and sc.alg_temp > 0:
-                # Gumbel-top-k: k positions without replacement
-                # ∝ softmax(conf / alg_temp).
-                u = _uniform(full_conf.shape, x.device, generator, u_pos)
-                g = -torch.log(-torch.log(u))
-                full_conf = torch.where(mask_index, full_conf / sc.alg_temp + g, NEG_INF)
-            transfer = rank_topk_mask(full_conf, k_count) & mask_index
-        x[:, lo:] = torch.where(transfer, x0.to(x.dtype), x_gen)
-        if record_history:
-            history.append(x.clone())
+                logits, _ = forward_fn(x, attn_mask)
+            with span("sampler.select"):
+                _select(sc, x, x_gen, logits, generator, u_tok, u_pos, timesteps, i, lo)
+                if record_history:
+                    history.append(x.clone())
     hist = (torch.stack(history) if record_history
             else torch.zeros((0, b, s), dtype=x.dtype, device=x.device))
     return x, hist

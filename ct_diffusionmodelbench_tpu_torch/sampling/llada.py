@@ -29,6 +29,13 @@ Two opt-in modes, as the reference's:
   ``while_loop`` condition becomes one host read of a flag per forward
   (:func:`block_has_mask`).  Composes with the cache and, uncached, with
   CFG.
+
+With the tracer on (``utils/profiling.py``) each forward's step is a
+``sampler.step`` span: the model call (``model.forward``, inside the
+callables the sampler is handed) and ``sampler.select``, the rest of the
+step (the CFG batch and mix, the EOS mask, scoring, confidence, the
+transfer schedule, top-k or threshold, the write-back).  The threshold
+loop's condition read lies outside the step.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
 from ct_diffusionmodelbench_tpu_torch.ops.sampling_ops import (
     gumbel_rescore, rand_rows, rank_topk_mask, token_confidence)
 from ct_diffusionmodelbench_tpu_torch.sampling.schedule import get_num_transfer_tokens
+from ct_diffusionmodelbench_tpu_torch.utils.profiling import span
 
 NEG_INF = float("-inf")
 
@@ -121,8 +129,9 @@ def _denoise_loop(forward_fn, sc: LLaDASamplerConfig, x: torch.Tensor,
         return logits
 
     def block_logits(block_start, first):
-        """The block's logits; with the cache, ``first`` (a block's first
-        forward) refreshes it and later forwards read it."""
+        """The block's logits, before the EOS mask; with the cache,
+        ``first`` (a block's first forward) refreshes it and later forwards
+        read it."""
         if use_cache:
             refresh_fn, step_fn = cached_fns
             if first:
@@ -130,20 +139,22 @@ def _denoise_loop(forward_fn, sc: LLaDASamplerConfig, x: torch.Tensor,
             else:
                 logits = step_fn(x[:, block_start:block_start + bl], block_start,
                                  cache["k"], cache["v"], attn_mask)
-            return avoid_eos(logits)
+            return logits
         kw = dict(logit_start=block_start, logit_length=bl) if sliced else {}
         if sc.cfg_scale > 0.0:
-            un_x = torch.where(prompt_index, sc.mask_id, x)
-            both = torch.cat([x, un_x], dim=0)
-            m = None if attn_mask is None else torch.cat([attn_mask, attn_mask], dim=0)
+            with span("sampler.select"):
+                un_x = torch.where(prompt_index, sc.mask_id, x)
+                both = torch.cat([x, un_x], dim=0)
+                m = None if attn_mask is None else torch.cat([attn_mask, attn_mask], dim=0)
             logits, _ = forward_fn(both, m, **kw)
-            cond, uncond = logits.chunk(2, dim=0)
-            logits = uncond + (sc.cfg_scale + 1.0) * (cond - uncond)
+            with span("sampler.select"):
+                cond, uncond = logits.chunk(2, dim=0)
+                logits = uncond + (sc.cfg_scale + 1.0) * (cond - uncond)
         else:
             logits, _ = forward_fn(x, attn_mask, **kw)
         if not sliced:
             logits = logits[:, block_start:block_start + bl]
-        return avoid_eos(logits)
+        return logits
 
     def score(logits, x_blk):
         mask_blk = x_blk == sc.mask_id
@@ -166,11 +177,13 @@ def _denoise_loop(forward_fn, sc: LLaDASamplerConfig, x: torch.Tensor,
             x_blk = x[:, block_start:block_start + bl]
             it = 0
             while it < bl and block_has_mask(x_blk, sc.mask_id):
-                logits = block_logits(block_start, it == 0)
-                x0, confidence, mask_blk = score(logits, x_blk)
-                forced = F.one_hot(confidence.argmax(dim=-1), bl).bool()
-                transfer = ((confidence > thr) | forced) & mask_blk
-                x[:, block_start:block_start + bl] = torch.where(transfer, x0, x_blk)
+                with span("sampler.step"):
+                    logits = block_logits(block_start, it == 0)
+                    with span("sampler.select"):
+                        x0, confidence, mask_blk = score(avoid_eos(logits), x_blk)
+                        forced = F.one_hot(confidence.argmax(dim=-1), bl).bool()
+                        transfer = ((confidence > thr) | forced) & mask_blk
+                        x[:, block_start:block_start + bl] = torch.where(transfer, x0, x_blk)
                 it += 1
         return x
 
@@ -180,12 +193,16 @@ def _denoise_loop(forward_fn, sc: LLaDASamplerConfig, x: torch.Tensor,
         block, i = divmod(s, spb)
         block_start = prompt_len + block * bl
         x_blk = x[:, block_start:block_start + bl]
-        if i == 0:
-            counts = get_num_transfer_tokens(x_blk == sc.mask_id, spb)
-        logits = block_logits(block_start, i == 0)
-        x0, confidence, _ = score(logits, x_blk)
-        transfer = rank_topk_mask(confidence, counts[:, i])
-        x[:, block_start:block_start + bl] = torch.where(transfer, x0, x_blk)
+        with span("sampler.step"):
+            logits = block_logits(block_start, i == 0)
+            with span("sampler.select"):
+                # The forward leaves x as it was: the block's schedule may
+                # be read after it.
+                if i == 0:
+                    counts = get_num_transfer_tokens(x_blk == sc.mask_id, spb)
+                x0, confidence, _ = score(avoid_eos(logits), x_blk)
+                transfer = rank_topk_mask(confidence, counts[:, i])
+                x[:, block_start:block_start + bl] = torch.where(transfer, x0, x_blk)
     return x
 
 

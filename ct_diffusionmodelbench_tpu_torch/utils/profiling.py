@@ -1,13 +1,24 @@
 """Tracing and profiling helpers.
 
-Counterpart of ``utils/profiling.py``:
+The tracer: :func:`span` and :func:`count` mark the decode path's layer
+boundaries (the runner, the samplers, the model's forward and its layers);
+:func:`tracing` turns them on for one scope and hands back what they
+recorded.  Off, which is the default, a span is one module-level flag test
+that returns a shared no-op object: no allocation, no clock read, no CUDA
+call.  On, a span records its name, its start and end on the host and the
+span that encloses it; it never syncs the device and records no CUDA
+event, so the device's work is the same with the tracer on.  Spans are
+stamped with ``time.time_ns()``, the clock of ``torch.profiler``'s Kineto
+events (the host's launch events and the card's activity alike), so a
+profile of the same scope puts each device operation under the span that
+launched it.  The tracer keeps one stack of open spans: it follows one
+thread.
+
+The profiling helpers:
 
 - :func:`sync`: wait for every CUDA tensor of a tree (the reference forces
   one element of each leaf to the host; here one
   ``torch.cuda.synchronize`` per device is the wait),
-- :func:`device_timer`: a host-clock bracket that syncs what it watches,
-- :func:`trace`: a ``torch.profiler`` scope writing a Chrome / TensorBoard
-  trace,
 - :func:`onchip_device_seconds`: the card's busy time of one call, the
   union of its device intervals (:func:`union_seconds`).
 
@@ -20,11 +31,104 @@ it too.
 from __future__ import annotations
 
 import contextlib
+import operator
 import time
-from typing import Iterable, List, Optional, Tuple
+from dataclasses import dataclass, field
+from typing import Dict, Iterable, Iterator, List, Optional, Tuple
 
 import torch
 from torch.profiler import ProfilerActivity, profile, supported_activities
+
+_ON = False                             # whether span() and count() record
+_RECORDING: Optional["Recording"] = None
+
+
+@dataclass
+class Recording:
+    """What the tracer recorded in one :func:`tracing` scope: every span in
+    the order they started, and each counter's sum."""
+    spans: List["Span"] = field(default_factory=list)
+    counters: Dict[str, int] = field(default_factory=dict)
+    _open: List[int] = field(default_factory=list)   # indices of open spans
+
+
+class Span:
+    """One span: ``name``; ``start_ns`` and ``end_ns`` on ``time.time_ns()``;
+    ``parent``, the index in :attr:`Recording.spans` of the span that was
+    open when it started, or -1.  It holds only its recording's stack of
+    open spans: no reference cycle, so a dropped recording is freed at
+    once, never by a collector's pass in the middle of a traced run."""
+
+    __slots__ = ("name", "start_ns", "end_ns", "parent", "_open")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.start_ns = self.end_ns = 0
+        self.parent = -1
+
+    def __enter__(self) -> "Span":
+        rec = _RECORDING
+        self._open = rec._open
+        self.parent = rec._open[-1] if rec._open else -1
+        rec._open.append(len(rec.spans))
+        rec.spans.append(self)
+        self.start_ns = time.time_ns()
+        return self
+
+    def __exit__(self, *exc) -> bool:
+        self.end_ns = time.time_ns()
+        self._open.pop()
+        return False
+
+
+class _Off:
+    """The span handed out while the tracer is off."""
+
+    __slots__ = ()
+
+    def __enter__(self) -> None:
+        return None
+
+    def __exit__(self, *exc) -> bool:
+        return False
+
+
+_OFF = _Off()
+
+
+def span(name: str):
+    """``with span("model.forward"): ...``: records the block as a span when
+    the tracer is on; otherwise returns one shared no-op object."""
+    if not _ON:
+        return _OFF
+    return Span(name)
+
+
+def count(name: str, n: int) -> None:
+    """Adds the host integer ``n`` to the counter ``name`` when the tracer
+    is on.  Refuses a tensor, on or off: reading one would sync the device."""
+    if isinstance(n, torch.Tensor):
+        raise TypeError(f"count({name!r}) takes a host integer, not a tensor: "
+                        "reading a tensor would wait for the device")
+    if _ON:
+        counters = _RECORDING.counters
+        counters[name] = counters.get(name, 0) + operator.index(n)
+
+
+@contextlib.contextmanager
+def tracing() -> Iterator[Recording]:
+    """Turns the tracer on for the scope and yields the :class:`Recording`
+    that the scope's spans and counters fill; turns it off at exit.  Scopes
+    do not nest: a second one inside the first raises."""
+    global _ON, _RECORDING
+    if _ON:
+        raise RuntimeError("tracing() is already on: its scopes do not nest")
+    rec = Recording()
+    _RECORDING, _ON = rec, True
+    try:
+        yield rec
+    finally:
+        _ON, _RECORDING = False, None
 
 
 def leaves(tree):
@@ -49,52 +153,12 @@ def sync(tree) -> None:
         torch.cuda.synchronize(dev)
 
 
-@contextlib.contextmanager
-def device_timer(label: str = "", results: Optional[dict] = None):
-    """``with device_timer("generate") as t: out = f(x); t.watch(out)``:
-    host seconds from entry until what ``t.watch`` was given is done, in
-    ``t.elapsed`` and ``results[label or "elapsed"]``."""
-
-    class _T:
-        elapsed = 0.0
-
-        def watch(self, tree):
-            self._tree = tree
-
-    t = _T()
-    t._tree = None
-    t0 = time.time()
-    try:
-        yield t
-    finally:
-        if t._tree is not None:
-            sync(t._tree)
-        t.elapsed = time.time() - t0
-        if results is not None:
-            results[label or "elapsed"] = t.elapsed
-
-
-@contextlib.contextmanager
-def trace(log_dir: Optional[str]):
-    """``torch.profiler`` scope over the host and, where there is one, the
-    card, writing a Chrome / TensorBoard trace into ``log_dir``; a no-op
-    when ``log_dir`` is falsy."""
-    if not log_dir:
-        yield
-        return
-    with profile(activities=_activities(cpu=True),
-                 on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir))):
-        yield
-
-
-def _activities(cpu: bool) -> list:
-    """CUDA where this build and machine trace it (with the host if
-    ``cpu``); the host alone otherwise, since the profiler refuses an empty
-    list."""
-    cuda = ProfilerActivity.CUDA in supported_activities() and torch.cuda.is_available()
-    if not cuda:
-        return [ProfilerActivity.CPU]
-    return [ProfilerActivity.CPU, ProfilerActivity.CUDA] if cpu else [ProfilerActivity.CUDA]
+def _activities() -> list:
+    """CUDA where this build and machine trace it; the host otherwise,
+    since the profiler refuses an empty list."""
+    if ProfilerActivity.CUDA in supported_activities() and torch.cuda.is_available():
+        return [ProfilerActivity.CUDA]
+    return [ProfilerActivity.CPU]
 
 
 def union_seconds(intervals: Iterable[Tuple[float, float]]) -> float:
@@ -145,7 +209,7 @@ def onchip_device_seconds(call) -> Optional[float]:
     Left out of the reference's: the xplane parsing and the ``while``-op
     hierarchy (a CUDA trace is flat), and the shared TPU pool's reasons for
     a device-plane number (the card is not time-shared)."""
-    with profile(activities=_activities(cpu=False)) as prof:
+    with profile(activities=_activities()) as prof:
         call()
     intervals = device_intervals(prof)
     if not intervals:

@@ -1,21 +1,16 @@
-"""The port's profiling helpers (``utils/profiling.py``) against the JAX
-package's on the CPU: the busy-time union, the timer, the trace scope and
-the on-chip companion off the card."""
+"""The port's profiling helpers (``utils/profiling.py``) on the CPU: the
+busy-time union, the device intervals of a profile and the on-chip
+companion off the card.  The tracer's tests are
+``tests/test_torch_port_tracing.py``."""
 
-import time
-
-import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 from hypothesis import given, settings
 from hypothesis import strategies as st
 
-from ct_diffusionmodelbench_tpu.utils import profiling as jprof
 from ct_diffusionmodelbench_tpu_torch.utils import profiling as tprof
 from tests.torch_port_threads import one_torch_thread  # noqa: F401
-
-SLEEP_S = 0.05
 
 
 def _brute_union(intervals):
@@ -40,68 +35,6 @@ def test_union_seconds_nested_and_touching():
     assert tprof.union_seconds([(0.0, 10.0), (2.0, 3.0), (10.0, 12.5)]) == 12.5
     assert tprof.union_seconds([(5.0, 6.0), (0.0, 1.0)]) == 2.0
     assert tprof.union_seconds([]) == 0.0
-
-
-def _trees():
-    t = {"a": [torch.ones(3), (torch.zeros(2, 2), 7)], "b": {"c": torch.arange(4)}}
-    j = {"a": [jnp.ones(3), (jnp.zeros((2, 2)), 7)], "b": {"c": jnp.arange(4)}}
-    return t, j
-
-
-@pytest.mark.parametrize("label", ["generate", ""])
-def test_device_timer_records_like_jax(label, monkeypatch):
-    calls = []
-    monkeypatch.setattr(torch.cuda, "synchronize", lambda *a: calls.append(a))
-    tree_t, tree_j = _trees()
-    res_t, res_j = {}, {}
-    outer = time.time()
-    with tprof.device_timer(label, res_t) as t:
-        time.sleep(SLEEP_S)
-        t.watch(tree_t)
-    outer_t, outer = time.time() - outer, time.time()
-    with jprof.device_timer(label, res_j) as j:
-        time.sleep(SLEEP_S)
-        j.watch(tree_j)
-    outer_j = time.time() - outer
-    assert set(res_t) == set(res_j) == {label or "elapsed"}
-    key = label or "elapsed"
-    assert res_t[key] == t.elapsed and res_j[key] == j.elapsed
-    # Each bracket holds the sleep and lies inside the caller's own.
-    assert SLEEP_S <= res_t[key] <= outer_t
-    assert SLEEP_S <= res_j[key] <= outer_j
-    assert calls == []   # CPU leaves need no device sync
-    tprof.sync(tree_t)
-    jprof.sync(tree_j)
-    assert calls == []
-
-
-def test_device_timer_without_watch_or_results():
-    with tprof.device_timer() as t:
-        time.sleep(SLEEP_S)
-    assert t.elapsed >= SLEEP_S
-
-
-def test_trace_writes_a_trace(tmp_path):
-    with tprof.trace(str(tmp_path)):
-        x = torch.ones((64, 64))
-        (x @ x).sum().item()
-    files = [p for p in tmp_path.rglob("*") if p.is_file()]
-    assert files and any(p.name.endswith(".json") for p in files)
-    assert "aten::mm" in "".join(p.read_text() for p in files)
-
-
-@pytest.mark.parametrize("log_dir", [None, ""])
-def test_trace_falsy_dir_is_a_no_op(log_dir, tmp_path, monkeypatch):
-    monkeypatch.chdir(tmp_path)
-
-    def refuse(*a, **k):
-        raise AssertionError("no profiler may start")
-
-    monkeypatch.setattr(tprof, "profile", refuse)
-    with tprof.trace(log_dir):
-        y = torch.ones(3) * 2
-    assert float(y.sum()) == 6.0
-    assert list(tmp_path.iterdir()) == []
 
 
 def test_onchip_device_seconds_of_a_cpu_call_is_none():
