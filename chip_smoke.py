@@ -212,8 +212,9 @@ Phases, in order:
    name, ``value`` > 0, ``mfu`` not null, ``onchip_seconds_per_batch`` no
    larger than ``seconds_per_batch``; the line is printed.
 28. entry forward: ``entry.entry()`` (``llada-8b`` whole, bf16) on ones at
-   (1, 320): 32 launches of K8 and no other kernel, finite logits of shape
-   (1, 320, vocab), peak memory.
+   (1, 320): 32 launches of K8, 65 of ``rms_norm``, 32 of ``swiglu_act``
+   and no other kernel, finite logits of shape (1, 320, vocab), peak
+   memory.
 29. dry run: ``entry.dryrun_multichip(8)`` (8 spawned ranks: nccl with a
    card each where there are eight, else all on cuda:0 with gloo): its
    four lines (dp × tp, sp, pp, pp-tp).
@@ -221,6 +222,24 @@ Phases, in order:
    ``sft_train_step`` sections at their full shapes, rows printed; a
    section's error fails the phase.  The sweep's heavy sections drive
    paths that phases 12-15 and 20 drive; they run through its CLI.
+31. glue: the model step's two memory-bound kernels (``ops/glue.py``) at
+   dense8b-eval's shapes: ``rms_norm`` over [3328, 4096] bf16 (within one
+   bf16 ulp of its plain version, bit-equal on 99 % or more) and
+   ``swiglu_act`` over [3328, 12288] f32 to bf16 (bit-equal), each timed in
+   turns beside its plain version and its bound (each run queued behind a
+   sleeping kernel, so the host's cost a call stays out), the norm beside
+   ``torch.nn.functional.rms_norm`` and on four input sets in turn (none in
+   L2), and the host microseconds a call; ``rms_norm`` against its plain
+   version also at the other served rows: llada-moe-7b's qk-norm
+   [4, 832, 16, 128] (a warp a row) and D 2048, Dream's D 3584.  The
+   kernels line's glue launches are the slice's (phase 3), block cache's
+   (phase 9) and Dream's (phase 16).
+
+Every exact launch check above expects the glue kernels too
+(:func:`glue_launches`): a block pass launches ``rms_norm`` twice (four
+times with qk-norm) and ``swiglu_act`` once (a dense FFN or a shared
+expert), and a forward its final norm once more; remat runs a block
+again, so the glue follows the attention kernel's count a layer.
 
 The bf16 MoE weights are freed before phase 11, the int8 ones before
 phase 15, Dream's before phase 16, the dense training state before phase
@@ -323,6 +342,20 @@ MINIF2F_HEADER = ("import Mathlib\nimport Aesop\n\nset_option maxHeartbeats 4000
                   "open BigOperators Real Nat Topology Rat\n")
 INT8_SERVING_KERNELS = ("grouped_gateup_q", "grouped_down_q", "flash_attention_fwd")
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+# The model step's glue kernels (ops/glue.py): every norm and SwiGLU
+# activation launches one (counts: glue_launches).
+GLUE_KERNELS = ("rms_norm", "swiglu_act")
+# Phase 31: dense8b-eval's rows (B 4, S 832) at llada-8b's D and F; rms_norm
+# takes GLUE_SETS operand sets in turn, so no launch finds its 27 MB input
+# in the 50 MB L2 that the previous one left.
+GLUE_ROWS, GLUE_D, GLUE_F, GLUE_SETS = 4 * 832, 4096, 12288, 4
+GLUE_EPS = 1e-5
+# rms_norm's other served rows: llada-moe-7b's qk-norm over its 16 heads of
+# 128 (a warp a row), its D 2048, Dream's D 3584.
+GLUE_OTHER_ROWS = ((4, 832, 16, 128), (GLUE_ROWS, 2048), (GLUE_ROWS, 3584))
+# ≈ 10 ms of a sleeping kernel at the H100's clock: time for the host to
+# queue a timed run's calls before the card reaches them.
+QUEUE_SLEEP_CYCLES = 20_000_000
 
 # Training shape: llada-8b at full width, 8 of its 32 layers; seq 2048,
 # micro-batch 1, grad-accum 4, prompt 64; 5 optimizer steps of 20 rows.
@@ -366,6 +399,34 @@ FIRST_DESIGN_MS = {"flash_attention_fwd": 0.3158, "flash_attention_fwd T": 2.724
 TURNS = 5
 
 
+def launch_counts(nonzero: bool = False) -> dict:
+    """Launches of each kernel since the last reset; ``nonzero`` keeps only
+    the kernels launched."""
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS
+
+    return {name: k.launches for name, k in KERNELS.items()
+            if k.launches or not nonzero}
+
+
+def glue_launches(cfg, blocks: int, forwards: int) -> dict:
+    """``rms_norm`` and ``swiglu_act`` launches of ``forwards`` forwards of
+    ``cfg`` that ran ``blocks`` block passes in all (a rank's layers times
+    the forwards, twice under remat): two norms a block, four with
+    qk-norm; one activation a block with a dense FFN or a shared expert;
+    the final norm once a forward."""
+    act = not cfg.is_moe or cfg.num_shared_experts > 0
+    return {"rms_norm": (4 if cfg.qk_norm else 2) * blocks + forwards,
+            "swiglu_act": blocks if act else 0}
+
+
+def expected_launches(glue: dict, **counts) -> dict:
+    """Every kernel's expected launches: ``glue`` and ``counts``, 0 for the
+    rest."""
+    want = {n: 0 for n in launch_counts()}
+    want.update(glue, **counts)
+    return want
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -399,6 +460,29 @@ def time_turns(fns, iters: int, rounds: int = TURNS) -> dict:
     for _ in range(rounds):
         for name, fn in fns.items():
             times[name].append(time_ms(fn, iters, warmup=0))
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def time_turns_queued(fns, iters: int, rounds: int = TURNS) -> dict:
+    """As :func:`time_turns`, but each run of ``iters`` calls is queued
+    behind a sleeping kernel, so the card runs the calls back to back and
+    the host's cost a call (checks, allocation, the ctypes call) stays out
+    of a time that is shorter than it."""
+    for fn in fns.values():
+        fn()
+    times = {name: [] for name in fns}
+    for _ in range(rounds):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            torch.cuda._sleep(QUEUE_SLEEP_CYCLES)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            torch.cuda.synchronize()
+            times[name].append(start.elapsed_time(end) / iters)
     return {name: statistics.median(t) for name, t in times.items()}
 
 
@@ -696,7 +780,7 @@ def host_us_per_launch(fns, n: int = 200) -> None:
 def slice_phase(cfg, params, dev):
     """Full-size greedy decode through the port's entry points."""
     from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
     from ct_diffusionmodelbench_tpu_torch.sampling import llada_generate
 
     gen = torch.Generator(device=dev)
@@ -713,19 +797,20 @@ def slice_phase(cfg, params, dev):
     out = llada_generate(fwd, params, prompt, **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"  generate: {secs:.4f} s, {BATCH * GEN / secs:.2f} tok/s "
           f"(B {BATCH}, prompt {PROMPT}, gen {GEN}, steps {STEPS}, block {BLOCK})",
           flush=True)
     print(f"  peak memory: {peak / 2**30:.3f} GiB", flush=True)
     print(f"  launches: {json.dumps(launches)}", flush=True)
-    want = cfg.num_layers * STEPS
-    bad = {n: c for n, c in launches.items()
-           if c != (want if n in SERVING_KERNELS else 0)}
+    per = cfg.num_layers * STEPS
+    want = expected_launches(glue_launches(cfg, per, STEPS),
+                             **{n: per for n in SERVING_KERNELS})
+    bad = {n: c for n, c in launches.items() if c != want[n]}
     if bad:
-        raise AssertionError(f"expected {want} launches of each serving kernel "
-                             f"and none of the backward kernels, got {bad}")
+        raise AssertionError(f"expected {want} launches (each serving kernel, the "
+                             f"glue, none of the backward kernels), got {bad}")
     left = int((out[:, PROMPT:] == cfg.mask_token_id).sum())
     print(f"  mask ids left: {left}", flush=True)
     if left:
@@ -1120,7 +1205,7 @@ def chat_slice_phase(runner, dev):
         secs = time.perf_counter() - t0
     finally:
         del runner.generate
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    launches = launch_counts()
     out = results[-1].token_ids
     s = len(out)
     p = s - CHAT_GEN
@@ -1131,12 +1216,13 @@ def chat_slice_phase(runner, dev):
           f"steps {CHAT_STEPS}, block {args.block_length}; S {s}, M {m}, m_pad {m_pad})",
           flush=True)
     print(f"  launches: {json.dumps(launches)}", flush=True)
-    want = runner.cfg.num_layers * CHAT_STEPS
-    bad = {n: c for n, c in launches.items()
-           if c != (want if n in SINGLE_PROMPT_KERNELS else 0)}
+    per = runner.cfg.num_layers * CHAT_STEPS
+    want = expected_launches(glue_launches(runner.cfg, per, CHAT_STEPS),
+                             **{n: per for n in SINGLE_PROMPT_KERNELS})
+    bad = {n: c for n, c in launches.items() if c != want[n]}
     if bad:
-        raise AssertionError(f"expected {want} launches of K3 and K9 and none of "
-                             f"the others, got {bad}")
+        raise AssertionError(f"expected {want} launches (K3, K9 and the glue, none "
+                             f"of the others), got {bad}")
     left = int((out[p:] == runner.mask_id).sum())
     print(f"  mask ids left: {left}; continuation {len(results[-1].continuation_ids)} "
           f"tokens after EOS truncation", flush=True)
@@ -1181,7 +1267,7 @@ def dream_slice_phase(dev):
     """Full-size dream-7b through ``ModelRunner.generate`` at B 1 with the
     direct flash kernel."""
     from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
 
     t0 = time.perf_counter()
     runner = ModelRunner.random_init("dream-7b", seed=0)
@@ -1204,7 +1290,7 @@ def dream_slice_phase(dev):
     res = runner.generate(text, steps=CHAT_STEPS, **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     out = res.token_ids
     p = len(out) - CHAT_GEN
@@ -1213,12 +1299,13 @@ def dream_slice_phase(dev):
           f"top_p 0.95)", flush=True)
     print(f"  peak memory: {peak / 2**30:.3f} GiB", flush=True)
     print(f"  launches: {json.dumps(launches)}", flush=True)
-    want = cfg.num_layers * CHAT_STEPS
-    bad = {n: c for n, c in launches.items()
-           if c != (want if n == "flash_attention_direct" else 0)}
+    per = cfg.num_layers * CHAT_STEPS
+    want = expected_launches(glue_launches(cfg, per, CHAT_STEPS),
+                             flash_attention_direct=per)
+    bad = {n: c for n, c in launches.items() if c != want[n]}
     if bad:
-        raise AssertionError(f"expected {want} launches of K9 and none of the "
-                             f"others, got {bad}")
+        raise AssertionError(f"expected {want} launches (K9 and the glue, none of "
+                             f"the others), got {bad}")
     left = int((out[p:] == runner.mask_id).sum())
     print(f"  mask ids left: {left}", flush=True)
     if left:
@@ -1302,12 +1389,13 @@ def eval_sweep_check(label, runner, rec, launches, secs, args):
           f"{outside:.4f} of the wall outside it", flush=True)
     print(f"  launches: {json.dumps(launches)}", flush=True)
     print(f"  mask ids left: {left}", flush=True)
-    want = runner.cfg.num_layers * args.steps
-    bad = {n: c for n, c in launches.items()
-           if c != (want if n in SERVING_KERNELS else 0)}
+    per = runner.cfg.num_layers * args.steps
+    want = expected_launches(glue_launches(runner.cfg, per, args.steps),
+                             **{n: per for n in SERVING_KERNELS})
+    bad = {n: c for n, c in launches.items() if c != want[n]}
     if bad:
-        raise AssertionError(f"{label}: expected {want} launches of K1, K2 and K8 "
-                             f"and none of the others, got {bad}")
+        raise AssertionError(f"{label}: expected {want} launches (K1, K2, K8 and the "
+                             f"glue, none of the others), got {bad}")
     if left:
         raise AssertionError(f"{label}: {left} mask ids remain after decoding")
     pair = eval_kernel_check(label, runner, rec)
@@ -1358,7 +1446,7 @@ def eval_sweep_phase(runner):
     (the same shapes) first."""
     from ct_diffusionmodelbench_tpu_torch.cli import bench
     from ct_diffusionmodelbench_tpu_torch.eval.benchmark import device_label
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
 
     entries = olympiad_entries()
     flags = ["--preset", "llada-moe-7b", "--style", "llada", "--batch-size",
@@ -1378,7 +1466,7 @@ def eval_sweep_phase(runner):
             secs = time.perf_counter() - t0
         finally:
             rec.close()
-        launches = {name: k.launches for name, k in KERNELS.items()}
+        launches = launch_counts()
         missing = [f for f in ("results_batch_8.json", "all_results.json",
                                "final_report.json")
                    if not os.path.exists(f"{tmp}/sweep/{f}")]
@@ -1415,7 +1503,7 @@ def minif2f_phase(runner):
     EOS truncation) over EVAL_ENTRIES miniF2F-schema problems in one batch,
     the fake Lean verifier pipelined; a warm-up at one step a block first."""
     from ct_diffusionmodelbench_tpu_torch.cli import minif2f
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
 
     with tempfile.TemporaryDirectory() as tmp:
         minif2f_problems(f"{tmp}/minif2f.json")
@@ -1435,7 +1523,7 @@ def minif2f_phase(runner):
             secs = time.perf_counter() - t0
         finally:
             rec.close()
-        launches = {name: k.launches for name, k in KERNELS.items()}
+        launches = launch_counts()
         files = [f for f in os.listdir(f"{tmp}/out")
                  if f.startswith("minif2f_lean4_results_test_")]
     if len(files) != 1:
@@ -1492,7 +1580,7 @@ def block_cache_row(label, runner, prompt, exact, **extra):
     reads, no mask id left, and the share of tokens equal to the exact
     greedy run's (printed, not checked: the cache approximates a deep
     model)."""
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
 
     cfg = runner.cfg
     kw = dict(steps=STEPS, gen_length=GEN, block_length=BLOCK, **extra)
@@ -1508,7 +1596,7 @@ def block_cache_row(label, runner, prompt, exact, **extra):
         secs = time.perf_counter() - t0
     finally:
         reads.close()
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     iters = reads.iterations() if reads.reads else [STEPS // (GEN // BLOCK)] * (GEN // BLOCK)
     forwards = sum(iters)
@@ -1533,14 +1621,15 @@ def block_cache_row(label, runner, prompt, exact, **extra):
                 mask_left=left, out=out)
 
 
-def check_block_cache_launches(label, row, kernels, num_layers):
-    """K8 once per layer and refresh, the FFN pair once per layer and
-    forward, no other kernel."""
+def check_block_cache_launches(label, row, kernels, cfg):
+    """K8 once per layer and refresh, the FFN pair and the glue once per
+    layer and forward (refreshes and cached steps), no other kernel."""
     attn, gateup, down = kernels
-    per_forward = row["forwards"] * num_layers
-    want = {attn: len(row["iterations"]) * num_layers, gateup: per_forward,
-            down: per_forward}
-    bad = {n: c for n, c in row["launches"].items() if c != want.get(n, 0)}
+    per_forward = row["forwards"] * cfg.num_layers
+    want = expected_launches(glue_launches(cfg, per_forward, row["forwards"]),
+                             **{attn: len(row["iterations"]) * cfg.num_layers,
+                                gateup: per_forward, down: per_forward})
+    bad = {n: c for n, c in row["launches"].items() if c != want[n]}
     if bad:
         raise AssertionError(f"{label}: expected launches {want} and none of the others, "
                              f"got {bad}")
@@ -1646,7 +1735,7 @@ def block_cache_phase(cfg, params, dev, exact):
                                     f"{BLOCK_CACHE_THRESHOLD}",
                                dict(parallel_threshold=BLOCK_CACHE_THRESHOLD))):
         rows[row] = block_cache_row(label, runner, prompt, exact, **extra)
-        check_block_cache_launches(label, rows[row], kernels, cfg.num_layers)
+        check_block_cache_launches(label, rows[row], kernels, cfg)
     if rows["a"]["flag_reads"]:
         raise AssertionError("the fixed schedule read a flag on the host")
 
@@ -1719,7 +1808,7 @@ def int8_block_cache_phase(runner, dev, exact_int8):
     prompt = exact_int8["out"][:, :PROMPT].cpu().numpy()
     row = block_cache_row("int8 block cache", bc, prompt, exact_int8)
     check_block_cache_launches("int8 block cache", row, (
-        "flash_attention_fwd", "grouped_gateup_q", "grouped_down_q"), cfg.num_layers)
+        "flash_attention_fwd", "grouped_gateup_q", "grouped_down_q"), cfg)
     ids = torch.from_numpy(row.pop("out")).to(dev)
     x, topk_idx = cached_step_routing(cfg, runner.params, ids, left_padded_mask(dev), dev)
     pair = grouped_pair_check("int8 cached step", cfg, runner.params["blocks"], x, topk_idx,
@@ -1867,7 +1956,7 @@ def int8_kernel_phase(runner, dev):
 
 def int8_slice_phase(runner, dev):
     """Full-size int8 greedy decode through ``ModelRunner.generate_ids``."""
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
 
     cfg = runner.cfg
     gen = torch.Generator(device=dev)
@@ -1883,19 +1972,20 @@ def int8_slice_phase(runner, dev):
     out = runner.generate_ids(prompt, **kw)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {name: k.launches for name, k in KERNELS.items()}
+    launches = launch_counts()
     peak = torch.cuda.max_memory_allocated()
     print(f"  generate_ids: {secs:.4f} s, {BATCH * GEN / secs:.2f} tok/s "
           f"(B {BATCH}, prompt {PROMPT}, gen {GEN}, steps {STEPS}, block {BLOCK})",
           flush=True)
     print(f"  peak memory: {peak / 2**30:.3f} GiB", flush=True)
     print(f"  launches: {json.dumps(launches)}", flush=True)
-    want = cfg.num_layers * STEPS
-    bad = {n: c for n, c in launches.items()
-           if c != (want if n in INT8_SERVING_KERNELS else 0)}
+    per = cfg.num_layers * STEPS
+    want = expected_launches(glue_launches(cfg, per, STEPS),
+                             **{n: per for n in INT8_SERVING_KERNELS})
+    bad = {n: c for n, c in launches.items() if c != want[n]}
     if bad:
-        raise AssertionError(f"expected {want} launches of each int8 serving "
-                             f"kernel and none of the others, got {bad}")
+        raise AssertionError(f"expected {want} launches (each int8 serving kernel "
+                             f"and the glue, none of the others), got {bad}")
     left = int((out[:, PROMPT:] == runner.mask_id).sum())
     print(f"  mask ids left: {left}", flush=True)
     if left:
@@ -2105,7 +2195,7 @@ def train_slice_phase(dev):
     import numpy as np
 
     from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
     from ct_diffusionmodelbench_tpu_torch.train.trainer import TrainConfig, Trainer
 
     cfg = get_config("llada-8b").replace(num_layers=TRAIN_LAYERS)
@@ -2129,7 +2219,7 @@ def train_slice_phase(dev):
         trainer = Trainer(cfg, params, tcfg, rows)
         reset_launch_counts()
         trainer.train()
-        launches = {name: k.launches for name, k in KERNELS.items()}
+        launches = launch_counts()
         peak = torch.cuda.max_memory_allocated()
     finally:
         shutil.rmtree(out_dir, ignore_errors=True)
@@ -2150,10 +2240,11 @@ def train_slice_phase(dev):
             for e in logs):
         raise AssertionError("non-finite loss or grad_norm, or a zero gradient")
     per_step = TRAIN_LAYERS * TRAIN_ACCUM
-    want = {n: 0 for n in KERNELS}
-    want.update({"flash_attention_fwd": 2 * per_step * TRAIN_STEPS,
-                 "flash_attention_bwd_dq": per_step * TRAIN_STEPS,
-                 "flash_attention_bwd_dkv": per_step * TRAIN_STEPS})
+    want = expected_launches(
+        glue_launches(cfg, 2 * per_step * TRAIN_STEPS, TRAIN_ACCUM * TRAIN_STEPS),
+        flash_attention_fwd=2 * per_step * TRAIN_STEPS,
+        flash_attention_bwd_dq=per_step * TRAIN_STEPS,
+        flash_attention_bwd_dkv=per_step * TRAIN_STEPS)
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     params = trainer.params
@@ -2199,7 +2290,8 @@ def train_depth_phase(cfg, params, dev):
 
     reset_launch_counts()
     loss_k, grads_k = loss_and_grads()
-    launches = {n: KERNELS[n].launches for n in ("flash_attention_fwd",) + BWD_KERNELS}
+    launches = {n: KERNELS[n].launches
+                for n in ("flash_attention_fwd",) + BWD_KERNELS + GLUE_KERNELS}
     # The plain run swaps the forward and backward at the names the autograd
     # wrapper calls them by.
     seams = [(fa, "flash_attention_fwd"), (fab, "flash_attention_bwd")]
@@ -2228,7 +2320,7 @@ def train_depth_phase(cfg, params, dev):
               f"{rel:.3e}, cosine {cos:.6f}", flush=True)
     print(f"  largest rel L2 err {worst:.3e} (limit {GRAD_REL_L2:.3e})", flush=True)
     if launches != {"flash_attention_fwd": 4, "flash_attention_bwd_dq": 2,
-                    "flash_attention_bwd_dkv": 2}:
+                    "flash_attention_bwd_dkv": 2, **glue_launches(cfg2, 4, 1)}:
         raise AssertionError(f"2-layer gradient run launched {launches}")
     if zero:
         raise AssertionError(f"zero gradient with the kernels: {zero}")
@@ -2327,7 +2419,7 @@ def moe_train_slice_phase(args, cfg, params, tokenizer, dev):
     import numpy as np
 
     from ct_diffusionmodelbench_tpu_torch.cli import train as train_cli
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
     from ct_diffusionmodelbench_tpu_torch.train import optim
 
     rng = np.random.default_rng(20)
@@ -2351,7 +2443,7 @@ def moe_train_slice_phase(args, cfg, params, tokenizer, dev):
         optim.AdamWLowp.update = timed_update
         reset_launch_counts()
         trainer = train_cli.run(args, cfg, params, tokenizer, rows, [])
-        launches = {name: k.launches for name, k in KERNELS.items()}
+        launches = launch_counts()
     finally:
         optim.AdamWLowp.update = update
         shutil.rmtree(args.output_dir, ignore_errors=True)
@@ -2385,9 +2477,10 @@ def moe_train_slice_phase(args, cfg, params, tokenizer, dev):
     if not any(moved.values()):
         raise AssertionError("no parameter moved")
     per_step = cfg.num_layers * TRAIN_ACCUM
-    want = {n: 0 for n in KERNELS}
-    want.update({n: 2 * per_step * TRAIN_STEPS for n in SERVING_KERNELS})
-    want.update({n: per_step * TRAIN_STEPS for n in BWD_KERNELS})
+    want = expected_launches(
+        glue_launches(cfg, 2 * per_step * TRAIN_STEPS, TRAIN_ACCUM * TRAIN_STEPS),
+        **{n: 2 * per_step * TRAIN_STEPS for n in SERVING_KERNELS},
+        **{n: per_step * TRAIN_STEPS for n in BWD_KERNELS})
     if launches != want:
         raise AssertionError(f"expected launches {want}, got {launches}")
     per_step_launches = {n: c // TRAIN_STEPS for n, c in launches.items() if c}
@@ -2415,7 +2508,7 @@ def moe_train_depth_phase(cfg, params, dev):
     from ct_diffusionmodelbench_tpu_torch.ops import flash_attention_bwd as fab
     from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm as ggm
     from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
     from ct_diffusionmodelbench_tpu_torch.train.diffusion_loss import diffusion_sft_loss
     from ct_diffusionmodelbench_tpu_torch.train.optim import (
         flatten_params, state_tensors, unflatten_params)
@@ -2498,7 +2591,7 @@ def moe_train_depth_phase(cfg, params, dev):
     try:
         moe.router_probs = recording_router
         kern = loss_and_grads()
-        launches = {n: k.launches for n, k in KERNELS.items() if k.launches}
+        launches = launch_counts(nonzero=True)
         for mod, name, fn in seams:
             setattr(mod, name, fn)
         plain = loss_and_grads()
@@ -2507,7 +2600,8 @@ def moe_train_depth_phase(cfg, params, dev):
             setattr(mod, name, fn)
     print(f"  launches with kernels: {json.dumps(launches)}", flush=True)
     want = {"grouped_gateup": 4, "grouped_down": 4, "flash_attention_fwd": 4,
-            "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
+            "flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2,
+            **glue_launches(cfg2, 4, 1)}
     if launches != want:
         raise AssertionError(f"2-layer MoE gradient run launched {launches}")
     err_grads = close("2-layer MoE gradients, kernels vs plain", kern, plain)
@@ -2730,7 +2824,7 @@ def par_serve_task(rank, steps):
     from ct_diffusionmodelbench_tpu_torch.models.moe import local_slots
     from ct_diffusionmodelbench_tpu_torch.models.transformer import forward
     from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
     from ct_diffusionmodelbench_tpu_torch.parallel import comm, make_sharded_forward, use_mesh
     from ct_diffusionmodelbench_tpu_torch.parallel.sharding import gather_params
 
@@ -2760,11 +2854,13 @@ def par_serve_task(rank, steps):
                                   block_length=BLOCK)
     torch.cuda.synchronize()
     secs = time.perf_counter() - t0
-    launches = {name: kk.launches for name, kk in KERNELS.items()}
+    launches = launch_counts()
     counts, comm_s = dict(comm.COUNTS), comm.SECONDS["total"]
     peak = torch.cuda.max_memory_allocated()
     left = int((out[:, PROMPT:] == cfg.mask_token_id).sum())
-    want = {n: (cfg.num_layers * steps if n in SERVING_KERNELS else 0) for n in KERNELS}
+    per = cfg.num_layers * steps
+    want = expected_launches(glue_launches(cfg, per, steps),
+                             **{n: per for n in SERVING_KERNELS})
     if launches != want:
         raise AssertionError(f"rank {rank}: launches {launches}, expected {want}")
     if left:
@@ -2913,7 +3009,7 @@ def par_train_task(rank, out_dir):
     import torch.distributed as dist
 
     from ct_diffusionmodelbench_tpu_torch.io.checkpoint import load_checkpoint
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
     from ct_diffusionmodelbench_tpu_torch.parallel import comm
     from ct_diffusionmodelbench_tpu_torch.train.trainer import Trainer
 
@@ -2922,12 +3018,12 @@ def par_train_task(rank, out_dir):
     comm.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     cfg, tok, trainer, logs = par_train_run(PAR_DP, PAR_TP, os.path.join(out_dir, "run"))
-    launches = {name: kk.launches for name, kk in KERNELS.items()}
+    launches = launch_counts()
     counts = dict(comm.COUNTS)
     peak = torch.cuda.max_memory_allocated()
     per_step = PAR_TRAIN_LAYERS * PAR_TRAIN_STEPS
-    want = {n: 0 for n in KERNELS}
-    want.update({n: per_step for n in SERVING_KERNELS + BWD_KERNELS})
+    want = expected_launches(glue_launches(cfg, per_step, PAR_TRAIN_STEPS),
+                             **{n: per_step for n in SERVING_KERNELS + BWD_KERNELS})
     if launches != want:
         raise AssertionError(f"rank {rank}: launches {launches}, expected {want}")
 
@@ -3193,7 +3289,7 @@ def par_sp_task(rank, out_dir):
     whole sequence, and (rank 0) the kernels at the ring chunk's shape."""
     import torch.distributed as dist
 
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
     from ct_diffusionmodelbench_tpu_torch.parallel import comm
 
     dev = torch.device("cuda", torch.cuda.current_device())
@@ -3205,12 +3301,12 @@ def par_sp_task(rank, out_dir):
             SP_DP, SP_TP, os.path.join(out_dir, "run"), layers=SP_LAYERS,
             rows=par_train_rows(24, SP_STEPS * SP_BATCH, SP_SEQ),
             extra=SP_FLAGS + ("--sp", str(SP_SP)))
-    launches = {name: kk.launches for name, kk in KERNELS.items()}
+    launches = launch_counts()
     counts, secs = dict(comm.COUNTS), dict(comm.SECONDS)
     peak = torch.cuda.max_memory_allocated()
     step_s, mesh = list(trainer.step_times), trainer.mesh
     want, p2p = sp_launches_per_rank()
-    want = {n: want.get(n, 0) for n in KERNELS}
+    want = expected_launches(glue_launches(cfg, 2 * SP_LAYERS * SP_STEPS, SP_STEPS), **want)
     if launches != want:
         raise AssertionError(f"rank {rank}: launches {launches}, expected {want}")
     if counts["p2p"] != p2p:
@@ -3287,32 +3383,33 @@ def sp_training_phase():
                 one_peak_gib=one_peak / 2**30)
 
 
-def pp_launches_per_rank():
+def pp_launches_per_rank(cfg):
     """Phase 25 (a)'s launches a rank, from the code: each stage runs its
-    one layer on each microbatch of each step, K8, K1 and K2 in the
-    forward, K10 and K11 in the backward (no remat)."""
+    one layer on each microbatch of each step, K8, K1, K2 and the glue in
+    the forward, K10 and K11 in the backward (no remat); every stage takes
+    the final norm once a step."""
     n = PP_LAYERS // PP_STAGES * PP_MICRO * PP_STEPS
-    return {"flash_attention_fwd": n, "flash_attention_bwd_dq": n,
-            "flash_attention_bwd_dkv": n, "grouped_gateup": n, "grouped_down": n}
+    return expected_launches(
+        glue_launches(cfg, n, PP_STEPS), flash_attention_fwd=n, flash_attention_bwd_dq=n,
+        flash_attention_bwd_dkv=n, grouped_gateup=n, grouped_down=n)
 
 
 def par_pp_task(rank, out_dir):
     """Phase 25 (a) on one rank: 4 stages of one llada-moe-7b layer through
     the training CLI (``--pp 4 --pp-microbatches 4``)."""
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
     from ct_diffusionmodelbench_tpu_torch.parallel import comm
 
     reset_launch_counts()
     comm.reset_counts()
     torch.cuda.reset_peak_memory_stats()
     with comm.timed():
-        _, _, trainer, logs = par_train_run(
+        cfg, _, trainer, logs = par_train_run(
             1, 1, os.path.join(out_dir, "run"), layers=PP_LAYERS,
             rows=par_train_rows(25, PP_STEPS * PP_BATCH, PP_SEQ),
             extra=PP_FLAGS + ("--pp", str(PP_STAGES), "--pp-microbatches", str(PP_MICRO)))
-    launches = {name: kk.launches for name, kk in KERNELS.items()}
-    want = pp_launches_per_rank()
-    want = {n: want.get(n, 0) for n in KERNELS}
+    launches = launch_counts()
+    want = pp_launches_per_rank(cfg)
     if launches != want:
         raise AssertionError(f"rank {rank}: launches {launches}, expected {want}")
     st = trainer.mesh.stage_rank
@@ -3354,7 +3451,7 @@ def par_pptp_task(rank):
     import torch.distributed as dist
 
     from ct_diffusionmodelbench_tpu_torch.models import make_forward_fn
-    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, reset_launch_counts
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
     from ct_diffusionmodelbench_tpu_torch.parallel.pipeline import (
         gather_params_pp, init_pp_params, make_pp_forward, make_pp_mesh)
     from ct_diffusionmodelbench_tpu_torch.train.trainer import Trainer
@@ -3384,7 +3481,7 @@ def par_pptp_task(rank):
     _, _, m = trainer.train_step(trainer.params, trainer.opt_state, ids, plens, noise)
     torch.cuda.synchronize()
     return dict(err=err, loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
-                launches={name: kk.launches for name, kk in KERNELS.items()},
+                launches=launch_counts(),
                 peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                 coords=(mesh.stage_rank, mesh.model_rank))
 
@@ -3468,8 +3565,9 @@ def pp_training_phase():
           f"({ref_b[0]:.5f} / {ref_b[1]:.5f}): loss rel err {loss_err_b:.3e} (limit "
           f"{LOSS_RTOL:.3g}), grad norm rel err {norm_err_b:.3e} (limit "
           f"{GRAD_REL_L2:.3g})", flush=True)
+    # A rank's one layer on each of 2 microbatches; one final norm.
     want_b = {"flash_attention_fwd": 2, "flash_attention_bwd_dq": 2,
-              "flash_attention_bwd_dkv": 2}
+              "flash_attention_bwd_dkv": 2, **glue_launches(cfg, 2, 1)}
     for r, x in enumerate(res_b):
         if {k: v for k, v in x["launches"].items() if v} != want_b:
             raise AssertionError(f"(b) rank {r}: launches {x['launches']}, expected {want_b}")
@@ -3580,8 +3678,9 @@ def entry_phase(dev):
           f"{tuple(logits.shape)} {logits.dtype}, finite {finite}, launches "
           f"{json.dumps(launches)}, peak {torch.cuda.max_memory_allocated() / 2**30:.3f} GiB",
           flush=True)
-    if launches != {"flash_attention_fwd": 32}:
-        raise AssertionError(f"entry forward launches {launches}, expected 32 of K8 only")
+    want = {"flash_attention_fwd": 32, "rms_norm": 65, "swiglu_act": 32}
+    if launches != want:
+        raise AssertionError(f"entry forward launches {launches}, expected {want}")
     if tuple(logits.shape) != (1, 320, vocab) or not finite:
         raise AssertionError("entry forward: wrong shape or non-finite logits")
     del fn, params, ids, logits
@@ -3613,6 +3712,95 @@ def sweep_phase(dev):
         raise AssertionError(f"sweep sections failed: {bad}")
 
 
+def bf16_ulps(got, want):
+    """|got − want| in units of the last place of bf16 at want's magnitude."""
+    want = want.float()
+    exp = torch.floor(torch.log2(want.abs().clamp_min(2.0 ** -126)))
+    return (got.float() - want).abs() / torch.exp2(exp - 7)
+
+
+def rms_norm_check(glue, x, scale) -> float:
+    """``rms_norm`` of bf16 x against its plain version: at most one bf16
+    ulp apart, bit-equal on 99 % or more; returns the largest error."""
+    y = glue.rms_norm(x, scale, GLUE_EPS)
+    want = glue.rms_norm_plain(x, scale, GLUE_EPS)
+    ulps = float(bf16_ulps(y, want).max())
+    equal = float((y == want).float().mean())
+    print(f"  rms_norm {list(x.shape)} bf16: max {ulps:.0f} bf16 ulp from the composite, "
+          f"bit-equal on {100 * equal:.4f} % of elements", flush=True)
+    if ulps > 1 or equal < 0.99:
+        raise AssertionError(f"rms_norm {list(x.shape)}: kernel disagrees with its plain "
+                             f"version")
+    return float((y.float() - want.float()).abs().max())
+
+
+def glue_phase(dev):
+    """Phase 31: ``rms_norm`` and ``swiglu_act`` at dense8b-eval's shapes
+    against their plain versions, timed in turns beside them and, for the
+    norm, ``torch.nn.functional.rms_norm`` (a yardstick the port never
+    calls), each run queued behind a sleeping kernel (a norm takes less
+    time on the card than its call on the host); then ``rms_norm`` against
+    its plain version at the other served rows (:data:`GLUE_OTHER_ROWS`)."""
+    from ct_diffusionmodelbench_tpu_torch.ops import glue
+
+    g = torch.Generator(device=dev).manual_seed(31)
+    xs = [(torch.randn((GLUE_ROWS, GLUE_D), generator=g, device=dev) * 3).to(torch.bfloat16)
+          for _ in range(GLUE_SETS)]
+    scale = (1 + 0.5 * torch.randn(GLUE_D, generator=g, device=dev)).to(torch.bfloat16)
+    gate = torch.randn((GLUE_ROWS, GLUE_F), generator=g, device=dev) * 4
+    up = torch.randn((GLUE_ROWS, GLUE_F), generator=g, device=dev)
+
+    err = rms_norm_check(glue, xs[0], scale)
+    h = glue.swiglu_act(gate, up, torch.bfloat16)
+    h_equal = bool(torch.equal(h, glue.swiglu_act_plain(gate, up, torch.bfloat16)))
+    print(f"  swiglu_act [{GLUE_ROWS}, {GLUE_F}] f32 -> bf16: bit-equal {h_equal}", flush=True)
+    if not h_equal:
+        raise AssertionError("swiglu_act: kernel disagrees with its plain version")
+    del h
+
+    turn = [0]
+
+    def next_x():
+        turn[0] = (turn[0] + 1) % GLUE_SETS
+        return xs[turn[0]]
+
+    host_us_per_launch({"rms_norm": lambda: glue.rms_norm_cuda(xs[0], scale, GLUE_EPS),
+                        "swiglu_act": lambda: glue.swiglu_act_cuda(gate, up, torch.bfloat16)})
+    norm = time_turns_queued({
+        "kernel": lambda: glue.rms_norm_cuda(next_x(), scale, GLUE_EPS),
+        "plain": lambda: glue.rms_norm_plain(next_x(), scale, GLUE_EPS),
+        "library": lambda: torch.nn.functional.rms_norm(next_x(), (GLUE_D,), scale,
+                                                        GLUE_EPS)}, iters=50)
+    act = time_turns_queued({
+        "kernel": lambda: glue.swiglu_act_cuda(gate, up, torch.bfloat16),
+        "plain": lambda: glue.swiglu_act_plain(gate, up, torch.bfloat16)}, iters=20)
+    n_norm, n_act = GLUE_ROWS * GLUE_D, GLUE_ROWS * GLUE_F
+    norm_bound, norm_by = bound_ms(4.0 * n_norm, 2 * 2 * n_norm + 2 * GLUE_D)
+    act_bound, act_by = bound_ms(6.0 * n_act, (4 + 4 + 2) * n_act)
+    rows = [dict(name="rms_norm", source="csrc/glue.cu ctdb_rms_norm_kernel",
+                 replaces="none (XLA fused the norm on the TPU)", max_abs_err=err,
+                 ms=norm["kernel"], plain_ms=norm["plain"], library_ms=norm["library"],
+                 bound_ms=norm_bound, bound_by=norm_by, bound_share=norm_bound / norm["kernel"]),
+            dict(name="swiglu_act", source="csrc/glue.cu ctdb_swiglu_act_kernel",
+                 replaces="none (XLA fused silu(gate) * up on the TPU)", max_abs_err=0.0,
+                 ms=act["kernel"], plain_ms=act["plain"], library_ms=None,
+                 bound_ms=act_bound, bound_by=act_by, bound_share=act_bound / act["kernel"])]
+    for r in rows:
+        print(f"  {r['name']}: {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, library "
+              f"{r['library_ms'] if r['library_ms'] is None else round(r['library_ms'], 4)} ms, "
+              f"bound {r['bound_ms']:.4f} ms ({r['bound_by']}), {r['bound_share']:.4f} of "
+              f"its bound", flush=True)
+    del xs, gate, up
+    for shape in GLUE_OTHER_ROWS:
+        x = (torch.randn(shape, generator=g, device=dev) * 3).to(torch.bfloat16)
+        s = (1 + 0.5 * torch.randn(shape[-1], generator=g, device=dev)).to(torch.bfloat16)
+        rms_norm_check(glue, x, s)
+    del x, s
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3625,7 +3813,7 @@ def main() -> int:
     from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
     from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
     from ct_diffusionmodelbench_tpu_torch.ops import (
-        flash_attention, flash_attention_bwd, grouped_gemm_cuda)
+        flash_attention, flash_attention_bwd, glue, grouped_gemm_cuda)
     from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, build_all
 
     dev = torch.device("cuda", 0)
@@ -3634,7 +3822,7 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     libs = [grouped_gemm_cuda.LIBRARY, grouped_gemm_cuda.LIBRARY_Q,
             grouped_gemm_cuda.LIBRARY_FUSED, flash_attention.LIBRARY,
-            flash_attention.LIBRARY_DIRECT, flash_attention_bwd.LIBRARY]
+            flash_attention.LIBRARY_DIRECT, flash_attention_bwd.LIBRARY, glue.LIBRARY]
     build_s = build_all(libs)
     print(f"kernel build: {build_s:.2f} s", flush=True)
     ptxas_report(libs)
@@ -3657,6 +3845,7 @@ def main() -> int:
     depth_phase(cfg, params, sl["out"], dev)
     for r in results:
         r["launches"] = sl["launches"][r["name"]]
+    glue_seen = {n: dict(launches=sl["launches"][n]) for n in GLUE_KERNELS}
     exact = dict(prompt=sl["prompt"], out=sl["out"], tokens_per_s=sl["tokens_per_s"])
     del sl
     with switches_on("CTDB_GROUPED_FUSED", "CTDB_FLASH_DIRECT"):
@@ -3680,6 +3869,9 @@ def main() -> int:
             r["refresh_no_rope"] = bc["refresh_no_rope"]
         else:
             r["cached_step"] = bc["cached_" + r["name"].split("_")[1]]
+    for n, r in glue_seen.items():
+        r["block_cache_launches"] = bc["rows"]["a"]["launches"][n]
+        r["threshold_launches"] = bc["rows"]["b"]["launches"][n]
     for r in sp_results:
         r["launches"] = chat["launches"][r["name"]]
     results += sp_results
@@ -3716,6 +3908,8 @@ def main() -> int:
         dream = dream_slice_phase(dev)
     next(r for r in results if r["name"] == "flash_attention_direct")[
         "dream_launches"] = dream["launches"]["flash_attention_direct"]
+    for n, r in glue_seen.items():
+        r["dream_launches"] = dream["launches"][n]
     del dream
     gc.collect()
     torch.cuda.empty_cache()
@@ -3810,6 +4004,10 @@ def main() -> int:
         print(f"{label}:", flush=True)
         phase(dev)
         print(f"  phase {number}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("glue kernels:", flush=True)
+    results += [dict(r, **glue_seen[r["name"]]) for r in glue_phase(dev)]
+    print(f"  phase 31: {time.perf_counter() - t0:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",

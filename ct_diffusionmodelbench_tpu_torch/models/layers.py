@@ -1,7 +1,8 @@
 """Core transformer layers: RMSNorm, RoPE, SwiGLU.
 
 Counterpart of ``models/layers.py``.  Norms and rotary math run in float32
-whatever the activation dtype; products accumulate in f32.
+whatever the activation dtype; products accumulate in f32.  The norm and
+SwiGLU's activation are ``ops/glue.py``'s: one kernel each on the card.
 """
 
 from __future__ import annotations
@@ -9,16 +10,15 @@ from __future__ import annotations
 from typing import Tuple
 
 import torch
-import torch.nn.functional as F
 
+from ct_diffusionmodelbench_tpu_torch.ops import glue
 from ct_diffusionmodelbench_tpu_torch.ops.quant import qdot
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
-    xf = x.float()
-    var = torch.mean(xf * xf, dim=-1, keepdim=True)
-    normed = xf * torch.rsqrt(var + eps)
-    return (normed * scale.float()).to(x.dtype)
+    """``ops/glue.py::rms_norm`` over x's last dim; a strided x (the block
+    cache's slice of its block) is made contiguous first."""
+    return glue.rms_norm(x.contiguous(), scale, eps)
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int,
@@ -51,5 +51,5 @@ def swiglu(x: torch.Tensor, w_gate: torch.Tensor, w_up: torch.Tensor,
            w_down: torch.Tensor) -> torch.Tensor:
     gate = qdot(x, w_gate)
     up = qdot(x, w_up)
-    h = (F.silu(gate) * up).to(x.dtype)
+    h = glue.swiglu_act(gate, up, x.dtype)
     return qdot(h, w_down).to(x.dtype)

@@ -30,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from ct_diffusionmodelbench_tpu_torch.models.layers import swiglu
+from ct_diffusionmodelbench_tpu_torch.ops.glue import swiglu_act
 from ct_diffusionmodelbench_tpu_torch.ops.grouped_gemm import grouped_expert_ffn
 from ct_diffusionmodelbench_tpu_torch.ops.quant import dequantize_tensor, is_quantized, qdot
 from ct_diffusionmodelbench_tpu_torch.parallel.comm import (
@@ -110,7 +111,7 @@ def local_slots(topk_idx: torch.Tensor, e_local: int, model_rank: int) -> torch.
 
 def _shared_partial(xc: torch.Tensor, params: dict) -> torch.Tensor:
     """This rank's f32 partial of the column / row split shared expert."""
-    h = (F.silu(qdot(xc, params["ws_gate"])) * qdot(xc, params["ws_up"])).to(xc.dtype)
+    h = swiglu_act(qdot(xc, params["ws_gate"]), qdot(xc, params["ws_up"]), xc.dtype)
     return qdot(h, params["ws_down"])
 
 

@@ -67,6 +67,7 @@ from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
 from ct_diffusionmodelbench_tpu_torch.models.layers import rms_norm, rope_angles, swiglu
 from ct_diffusionmodelbench_tpu_torch.models.moe import moe_block
 from ct_diffusionmodelbench_tpu_torch.ops.attention import attention
+from ct_diffusionmodelbench_tpu_torch.ops.glue import swiglu_act
 from ct_diffusionmodelbench_tpu_torch.ops.quant import is_quantized, qdot
 from ct_diffusionmodelbench_tpu_torch.parallel.comm import (
     all_gather, copy_to_model, gather_from_model, gather_from_seq,
@@ -291,7 +292,7 @@ def _attn_project(cfg: ModelConfig, h: torch.Tensor, lp: dict, tp: int = 1):
 def _swiglu_partial(h: torch.Tensor, lp: dict) -> torch.Tensor:
     """This rank's f32 partial of a column / row split SwiGLU."""
     hc = copy_to_model(h)
-    a = (F.silu(qdot(hc, lp["w_gate"])) * qdot(hc, lp["w_up"])).to(h.dtype)
+    a = swiglu_act(qdot(hc, lp["w_gate"]), qdot(hc, lp["w_up"]), h.dtype)
     return qdot(a, lp["w_down"])
 
 

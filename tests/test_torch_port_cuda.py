@@ -1338,10 +1338,14 @@ def test_tiny_moe_train_step_kernels_against_plain(cuda_device, monkeypatch, rem
                                   plens[None].expand(2, 2), g)
     fwd = cfg.num_layers * 2 * (1 if remat is False else 2)
     launches = {n: kk.launches for n, kk in KERNELS.items() if kk.launches}
+    # The glue (ops/glue.py): per microbatch's forward the qk-norms and the
+    # blocks' two norms (4 a layer) and the final norm, and the shared
+    # expert's activation; under remat the blocks run again in the backward.
     assert launches == {"grouped_gateup": fwd, "grouped_down": fwd,
                         "flash_attention_fwd": fwd,
                         "flash_attention_bwd_dq": cfg.num_layers * 2,
-                        "flash_attention_bwd_dkv": cfg.num_layers * 2}
+                        "flash_attention_bwd_dkv": cfg.num_layers * 2,
+                        "rms_norm": 4 * fwd + 2, "swiglu_act": fwd}
     assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
     assert state.count == 1
 
