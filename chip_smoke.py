@@ -234,6 +234,20 @@ Phases, in order:
    [4, 832, 16, 128] (a warp a row) and D 2048, Dream's D 3584.  The
    kernels line's glue launches are the slice's (phase 3), block cache's
    (phase 9) and Dream's (phase 16).
+32. SDAR kernels: K12 (``ops/cache_attention.py``) at sdar30b-eval's
+   cached passes (B 32, a block of 4 against 580 and 832 keys, 32 / 4 heads
+   of 128, left padding of 0-320 a row) and the flash kernel's block-causal
+   mode at its prefill (B 32, S 576, blocks of 4, the same padding), each
+   against its plain version, timed in turns beside it, beside SDPA with an
+   explicit mask (a yardstick the port never calls) and beside its bound;
+   K1 and K2 at the cell's cached pass (128 rows of D 2048 routed by
+   ``router_probs`` to 128 experts of F 768, top-8: 1024 slots, about 8
+   rows an expert, most tiles padding) against their plain versions, with
+   and without ``tile_valid``, timed beside ``torch._grouped_mm`` and their
+   bound (the ``sdar`` field of their rows in the kernels line);
+   then an ``sdar-tiny`` decode's exact launches: K12 once a layer for
+   every step and commit, the block-causal flash kernel once a layer a
+   batch, no other attention kernel.
 
 Every exact launch check above expects the glue kernels too
 (:func:`glue_launches`): a block pass launches ``rms_norm`` twice (four
@@ -501,8 +515,11 @@ def ptxas_report(libs) -> None:
     bytes of the flash forward, dq and dk/dv kernels at head dim 128, of the
     direct flash kernel at head dim 128 (one or two warpgroups with K
     resident, two with K streamed), of the bf16 and int8 grouped kernels and
-    of the fused expert FFN (found by their mangled names)."""
-    watch = {"flash_fwd_kernel<128>": "16flash_fwd_kernelILi128E",
+    of the fused expert FFN, of the flash forward's block-causal mode and of
+    K12 at head dim 128 (found by their mangled names)."""
+    watch = {"flash_fwd_kernel<128>": "16flash_fwd_kernelILi128ELb0E",
+             "flash_fwd_kernel<128, block-causal>": "16flash_fwd_kernelILi128ELb1E",
+             "cache_attn_kernel<128>": "17cache_attn_kernelILi128E",
              "flash_bwd_dq_kernel<128>": "19flash_bwd_dq_kernelILi128E",
              "flash_bwd_dkv_kernel<128>": "20flash_bwd_dkv_kernelILi128E",
              "flash_direct_kernel<128, 1, resident> (chat)":
@@ -619,26 +636,16 @@ def grouped_pair_check(label, cfg, blocks, x, topk_idx, li, int8=False,
                            err_gateup=err_gateup, err_down=err_down)
 
 
-def kernel_phase(cfg, params, dev):
-    """Each kernel at the main path's shapes against its plain version."""
-    from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rope_angles
-    from ct_diffusionmodelbench_tpu_torch.models.moe import router_probs
-    from ct_diffusionmodelbench_tpu_torch.models.transformer import token_positions
-    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+def grouped_pair_timing(cfg, blocks, pair, li, dev):
+    """K1 and K2 on the layout of ``pair`` (:func:`grouped_pair_check`),
+    timed in turns with and without ``tile_valid`` and beside
+    ``torch._grouped_mm``, their plain versions alone, each against its
+    bound on the routed rows' work and bytes.  Returns the two rows and each
+    kernel's launch (with ``tile_valid``, as on the main path)."""
     from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
 
-    gen = torch.Generator(device=dev)
-    gen.manual_seed(1)
-    D, E, K, Fm = (cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok,
-                   cfg.moe_intermediate_size)
-    blocks = params["blocks"]
-    li = 1
+    D, E, Fm = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
     wg, wu, wd = blocks["we_gate"], blocks["we_up"], blocks["we_down"]
-    n = BATCH * SEQ
-    x = torch.randn((n, D), generator=gen, device=dev, dtype=torch.bfloat16)
-    topk_probs, topk_idx, _ = router_probs(x, blocks["router"][li], K,
-                                           cfg.norm_topk_prob)
-    pair = grouped_pair_check("decode", cfg, blocks, x, topk_idx, li)
     xs, h_p, tile_expert, sizes = pair.xs, pair.h_p, pair.tile_expert, pair.sizes
     tile_m, m_pad, valid, m, used = pair.tile_m, pair.m_pad, pair.valid, pair.m, pair.used
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -709,9 +716,30 @@ def kernel_phase(cfg, params, dev):
               f"{r['plain_ms']:.4f} ms, library (torch._grouped_mm; in turns with "
               f"the kernel) {r['library_ms']}, bound {r['bound_ms']:.4f} ms "
               f"({r['bound_by']})", flush=True)
-    host_us_per_launch({"grouped_gateup": gateup(valid.data_ptr()),
-                        "grouped_down": down(valid.data_ptr())})
-    del pair, h_p, h_out, o_out, xs
+    return results, {"grouped_gateup": gateup(valid.data_ptr()),
+                     "grouped_down": down(valid.data_ptr())}
+
+
+def kernel_phase(cfg, params, dev):
+    """Each kernel at the main path's shapes against its plain version."""
+    from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rope_angles
+    from ct_diffusionmodelbench_tpu_torch.models.moe import router_probs
+    from ct_diffusionmodelbench_tpu_torch.models.transformer import token_positions
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    blocks = params["blocks"]
+    li = 1
+    x = torch.randn((BATCH * SEQ, cfg.hidden_size), generator=gen, device=dev,
+                    dtype=torch.bfloat16)
+    _, topk_idx, _ = router_probs(x, blocks["router"][li], cfg.num_experts_per_tok,
+                                  cfg.norm_topk_prob)
+    pair = grouped_pair_check("decode", cfg, blocks, x, topk_idx, li)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    results, launch = grouped_pair_timing(cfg, blocks, pair, li, dev)
+    host_us_per_launch(launch)
+    del pair, launch
 
     # flash attention: B 8, S 320, H 16, KV 4, Dh 128, RoPE, left padding
     H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
@@ -3801,6 +3829,166 @@ def glue_phase(dev):
     return rows
 
 
+SDAR_B, SDAR_BL, SDAR_H, SDAR_KV, SDAR_DH = 32, 4, 32, 4, 128
+SDAR_P, SDAR_S, SDAR_PAD = 576, 832, 320
+
+
+def sdar_rows(dev, g):
+    """Left padding of 0 .. SDAR_PAD a row: (mask [B, P] int32, first real
+    key [B] int32)."""
+    pads = torch.randint(0, SDAR_PAD + 1, (SDAR_B,), generator=g, device=dev)
+    mask = (torch.arange(SDAR_P, device=dev)[None] >= pads[:, None]).to(torch.int32)
+    return mask, pads.to(torch.int32)
+
+
+def sdar_grouped_check(dev, g) -> dict:
+    """K1 and K2 at sdar30b-eval's cached pass: a block of 4 rows a request
+    for 32 requests routed by ``router_probs`` over one layer of the
+    published expert stacks (128 experts of D 2048, F 768, top-8: 1024
+    slots, about 8 rows an expert), against their plain versions with and
+    without ``tile_valid``, then timed (:func:`grouped_pair_timing`).
+    Returns {kernel: its row}."""
+    from types import SimpleNamespace
+
+    from ct_diffusionmodelbench_tpu_torch.models import get_config
+    from ct_diffusionmodelbench_tpu_torch.models.moe import router_probs
+
+    cfg = get_config("sdar-30b-a3b")
+    D, E, Fm = cfg.hidden_size, cfg.num_experts, cfg.moe_intermediate_size
+
+    def weight(*shape):
+        w = torch.randn(shape, generator=g, device=dev) * shape[-2] ** -0.5
+        return w.to(torch.bfloat16)
+
+    blocks = {"router": weight(1, D, E), "we_gate": weight(1, E, D, Fm),
+              "we_up": weight(1, E, D, Fm), "we_down": weight(1, E, Fm, D)}
+    x = torch.randn((SDAR_B * SDAR_BL, D), generator=g, device=dev).to(torch.bfloat16)
+    _, topk_idx, _ = router_probs(x, blocks["router"][0], cfg.num_experts_per_tok,
+                                  cfg.norm_topk_prob)
+    pair = grouped_pair_check("sdar30b-eval cached pass", cfg, blocks, x, topk_idx, 0)
+    rows, _ = grouped_pair_timing(cfg, blocks, pair, 0, dev)
+    layout = SimpleNamespace(m=pair.m, m_pad=pair.m_pad, tile_m=pair.tile_m,
+                             experts_used=pair.used,
+                             valid_tiles=int((pair.valid != 0).sum()))
+    del pair, blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {r["name"]: dict({k: r[k] for k in ("max_abs_err", "ms", "no_skip_ms", "plain_ms",
+                                               "library_ms", "bound_ms", "bound_by",
+                                               "bound_share", "tflops")},
+                            **vars(layout)) for r in rows}
+
+
+def sdar_phase(dev):
+    """Phase 32: K12 and the block-causal flash mode at sdar30b-eval's
+    shapes against their plain versions, timed, K1 and K2 at its cached
+    pass (:func:`sdar_grouped_check`), and an sdar-tiny decode's exact
+    launches.  Returns (K12's and the flash mode's rows, {K1 / K2: their
+    row at the cached pass})."""
+    import numpy as np
+
+    from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
+    from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rope_angles
+    from ct_diffusionmodelbench_tpu_torch.models.transformer import token_positions
+    from ct_diffusionmodelbench_tpu_torch.ops import cache_attention as ca
+    from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
+
+    g = torch.Generator(device=dev).manual_seed(32)
+    B, bl, H, KV, Dh = SDAR_B, SDAR_BL, SDAR_H, SDAR_KV, SDAR_DH
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    mask, first = sdar_rows(dev, g)
+    rows = []
+    k = bf16(B, SDAR_S, KV, Dh)
+    v = bf16(B, SDAR_S, KV, Dh)
+    q = bf16(B, bl, H, Dh)
+    for n_keys in (SDAR_P + bl, SDAR_S):
+        end = torch.tensor([n_keys], dtype=torch.int32, device=dev)
+        err = compare(f"cache_attention, {n_keys} keys",
+                      ca.cache_attention(q, k, v, first, end),
+                      ca.cache_attention_plain(q, k, v, first, end), **FLASH_TOL)
+        keys = int((n_keys - first).sum())
+        flops = 4.0 * bl * keys * H * Dh
+        bound, by = bound_ms(flops, 2 * 2 * keys * KV * Dh + 2 * 2 * B * bl * H * Dh)
+        seen = (torch.arange(n_keys, device=dev)[None] >= first[:, None].long())
+        qt, kt, vt = q.transpose(1, 2), k[:, :n_keys].transpose(1, 2), v[:, :n_keys].transpose(1, 2)
+        sdpa_mask = seen[:, None, None, :]
+        t = time_turns({
+            "kernel": lambda: ca.cache_attention_cuda(q, k, v, first, end),
+            "plain": lambda: ca.cache_attention_plain(q, k, v, first, end),
+            "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True)}, iters=20)
+        rows.append(dict(name="cache_attention", keys=n_keys, max_abs_err=err, ms=t["kernel"],
+                         plain_ms=t["plain"], library_ms=t["library"], bound_ms=bound,
+                         bound_by=by, bound_share=bound / t["kernel"]))
+    cos, sin = rope_angles(token_positions(mask, B, SDAR_P, dev), Dh, 1e6)
+    qp = apply_rope(bf16(B, SDAR_P, H, Dh), cos, sin)
+    kp = apply_rope(bf16(B, SDAR_P, KV, Dh), cos, sin)
+    vp = bf16(B, SDAR_P, KV, Dh)
+    real = mask.bool()
+    got = fa.flash_attention_cuda(qp, kp, vp, mask=mask, block_len=bl)
+    want = fa.flash_attention_plain(qp, kp, vp, mask=mask, block_len=bl)
+    err = compare("flash_attention_fwd_block_causal, real rows", got[real], want[real],
+                  **FLASH_TOL)
+    if not torch.isfinite(got).all():
+        raise AssertionError("block-causal flash: a non-finite output")
+    vis = fa.block_visible(SDAR_P, SDAR_P, bl, dev)
+    pairs = int((real[:, :, None] & real[:, None, :] & vis[None]).sum())
+    flops = 4.0 * pairs * H * Dh
+    nreal = int(real.sum())
+    bound, by = bound_ms(flops, 2 * nreal * (2 * H + 2 * KV) * Dh)
+    sdpa_mask = (vis[None] & real[:, None, :])[:, None] | torch.eye(
+        SDAR_P, dtype=torch.bool, device=dev)[None, None]
+    qt, kt, vt = qp.transpose(1, 2), kp.transpose(1, 2), vp.transpose(1, 2)
+    t = time_turns({
+        "kernel": lambda: fa.flash_attention_cuda(qp, kp, vp, mask=mask, block_len=bl),
+        "plain": lambda: fa.flash_attention_plain(qp, kp, vp, mask=mask, block_len=bl),
+        "library": lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=sdpa_mask, enable_gqa=True)}, iters=5)
+    rows.append(dict(name="flash_attention_fwd_block_causal", max_abs_err=err,
+                     ms=t["kernel"], plain_ms=t["plain"], library_ms=t["library"],
+                     bound_ms=bound, bound_by=by, bound_share=bound / t["kernel"]))
+    for r in rows:
+        print(f"  {r['name']}{' ' + str(r['keys']) + ' keys' if 'keys' in r else ''}: "
+              f"{r['ms']:.4f} ms, plain {r['plain_ms']:.4f}, SDPA {r['library_ms']:.4f}, "
+              f"bound {r['bound_ms']:.4f} ({r['bound_by']}), {r['bound_share']:.4f} of "
+              f"its bound", flush=True)
+    del k, v, q, qp, kp, vp, got, want
+    grouped = sdar_grouped_check(dev, g)
+
+    runner = ModelRunner.random_init("sdar-tiny", seed=3, device=dev)
+    cfg = runner.cfg
+    ids = torch.randint(10, 400, (2, 16), generator=g, device=dev).cpu().numpy()
+    tmask = np.ones((2, 16), np.int32)
+    tmask[0, :5] = 0
+    reset_launch_counts()
+    out = runner.generate_ids(ids, attn_mask=tmask, gen_length=16, steps=16, block_length=4)
+    steps, passes = 16, 16 + 4            # a step runs the final norm, a commit not
+    blocks = cfg.num_layers * (1 + passes)
+    want = expected_launches(glue_launches(cfg, blocks, steps),
+                             cache_attention=cfg.num_layers * passes,
+                             flash_attention_fwd_block_causal=cfg.num_layers,
+                             grouped_gateup=blocks, grouped_down=blocks)
+    seen = launch_counts()
+    print(f"  sdar-tiny decode (2 rows, 4 blocks of 4 steps): launches "
+          f"{launch_counts(nonzero=True)}", flush=True)
+    if seen != want:
+        raise AssertionError(f"sdar-tiny launches {seen}, expected {want}")
+    if (out[:, 16:] == cfg.mask_token_id).any():
+        raise AssertionError("sdar-tiny: a mask id is left")
+    for r in rows:
+        r["launches"] = seen[r["name"]]
+    for name, r in grouped.items():
+        r["launches"] = seen[name]
+    del runner
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows, grouped
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -3813,7 +4001,7 @@ def main() -> int:
     from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
     from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
     from ct_diffusionmodelbench_tpu_torch.ops import (
-        flash_attention, flash_attention_bwd, glue, grouped_gemm_cuda)
+        cache_attention, flash_attention, flash_attention_bwd, glue, grouped_gemm_cuda)
     from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, build_all
 
     dev = torch.device("cuda", 0)
@@ -3822,7 +4010,8 @@ def main() -> int:
           f"{torch.cuda.get_device_name(0)}", flush=True)
     libs = [grouped_gemm_cuda.LIBRARY, grouped_gemm_cuda.LIBRARY_Q,
             grouped_gemm_cuda.LIBRARY_FUSED, flash_attention.LIBRARY,
-            flash_attention.LIBRARY_DIRECT, flash_attention_bwd.LIBRARY, glue.LIBRARY]
+            flash_attention.LIBRARY_DIRECT, flash_attention_bwd.LIBRARY, glue.LIBRARY,
+            cache_attention.LIBRARY]
     build_s = build_all(libs)
     print(f"kernel build: {build_s:.2f} s", flush=True)
     ptxas_report(libs)
@@ -4008,13 +4197,21 @@ def main() -> int:
     print("glue kernels:", flush=True)
     results += [dict(r, **glue_seen[r["name"]]) for r in glue_phase(dev)]
     print(f"  phase 31: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("SDAR kernels:", flush=True)
+    sdar, sdar_grouped = sdar_phase(dev)
+    for r in results:
+        if r["name"] in sdar_grouped:
+            r["sdar"] = sdar_grouped[r["name"]]
+    results += sdar
+    print(f"  phase 32: {time.perf_counter() - t0:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",
             "k8_ms", "dream_geometry", "dream_launches", "no_skip_ms", "valid_tiles",
             "block_cache_launches", "threshold_launches", "refresh_no_rope", "cached_step",
             "moe_training", "sharded", "sharded_training", "sequence_parallel",
-            "pipeline")
+            "pipeline", "keys", "sdar")
     print("first designs' ms (constants from PERF.md, not measured in this run): "
           + json.dumps(FIRST_DESIGN_MS), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

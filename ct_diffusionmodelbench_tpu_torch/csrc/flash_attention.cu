@@ -1,8 +1,21 @@
-// Bidirectional (non-causal) flash-attention forward with fused RoPE and GQA.
+// Bidirectional (non-causal) flash-attention forward with fused RoPE and GQA,
+// and its block-causal mode.
 //
 // Replaces (TPU): ct_diffusionmodelbench_tpu/ops/flash_attention.py
 //   flash_attention -> _run_forward -> _flash_kernel, with the optional
 //   log-sum-exp output (with_lse) that the backward reads.
+//
+// Block-causal mode (ctdb_flash_attention_fwd_block_causal; no TPU kernel:
+// the SDAR family's prefill, which the JAX package does not have): a query
+// in block i / block_len sees the keys of its own and every earlier block,
+// keys j < (i / block_len + 1) * block_len, on top of the padding bias.  A
+// compile-time specialisation (the template's BLOCK_CAUSAL), so the
+// bidirectional instantiation is the code it was.  A block stops its key
+// loop after the tile that holds the last key its last query row sees, and
+// inside that range each hidden score is set to -2e30, below the padding
+// bias's -1e30: a row whose every visible key is padding then averages V
+// over its visible keys, as the plain version does, and never over hidden
+// ones.
 //
 // What it computes, per batch b, query head h (kv head h // rep):
 //   q, k rotated by rotate-half RoPE in f32 from cos/sin [B, S, Dh/2] (each
@@ -80,6 +93,7 @@ constexpr int BKV = 64;   // keys per K / V tile
 constexpr int NWG = 3;    // consumer warpgroups per block
 constexpr int THREADS = 128 * NWG;
 constexpr float NEG_INF = -1e30f;
+constexpr float HIDDEN = -2e30f;   // a key past the query's block (block-causal)
 constexpr float LOG2E = 1.4426950408889634f;
 
 template <int DH>
@@ -211,13 +225,13 @@ __device__ __forceinline__ void load_q(unsigned char* qs, const bf16* qb, size_t
   }
 }
 
-template <int DH>
+template <int DH, bool BLOCK_CAUSAL>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
                  const bf16* __restrict__ v, const float* __restrict__ bias,
                  const float* __restrict__ cosb, const float* __restrict__ sinb,
                  bf16* __restrict__ out, float* __restrict__ lse, int S,
-                 int kv_len, int H, int KV, float scale) {
+                 int kv_len, int H, int KV, float scale, int block_len) {
   using L = Layout<DH>;
   using Tile = typename L::Tile;
   constexpr int HALF = DH / 2;
@@ -251,7 +265,15 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   unsigned char* qs = smem + L::Q + wg * Tile::BYTES;
   const uint32_t q_addr = smem_u32(qs);
 
-  const int nkt = kv_len / BKV;
+  int nkt = kv_len / BKV;
+  if constexpr (BLOCK_CAUSAL) {
+    // The block's last unit holds its latest query rows; no row of the
+    // block sees a key at or past the end of that row's block.
+    const int last = min(static_cast<int>(blockIdx.x) * NWG + NWG - 1, rep * nqt - 1);
+    const int q_last = min((last / rep) * BQ + BQ, S) - 1;
+    const int k_end = min(S, (q_last / block_len + 1) * block_len);
+    nkt = (k_end + BKV - 1) / BKV;
+  }
   issue_kv<DH>(smem + L::STAGE0, kb, vb, cb, sb, biasb, kv_stride, 0, S);
   if (active) load_q<DH>(qs, qb, q_stride, cb, sb, q0, S, wtid);
 
@@ -305,6 +327,17 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
       s[4 * i + 1] = fmaf(s[4 * i + 1], scale, bb.y);
       s[4 * i + 2] = fmaf(s[4 * i + 2], scale, bb.x);
       s[4 * i + 3] = fmaf(s[4 * i + 3], scale, bb.y);
+      if constexpr (BLOCK_CAUSAL) {
+        // Rows q0 + 16 warp + gid (+ 8) see keys below their block's end.
+        const int r0 = q0 + warp * 16 + gid;
+        const int end0 = (r0 / block_len + 1) * block_len;
+        const int end1 = ((r0 + 8) / block_len + 1) * block_len;
+        const int j = t * BKV + 8 * i + 2 * tig;
+        if (j >= end0) s[4 * i] = HIDDEN;
+        if (j + 1 >= end0) s[4 * i + 1] = HIDDEN;
+        if (j >= end1) s[4 * i + 2] = HIDDEN;
+        if (j + 1 >= end1) s[4 * i + 3] = HIDDEN;
+      }
       mx0 = fmaxf(mx0, fmaxf(s[4 * i], s[4 * i + 1]));
       mx1 = fmaxf(mx1, fmaxf(s[4 * i + 2], s[4 * i + 3]));
     }
@@ -379,21 +412,49 @@ flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
   }
 }
 
-template <int DH>
+template <int DH, bool BLOCK_CAUSAL>
 int launch(const void* q, const void* k, const void* v, const float* bias,
            const float* cosb, const float* sinb, void* out, float* lse, int B,
-           int S, int kv_len, int H, int KV, float scale, cudaStream_t stream) {
+           int S, int kv_len, int H, int KV, float scale, int block_len,
+           cudaStream_t stream) {
   constexpr int bytes = Layout<DH>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_kernel<DH>, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      flash_fwd_kernel<DH, BLOCK_CAUSAL>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      bytes);
   if (err != cudaSuccess) return static_cast<int>(err);
   const int units = (H / KV) * ((S + BQ - 1) / BQ);
   dim3 grid((units + NWG - 1) / NWG, KV, B);
-  flash_fwd_kernel<DH><<<grid, THREADS, bytes, stream>>>(
+  flash_fwd_kernel<DH, BLOCK_CAUSAL><<<grid, THREADS, bytes, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k),
       static_cast<const bf16*>(v), bias, cosb, sinb, static_cast<bf16*>(out),
-      lse, S, kv_len, H, KV, scale);
+      lse, S, kv_len, H, KV, scale, block_len);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <bool BLOCK_CAUSAL>
+int dispatch(const void* q, const void* k, const void* v, const float* bias,
+             const float* cosb, const float* sinb, void* out, float* lse, int B, int S,
+             int kv_len, int H, int KV, int head_dim, float scale, int block_len,
+             void* stream) {
+  if (S < 1 || kv_len < S || kv_len % BKV != 0 || KV < 1 || H % KV != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (head_dim) {
+    case 16:
+      return launch<16, BLOCK_CAUSAL>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len,
+                                      H, KV, scale, block_len, st);
+    case 32:
+      return launch<32, BLOCK_CAUSAL>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len,
+                                      H, KV, scale, block_len, st);
+    case 64:
+      return launch<64, BLOCK_CAUSAL>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len,
+                                      H, KV, scale, block_len, st);
+    case 128:
+      return launch<128, BLOCK_CAUSAL>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len,
+                                       H, KV, scale, block_len, st);
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
 }
 
 }  // namespace
@@ -409,25 +470,21 @@ int ctdb_flash_attention_fwd(const void* q, const void* k, const void* v,
                              const float* sinb, void* out, float* lse, int B,
                              int S, int kv_len, int H, int KV, int head_dim,
                              float scale, void* stream) {
-  if (S < 1 || kv_len < S || kv_len % BKV != 0 || KV < 1 || H % KV != 0)
-    return static_cast<int>(cudaErrorInvalidValue);
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (head_dim) {
-    case 16:
-      return launch<16>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
-                        scale, st);
-    case 32:
-      return launch<32>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
-                        scale, st);
-    case 64:
-      return launch<64>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
-                        scale, st);
-    case 128:
-      return launch<128>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
-                         scale, st);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  return dispatch<false>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
+                         head_dim, scale, 0, stream);
+}
+
+// As ctdb_flash_attention_fwd, block-causal over blocks of block_len >= 1
+// positions: query i sees keys j < (i / block_len + 1) * block_len.
+int ctdb_flash_attention_fwd_block_causal(const void* q, const void* k, const void* v,
+                                          const float* bias, const float* cosb,
+                                          const float* sinb, void* out, float* lse,
+                                          int B, int S, int kv_len, int H, int KV,
+                                          int head_dim, float scale, int block_len,
+                                          void* stream) {
+  if (block_len < 1) return static_cast<int>(cudaErrorInvalidValue);
+  return dispatch<true>(q, k, v, bias, cosb, sinb, out, lse, B, S, kv_len, H, KV,
+                        head_dim, scale, block_len, stream);
 }
 
 }  // extern "C"

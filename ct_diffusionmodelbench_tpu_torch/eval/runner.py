@@ -3,7 +3,9 @@
 Counterpart of ``eval/runner.py``.  Family dispatch: ``llada`` /
 ``llada-moe`` take the exact block-diffusion sampler (``sampling/llada.py``),
 ``dream`` / ``diffucoder`` the ``diffusion_generate`` equivalent
-(``sampling/dream.py``); prompt ids in, token ids out.  ``generate`` and
+(``sampling/dream.py``), ``sdar`` (port only) the block sampler over an
+exact KV cache (``sampling/sdar.py``) through :attr:`ModelRunner.block_fns`;
+prompt ids in, token ids out.  ``generate`` and
 ``generate_batch`` add tokenization, prompt buckets with left padding, EOS
 truncation and the families' text split: at ``eos_token`` (dream) or at
 ``<|dlm_pad|>`` (diffucoder).
@@ -55,6 +57,7 @@ from ct_diffusionmodelbench_tpu_torch.io.checkpoint import (
 from ct_diffusionmodelbench_tpu_torch.io.tokenizer import Tokenizer, resolve_mask_id
 from ct_diffusionmodelbench_tpu_torch.models.block_cache import make_cached_fns
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig, get_config
+from ct_diffusionmodelbench_tpu_torch.models.sdar_cache import make_sdar_fns
 from ct_diffusionmodelbench_tpu_torch.models.transformer import (
     init_params, make_forward_fn)
 from ct_diffusionmodelbench_tpu_torch.ops.quant import (
@@ -65,10 +68,12 @@ from ct_diffusionmodelbench_tpu_torch.parallel.mesh import (
 from ct_diffusionmodelbench_tpu_torch.parallel.sharding import (
     init_sharded_params, shard_params)
 from ct_diffusionmodelbench_tpu_torch.sampling import dream_generate, llada_generate
+from ct_diffusionmodelbench_tpu_torch.sampling.sdar import sdar_generate
 from ct_diffusionmodelbench_tpu_torch.utils.profiling import count, span
 
 LLADA_FAMILIES = ("llada", "llada-moe")
 DREAM_FAMILIES = ("dream", "diffucoder")
+SDAR_FAMILIES = ("sdar",)
 
 
 def infer_family(cfg: ModelConfig) -> str:
@@ -118,9 +123,20 @@ class ModelRunner:
         self.cfg = cfg
         self.tokenizer = tokenizer
         self.family = family or infer_family(cfg)
-        if self.family not in LLADA_FAMILIES + DREAM_FAMILIES:
+        if self.family not in LLADA_FAMILIES + DREAM_FAMILIES + SDAR_FAMILIES:
             raise ValueError(f"unknown sampler family {self.family!r}")
+        if self.family in SDAR_FAMILIES and (mesh is not None or quant is not None):
+            raise NotImplementedError("the SDAR family decodes on one card in its "
+                                      "configured dtype: drop --dp/--tp and quant")
         self.mesh = mesh
+        self.block_fns = make_sdar_fns(cfg) if self.family in SDAR_FAMILIES else None
+        """The SDAR sampler's model functions, ``(prefill_fn, step_fn,
+        commit_fn)`` of ``models/sdar_cache.py``; None for the other
+        families.  The sampler calls the model through this attribute
+        alone, which makes it the benchmark's seam for the SDAR family
+        (``portbench/drivers/sdar_decode.py`` records each step's state
+        there), as ``forward_fn`` and ``cached_fns`` are for the LLaDA
+        families."""
         # accel="block-cache": the dual KV-cache decode, LLaDA families only.
         self.cached_fns = None
         if accel is not None:
@@ -231,7 +247,7 @@ class ModelRunner:
     # -- generation ----------------------------------------------------
 
     def generate_ids(self, prompt_ids, *, gen_length: int = 128,
-                     steps: int = 128, block_length: int = 32,
+                     steps: int = 128, block_length: Optional[int] = None,
                      temperature: float = 0.0, cfg_scale: float = 0.0,
                      remasking: str = "low_confidence", avoid_eos: bool = False,
                      top_p: Optional[float] = 0.95, alg: str = "entropy",
@@ -240,9 +256,12 @@ class ModelRunner:
                      parallel_threshold: Optional[float] = None, seed: int = 0,
                      attn_mask=None) -> np.ndarray:
         """prompt ids [P] or [B, P] → [B, P + gen_length] token ids.  The
-        LLaDA families read ``block_length``, ``cfg_scale``, ``remasking``
-        and ``avoid_eos``; Dream/DiffuCoder read ``top_p``, ``alg``,
-        ``alg_temp``, ``exact`` and ``batch_mean_counts``."""
+        LLaDA families read ``block_length`` (None: 32), ``cfg_scale``,
+        ``remasking`` and ``avoid_eos``; Dream/DiffuCoder read ``top_p``,
+        ``alg``, ``alg_temp``, ``exact`` and ``batch_mean_counts``; SDAR
+        reads ``remasking`` and ``avoid_eos``, and decodes in the model's
+        own blocks (``cfg.block_length``, which its attention is built
+        on): a ``block_length`` that differs from it is refused."""
         with span("runner.generate"):
             prompt = torch.as_tensor(np.asarray(prompt_ids), dtype=torch.long)
             if prompt.ndim == 1:
@@ -284,10 +303,26 @@ class ModelRunner:
         gen = torch.Generator(device=self.device)
         gen.manual_seed(seed)
         with span("sampler.decode"):
-            if self.family in LLADA_FAMILIES:
+            if self.family in SDAR_FAMILIES:
+                if threshold is not None:
+                    raise NotImplementedError(
+                        "--parallel-threshold is a LLaDA-family decode; SDAR decodes "
+                        "each block in a fixed number of steps")
+                if block_length not in (None, self.cfg.block_length):
+                    raise ValueError(
+                        f"block_length {block_length}: {self.cfg.name} attends in "
+                        f"blocks of {self.cfg.block_length}, and decodes in those")
+                out = sdar_generate(
+                    self.block_fns, self.params, prompt, gen_length=gen_length,
+                    block_length=self.cfg.block_length, steps=steps, mask_id=self.mask_id,
+                    temperature=temperature, remasking=remasking, avoid_eos=avoid_eos,
+                    eos_token_id=self.eos_token_id, attn_mask=attn_mask,
+                    generator=gen, device=self.device)
+            elif self.family in LLADA_FAMILIES:
                 out = llada_generate(
                     self.forward_fn, self.params, prompt, steps=steps,
-                    gen_length=gen_length, block_length=block_length,
+                    gen_length=gen_length,
+                    block_length=32 if block_length is None else block_length,
                     temperature=temperature, cfg_scale=cfg_scale,
                     remasking=remasking, mask_id=self.mask_id, avoid_eos=avoid_eos,
                     eos_token_id=self.eos_token_id,

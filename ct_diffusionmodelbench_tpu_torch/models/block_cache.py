@@ -53,6 +53,9 @@ def _check_supported(cfg: ModelConfig) -> None:
     if cfg.causal:
         raise NotImplementedError("block-cache decode is for diffusion "
                                   "(bidirectional) models only")
+    if cfg.block_length:
+        raise NotImplementedError("block-causal models (SDAR) keep an exact cache "
+                                  "of their own: models/sdar_cache.py")
 
 
 def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:

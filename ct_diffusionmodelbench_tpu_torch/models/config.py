@@ -8,11 +8,19 @@ One config-driven module family covers every checkpoint the reference loads
 - ``Dream-org/Dream-Coder-v0-7B``     — Qwen2.5-derived (GQA + QKV bias),
                                         bidirectional, *shifted* logits.
 - ``apple/DiffuCoder-7B-Instruct``    — Qwen2.5-derived like Dream.
+- ``JetLM/SDAR-30B-A3B-Chat``         — Qwen3-MoE (128 experts top-8, no
+                                        shared expert, qk-norm), decoded by
+                                        block diffusion: block-causal
+                                        attention over an exact KV cache
+                                        (port only: the JAX package has no
+                                        such family).
 
 PyTorch port's own copy of ``ct_diffusionmodelbench_tpu/models/config.py``
 (the port imports nothing of the JAX package).  Fields, presets and the
 analytic counts are kept identical to the JAX module, which the port's tests
-check field by field.  Real checkpoints carry their own ``config.json``,
+check field by field, but for what the SDAR family adds: the
+``block_length`` field (0 for every other family) and the ``sdar-*``
+presets.  Real checkpoints carry their own ``config.json``,
 parsed by :func:`config_from_hf`; preset dims only matter when initializing
 from scratch.
 """
@@ -51,6 +59,7 @@ class ModelConfig:
                                       # models are always bidirectional)
     family: str = ""                  # explicit sampler-family dispatch:
                                       # llada | llada-moe | dream | diffucoder
+                                      # | sdar
                                       # ("" = infer from is_moe/logit_shift —
                                       # the dream-vs-diffucoder split then
                                       # falls back to a name heuristic)
@@ -69,6 +78,9 @@ class ModelConfig:
     # Compute policy
     dtype: str = "bfloat16"           # parameter/activation dtype
     attn_impl: str = "auto"           # auto | flash | reference
+    block_length: int = 0             # sdar: attention is block-causal over
+                                      # blocks of this many positions (0:
+                                      # every other family, bidirectional)
 
     @property
     def is_moe(self) -> bool:
@@ -238,6 +250,35 @@ _register(ModelConfig(
     rope_theta=10000.0, mask_token_id=500, eos_token_id=2, max_seq_len=512,
 ))
 
+SDAR_BLOCK_LENGTH = 4   # SDAR's inference block length; config.json gives none
+
+# JetLM/SDAR-30B-A3B-Chat (config.json: model_type sdar_moe): a Qwen3-MoE
+# decoder, 48 layers, D 2048, 32 query / 4 kv heads of 128 with per-head
+# RMSNorm on q and k, 128 routed experts top-8 of width 768 with
+# norm_topk_prob and no shared expert, vocab 151936, untied head, theta 1e6.
+# The config gives no block length: 4 is SDAR's own inference setting.  The
+# mask id is SDAR's added <|MASK|> token, the EOS Qwen3's <|im_end|>.
+_register(ModelConfig(
+    name="sdar-30b-a3b", family="sdar",
+    vocab_size=151936, hidden_size=2048, num_layers=48, num_heads=32,
+    num_kv_heads=4, head_dim=128, intermediate_size=6144,
+    num_experts=128, num_experts_per_tok=8, moe_intermediate_size=768,
+    num_shared_experts=0, norm_eps=1e-6, rope_theta=1000000.0,
+    max_seq_len=32768, qk_norm=True, block_length=SDAR_BLOCK_LENGTH,
+    mask_token_id=151669, eos_token_id=151645,
+))
+_register(ModelConfig(
+    name="sdar-tiny", family="sdar",
+    vocab_size=512, hidden_size=64, num_layers=2, num_heads=4,
+    num_kv_heads=2, head_dim=16, intermediate_size=128,
+    num_experts=8, num_experts_per_tok=2, moe_intermediate_size=32,
+    num_shared_experts=0, norm_eps=1e-6, qk_norm=True, block_length=SDAR_BLOCK_LENGTH,
+    rope_theta=10000.0, mask_token_id=500, eos_token_id=2, max_seq_len=512,
+))
+
+# The presets that only the port has (the JAX package has no SDAR family).
+PORT_ONLY_PRESETS = ("sdar-30b-a3b", "sdar-tiny")
+
 
 def get_config(name: str, **overrides) -> ModelConfig:
     if name not in PRESETS:
@@ -257,6 +298,9 @@ def config_from_hf(config: dict[str, Any] | str | Path, name: str = "") -> Model
     reference loads (SURVEY.md §2.5): LLaMA/LLaDA-style keys
     (``num_hidden_layers``, ``num_attention_heads``, ...), Qwen2/Dream keys,
     and Bailing/LLaDA-MoE keys (``num_experts``, ``moe_intermediate_size``).
+    ``model_type`` ``sdar_moe`` (SDAR, Qwen3-MoE keys) gives family ``sdar``:
+    qk-norm on (Qwen3's, which no key names), no shared expert (the config
+    has none), and ``block_length`` from the config or SDAR's 4.
     """
     if not isinstance(config, dict):
         with open(config) as f:
@@ -274,9 +318,12 @@ def config_from_hf(config: dict[str, Any] | str | Path, name: str = "") -> Model
     model_type = str(pick("model_type", default="")).lower()
     logit_shift = model_type in ("dream", "diffucoder") or bool(pick("logit_shift", default=False))
     n_experts = pick("num_experts", "n_routed_experts", default=0) or 0
+    sdar = model_type.startswith("sdar")
     # Explicit family dispatch from model_type (falls back to "" → the
     # is_moe/logit_shift inference in eval/runner.py::infer_family).
-    if "diffucoder" in model_type:
+    if sdar:
+        family = "sdar"
+    elif "diffucoder" in model_type:
         family = "diffucoder"
     elif "dream" in model_type:
         family = "dream"
@@ -301,7 +348,8 @@ def config_from_hf(config: dict[str, Any] | str | Path, name: str = "") -> Model
         max_seq_len=pick("max_position_embeddings", "max_sequence_length", default=4096),
         attention_bias=bool(pick("attention_bias", "qkv_bias", "use_bias",
                                  default=model_type in ("dream", "qwen2", "diffucoder"))),
-        qk_norm=bool(pick("use_qk_norm", "qk_layernorm", "use_qkv_norm", default=False)),
+        qk_norm=sdar or bool(pick("use_qk_norm", "qk_layernorm", "use_qkv_norm",
+                                  default=False)),
         tie_embeddings=bool(pick("tie_word_embeddings", "weight_tying", default=False)),
         logit_shift=logit_shift,
         family=family,
@@ -313,6 +361,7 @@ def config_from_hf(config: dict[str, Any] | str | Path, name: str = "") -> Model
         mask_token_id=pick("mask_token_id"),
         eos_token_id=_scalar(pick("eos_token_id")),
         pad_token_id=_scalar(pick("pad_token_id")),
+        block_length=int(pick("block_length", default=SDAR_BLOCK_LENGTH)) if sdar else 0,
     )
 
 

@@ -1,0 +1,269 @@
+"""The SDAR family's exact prefix KV cache: prefill, cached step, commit.
+
+SDAR decodes by blocks: attention is block-causal (``models/transformer.py``),
+so a position's keys and values depend only on its own block and the
+blocks before it.  Once the prompt and the blocks generated so far are
+final, their K and V are final too, and a cache of them is exact (unlike
+the LLaDA families' dual cache, ``models/block_cache.py``, an
+approximation):
+
+- :func:`forward_prefill`: the padded prompt's block-causal forward (the
+  flash kernel's block-causal mode on the card), writing every layer's
+  rotated K and V into a preallocated :class:`SdarCache` ``[L, B, S, KV,
+  Dh]`` of the whole sequence; no LM head.
+- :func:`forward_block`: a block of ``bl`` tokens at ``start``, each
+  layer's rotated K and V written into the cache's slots of the block,
+  then its queries against keys ``key_start[b] .. start + bl - 1`` (the
+  row's real prompt, the committed blocks and the block itself) through K12
+  (``ops/cache_attention.py``).  As a denoising step it returns the block's
+  f32 logits; as the commit (SDAR's store pass over the finished block) it
+  stops before the head, leaving the block's final K and V in the cache.
+  The commit is a pass of its own: each step wrote K and V of a state that
+  still held masks.
+
+The passes are built from ``models/transformer.py``'s helpers (embedding,
+projections, qk-norm, the FFN with the whole expert stacks and the layer
+id, the LM head), so they and the full forward cannot drift apart.
+Positions restart at each row's first real token; a generated position i
+sits at ``i - key_start``, the row's real prompt length plus ``i - P``.
+
+A block pass reads its start from the device (``SdarCache.start``, set by
+one fill before the pass): the cache writes go through ``index_copy_`` and
+K12 reads its key end from memory, so one recording of a pass serves
+every block.  On the card :func:`make_sdar_fns` runs a step or commit
+eagerly the first time it meets a cache buffer, then records it as a CUDA
+graph (:class:`GraphedPass`) and replays that: a pass launches some 5,800
+kernels (48 layers of norms, projections, rotation, routing, the expert
+kernels, the combine), and launched one by one from Python they took the
+host ≈ 110 ms a pass against ≈ 37 ms of device work.  The cache's buffers
+are kept per batch shape and reused by every batch of that shape, so the
+recordings are too.
+
+With the tracer on (``utils/profiling.py``), every pass is a
+``model.forward`` span counted by ``count_pass`` (``model.attn`` and
+``model.ffn`` a layer and ``model.head`` in a step where the pass runs
+eagerly: the prefill, and a step or commit recorded as a graph only in
+its eager and recorded runs); a step or commit also counts, summed over
+rows, the keys its attention reads (``cache.keys``), its query positions
+(``cache.queries``) and the query-key pairs (``cache.pairs``), host ints
+known from the positions.  A graph's replay adds the kernel launches its
+recording made to the launch counters (``ops/cuda_build.py``), so they
+count the kernels that ran.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass
+from typing import Callable, Dict, Optional
+
+import torch
+
+from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
+from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rms_norm, rope_angles
+from ct_diffusionmodelbench_tpu_torch.models.transformer import (
+    _attn_project, _ffn_block, _project, count_pass, embed_tokens, lm_head_logits,
+    split_layers, token_positions)
+from ct_diffusionmodelbench_tpu_torch.ops.attention import attention
+from ct_diffusionmodelbench_tpu_torch.ops.cache_attention import cache_attention
+from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS
+from ct_diffusionmodelbench_tpu_torch.utils.profiling import count, span
+
+
+@dataclass
+class SdarCache:
+    """Every layer's rotated K and V of one batch, ``[L, B, S, KV, Dh]``,
+    valid up to the last committed position; on the device ``key_start``
+    int32 [B], each row's first real key, and ``start`` int32 [1], the
+    block the next pass runs; on the host ``prompt_len``, the padded
+    prompt's length, and ``real_keys``, the batch's real prompt tokens."""
+    k: torch.Tensor
+    v: torch.Tensor
+    key_start: torch.Tensor
+    start: torch.Tensor
+    prompt_len: int = 0
+    real_keys: int = 0
+
+
+def new_cache(cfg: ModelConfig, batch: int, total_len: int, dtype, device) -> SdarCache:
+    shape = (cfg.num_layers, batch, total_len, cfg.num_kv_heads, cfg.head_dim)
+    return SdarCache(k=torch.empty(shape, dtype=dtype, device=device),
+                     v=torch.empty(shape, dtype=dtype, device=device),
+                     key_start=torch.zeros((batch,), dtype=torch.int32, device=device),
+                     start=torch.zeros((1,), dtype=torch.int32, device=device))
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if not cfg.block_length:
+        raise NotImplementedError("the exact block cache needs a block-causal model "
+                                  "(cfg.block_length > 0, the SDAR family)")
+    if cfg.logit_shift or cfg.causal:
+        raise NotImplementedError("SDAR's cache takes unshifted, block-causal models")
+
+
+def forward_prefill(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
+                    attn_mask: Optional[torch.Tensor], cache: SdarCache,
+                    real_keys: int) -> SdarCache:
+    """The prompt's block-causal forward into ``cache``: its first ``P``
+    positions get the prompt's rotated K and V.  ``real_keys``: the real
+    tokens of ``attn_mask`` (a host int)."""
+    B, P = input_ids.shape
+    H, Dh = cfg.num_heads, cfg.head_dim
+    with span("model.embed"):
+        x = embed_tokens(params, input_ids)
+        cos, sin = rope_angles(token_positions(attn_mask, B, P, x.device), Dh,
+                               cfg.rope_theta)
+        if attn_mask is None:
+            cache.key_start.zero_()
+        else:
+            cache.key_start.copy_(P - attn_mask.to(torch.int32).sum(dim=-1, dtype=torch.int32))
+    cache.prompt_len, cache.real_keys = P, real_keys
+    layers, stacks = split_layers(cfg, params)
+    for li, lp in enumerate(layers):
+        with span("model.attn"):
+            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            q, k, v = _attn_project(cfg, h, lp)
+            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+            cache.k[li, :, :P] = k
+            cache.v[li, :, :P] = v
+            out = attention(q, k, v, mask=attn_mask, impl=cfg.attn_impl,
+                            block_len=cfg.block_length)
+            x = x + _project(out.reshape(B, P, H * Dh), lp["wo"])
+        with span("model.ffn"):
+            ffn, _ = _ffn_block(cfg, x, lp, stacks, li)
+            x = x + ffn
+    return cache
+
+
+def forward_block(cfg: ModelConfig, params: dict, block_ids: torch.Tensor,
+                  cache: SdarCache, logits: bool = True) -> Optional[torch.Tensor]:
+    """The block ``block_ids`` [B, bl] at positions ``cache.start ..
+    cache.start + bl`` against the cache, its K and V written into the
+    cache: the block's logits [B, bl, V] f32, or None (the commit) without
+    ``logits``.  Reads nothing on the host."""
+    B, bl = block_ids.shape
+    H, Dh = cfg.num_heads, cfg.head_dim
+    with span("model.embed"):
+        x = embed_tokens(params, block_ids)
+        slots = cache.start + torch.arange(bl, dtype=torch.int32, device=x.device)
+        cos, sin = rope_angles(slots[None] - cache.key_start[:, None], Dh, cfg.rope_theta)
+        slots = slots.long()
+        key_end = cache.start + bl
+    layers, stacks = split_layers(cfg, params)
+    for li, lp in enumerate(layers):
+        with span("model.attn"):
+            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            q, k, v = _attn_project(cfg, h, lp)
+            q = apply_rope(q, cos, sin)
+            cache.k[li].index_copy_(1, slots, apply_rope(k, cos, sin))
+            cache.v[li].index_copy_(1, slots, v)
+            out = cache_attention(q, cache.k[li], cache.v[li], cache.key_start, key_end)
+            x = x + _project(out.reshape(B, bl, H * Dh), lp["wo"])
+        with span("model.ffn"):
+            ffn, _ = _ffn_block(cfg, x, lp, stacks, li)
+            x = x + ffn
+    if not logits:
+        return None
+    with span("model.head"):
+        return lm_head_logits(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+
+
+def count_keys(cache: SdarCache, batch: int, bl: int, start: int) -> None:
+    """The tracer's cache counters of one pass over a block at ``start``:
+    the keys its attention reads summed over rows, the query positions, and
+    the query-key pairs."""
+    keys = batch * (start + bl) - (batch * cache.prompt_len - cache.real_keys)
+    count("cache.keys", keys)
+    count("cache.queries", batch * bl)
+    count("cache.pairs", bl * keys)
+
+
+class GraphedPass:
+    """One pass kind over one cache buffer on the card: run eagerly on its
+    first call, recorded as a CUDA graph on its second (static block ids in,
+    the pass's output tensor out) and replayed from then on.  The output of
+    a replay is overwritten by the next one.  A replay adds the kernel
+    launches the recording made to the launch counters."""
+
+    def __init__(self, fn: Callable[[torch.Tensor], Optional[torch.Tensor]]):
+        self.fn = fn
+        self.calls = 0
+        self.graph = None
+
+    def __call__(self, block_ids: torch.Tensor) -> Optional[torch.Tensor]:
+        if self.graph is None:
+            self.calls += 1
+            if self.calls == 1:
+                return self.fn(block_ids)
+            self._record(block_ids)
+        self.ids.copy_(block_ids)
+        self.graph.replay()
+        for name, n in self.launches.items():
+            KERNELS[name].launches += n
+        return self.out
+
+    def _record(self, block_ids: torch.Tensor) -> None:
+        self.ids = block_ids.clone()
+        before = {name: k.launches for name, k in KERNELS.items()}
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            self.out = self.fn(self.ids)
+        # The recording launched nothing: its calls are counted per replay.
+        self.launches = {name: k.launches - before.get(name, 0)
+                         for name, k in KERNELS.items() if k.launches != before.get(name, 0)}
+        for name, k in KERNELS.items():
+            k.launches = before.get(name, 0)
+        self.graph = graph
+
+
+def make_sdar_fns(cfg: ModelConfig):
+    """``(prefill_fn, step_fn, commit_fn)`` for ``sampling/sdar.py``:
+
+    - ``prefill_fn(params, ids, attn_mask, total_len, real_keys)`` → a
+      :class:`SdarCache` of ``total_len`` positions holding the prompt;
+    - ``step_fn(params, cache, block_ids, start)`` → the block's logits (on
+      the card, overwritten by the next step);
+    - ``commit_fn(params, cache, block_ids, start)``: the finished block's
+      K and V into the cache.
+
+    The functions keep one cache a batch shape, which every batch of that
+    shape reuses; on the card the steps and commits over it run as
+    :class:`GraphedPass` es (one per pass kind, cache and weights)."""
+    _check_supported(cfg)
+    caches: Dict[tuple, SdarCache] = {}
+    passes: Dict[tuple, GraphedPass] = {}
+
+    @torch.inference_mode()
+    def prefill_fn(params, ids, attn_mask, total_len, real_keys):
+        with span("model.forward"):
+            count_pass(ids)
+            dtype, dev = params["embed"].dtype, ids.device
+            key = (ids.shape[0], total_len, dtype, dev)
+            if key not in caches:
+                caches[key] = new_cache(cfg, ids.shape[0], total_len, dtype, dev)
+            return forward_prefill(cfg, params, ids, attn_mask, caches[key], real_keys)
+
+    def run_pass(params, cache, block_ids, start, logits):
+        cache.start.fill_(start)
+        if not block_ids.is_cuda:
+            return forward_block(cfg, params, block_ids, cache, logits)
+        key = (logits, cache.k.data_ptr(), params["embed"].data_ptr(), *block_ids.shape)
+        if key not in passes:
+            passes[key] = GraphedPass(
+                lambda ids: forward_block(cfg, params, ids, cache, logits))
+        return passes[key](block_ids)
+
+    @torch.inference_mode()
+    def step_fn(params, cache, block_ids, start):
+        with span("model.forward"):
+            count_pass(block_ids)
+            count_keys(cache, block_ids.shape[0], block_ids.shape[1], start)
+            return run_pass(params, cache, block_ids, start, True)
+
+    @torch.inference_mode()
+    def commit_fn(params, cache, block_ids, start):
+        with span("model.forward"):
+            count_pass(block_ids)
+            count_keys(cache, block_ids.shape[0], block_ids.shape[1], start)
+            run_pass(params, cache, block_ids, start, False)
+
+    return prefill_fn, step_fn, commit_fn

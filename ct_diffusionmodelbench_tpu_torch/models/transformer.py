@@ -31,6 +31,16 @@ entry point is a ``model.forward`` span with its counters
 ``model.ffn`` (``ffn_norm`` through the FFN's add) a layer, and
 ``model.head`` (final norm, slice, LM head).
 
+The SDAR family (``cfg.block_length`` > 0) runs the same blocks with
+block-causal attention (``ops/attention.py``): blocks of ``block_length``
+positions from the first position of the padded row, so under the
+runner's left padding a generated block starts right after the prompt when
+the padded prompt length is a multiple of the block length (the SDAR
+sampler pads it so); positions restart at each row's first real token and
+pad keys are never seen; logits are unshifted (position i predicts token
+i).  Its cached decode is ``models/sdar_cache.py``, built from the helpers
+here.
+
 Under a ``parallel/`` mesh whose model axis is above 1 the forward takes
 this rank's shard of the parameters (``parallel/sharding.py``): a
 vocab-parallel embedding (each rank looks up the ids of its vocabulary
@@ -333,13 +343,15 @@ def _block_forward(cfg: ModelConfig, x, lp, cos, sin, mask, moe_stacks=None,
         if plan is not None and plan.attn:
             q, k, v = _attn_project(cfg, copy_to_model(h), lp, plan.tp)
             attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
-                                 causal=cfg.causal, rope=(cos, sin))
+                                 causal=cfg.causal, rope=(cos, sin),
+                                 block_len=cfg.block_length)
             o = qdot(attn_out.reshape(B, S, -1), lp["wo"])
             x = x + reduce_from_model(o).to(x.dtype)
         else:
             q, k, v = _attn_project(cfg, h, lp)
             attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
-                                 causal=cfg.causal, rope=(cos, sin))
+                                 causal=cfg.causal, rope=(cos, sin),
+                                 block_len=cfg.block_length)
             x = x + _project(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim),
                              lp["wo"])
     with span("model.ffn"):

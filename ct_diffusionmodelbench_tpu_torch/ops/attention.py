@@ -7,6 +7,10 @@ q [B, S, H, Dh], k/v [B, S, KV, Dh]; ``mask`` [B, S] with 1 = real token.
 Dispatch: ``causal`` always takes the reference; otherwise ``impl="auto"``
 takes the flash kernel on a CUDA tensor at every shape and the reference on
 the CPU.  ``impl="flash"`` forces the flash path (its plain version on CPU).
+``block_len`` > 0 (the SDAR family) makes it block-causal: query i sees the
+keys of its own block and every earlier one, blocks of ``block_len``
+positions from the first (padded) position; the flash path then launches
+the flash kernel's block-causal mode.  A split sequence refuses it.
 
 Under a ``parallel/`` mesh whose scope holds the whole sequence the
 dispatch is the same: attention is head- and row-local, so the kernel runs
@@ -48,8 +52,10 @@ def _repeat_kv(x: torch.Tensor, n_rep: int) -> torch.Tensor:
 
 def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         mask: Optional[torch.Tensor] = None,
-                        causal: bool = False) -> torch.Tensor:
-    """Softmax attention in f32, output in q.dtype."""
+                        causal: bool = False, block_len: int = 0) -> torch.Tensor:
+    """Softmax attention in f32, output in q.dtype; block-causal over
+    ``block_len`` positions where it is above 0 (a hidden key scores
+    2 · NEG_INF, below a padding key, as the flash kernel's mode)."""
     n_rep = q.shape[2] // k.shape[2]
     k = _repeat_kv(k, n_rep)
     v = _repeat_kv(v, n_rep)
@@ -62,6 +68,11 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         s = q.shape[1]
         tri = torch.tril(torch.ones((s, s), dtype=torch.bool, device=q.device))
         logits = torch.where(tri[None, None], logits, NEG_INF)
+    if block_len:
+        from ct_diffusionmodelbench_tpu_torch.ops.flash_attention import block_visible
+
+        seen = block_visible(q.shape[1], k.shape[1], block_len, q.device)
+        logits = torch.where(seen[None, None], logits, 2 * NEG_INF)
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhqk,bkhd->bqhd", probs.to(v.dtype).float(), v.float())
     return out.to(q.dtype)
@@ -70,16 +81,22 @@ def attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
               mask: Optional[torch.Tensor] = None, impl: str = "auto",
               causal: bool = False,
-              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+              rope: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              block_len: int = 0) -> torch.Tensor:
     """``rope=(cos, sin)``: q/k arrive unrotated; the flash path rotates
-    inside the kernel, the reference path and the ring rotate first."""
+    inside the kernel, the reference path and the ring rotate first.
+    ``block_len`` > 0: block-causal attention."""
     scope = current_scope()
     if scope is not None and scope.positions is not None:
+        if block_len:
+            raise NotImplementedError("block-causal attention over a split sequence")
         return _seq_split_attention(q, k, v, mask, impl, causal, rope, scope)
     if causal:
         impl = "reference"
     elif impl == "auto":
         impl = "flash" if q.is_cuda else "reference"
+    if impl == "flash" and block_len:
+        return flash_attention(q, k, v, mask=mask, rope=rope, block_len=block_len)
     if impl == "flash":
         return flash_attention(q, k, v, mask=mask, rope=rope)
     if impl == "reference":
@@ -90,7 +107,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
             q = apply_rope(q, rope[0], rope[1])
             k = apply_rope(k, rope[0], rope[1])
-        return attention_reference(q, k, v, mask=mask, causal=causal)
+        return attention_reference(q, k, v, mask=mask, causal=causal,
+                                   block_len=block_len)
     raise ValueError(f"unknown attention impl {impl!r}")
 
 

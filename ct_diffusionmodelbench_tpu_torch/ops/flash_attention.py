@@ -1,5 +1,5 @@
 """Bidirectional flash attention: the CUDA kernel, its plain version and
-the autograd wrapper.
+the autograd wrapper; and the kernel's block-causal mode.
 
 Counterpart of ``ops/flash_attention.py::flash_attention``.  Two kernels
 compute the same function: ``csrc/flash_attention.cu`` (online softmax over
@@ -26,6 +26,16 @@ run in f32; probabilities are cast to the value dtype for P·V; query head h
 reads kv head h // rep; the [B, S] mask becomes an additive −1e30 bias; keys
 are padded to the reference's kv tile (``_tiles``) as zero keys with bias
 −1e30, which only matters for a row whose every key is masked.
+
+``block_len`` > 0 (the SDAR family's prefill; no TPU kernel): attention is
+block-causal, query i sees keys j < (i // block_len + 1) · block_len, on
+top of the mask.  On the card that is ``csrc/flash_attention.cu``'s
+block-causal instantiation (``ctdb_flash_attention_fwd_block_causal``,
+launch counter ``flash_attention_fwd_block_causal``), whatever
+``CTDB_FLASH_DIRECT`` says; the plain version gives a hidden key the
+score −2e30, below the mask's −1e30, as the kernel does, so a row whose
+every visible key is padding averages V over its visible keys only.
+Forward only: it has no backward.
 """
 
 from __future__ import annotations
@@ -39,6 +49,7 @@ from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import (
     FLOAT, INT, PTR, Kernel, Library)
 
 NEG_INF = -1e30
+HIDDEN = -2e30   # a key past the query's block, in the block-causal mode
 TILE_K = 512  # the reference's default kv tile (ops/flash_attention.py)
 HEAD_DIMS = (16, 32, 64, 128)
 
@@ -48,6 +59,9 @@ FLASH_KERNEL = Kernel("flash_attention_fwd", LIBRARY, "ctdb_flash_attention_fwd"
 LIBRARY_DIRECT = Library("flash_attention_direct.cu")
 DIRECT_KERNEL = Kernel("flash_attention_direct", LIBRARY_DIRECT,
                        "ctdb_flash_attention_direct", [PTR] * 8 + [INT] * 6 + [FLOAT, PTR])
+BLOCK_CAUSAL_KERNEL = Kernel("flash_attention_fwd_block_causal", LIBRARY,
+                             "ctdb_flash_attention_fwd_block_causal",
+                             [PTR] * 8 + [INT] * 6 + [FLOAT, INT, PTR])
 
 Rope = Optional[Tuple[torch.Tensor, torch.Tensor]]
 
@@ -83,11 +97,19 @@ def mask_bias(mask: Optional[torch.Tensor], b: int, s: int,
     return torch.where(mask > 0, 0.0, NEG_INF).to(torch.float32).contiguous()
 
 
+def block_visible(s: int, sk: int, block_len: int, device) -> torch.Tensor:
+    """bool [s, sk]: query i sees key j, block-causally over blocks of
+    ``block_len`` positions (j < (i // block_len + 1) · block_len)."""
+    end = (torch.arange(s, device=device) // block_len + 1) * block_len
+    return torch.arange(sk, device=device)[None, :] < end[:, None]
+
+
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                           mask: Optional[torch.Tensor] = None, rope: Rope = None,
-                          with_lse: bool = False):
+                          with_lse: bool = False, block_len: int = 0):
     """The kernel's function in PyTorch: q [B, S, H, Dh], k/v [B, S, KV, Dh]
-    → [B, S, H, Dh] in q.dtype (and lse [B, H, S] f32 ``with_lse``)."""
+    → [B, S, H, Dh] in q.dtype (and lse [B, H, S] f32 ``with_lse``);
+    block-causal over ``block_len`` positions where it is above 0."""
     # Imported here: models/__init__ imports the transformer, which imports
     # this module.
     from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope
@@ -109,6 +131,8 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     vr = vp.repeat_interleave(rep, dim=2)
     scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), kr.float()) * dh ** -0.5
     scores = scores + bias[:, None, None, :]
+    if block_len:
+        scores = torch.where(block_visible(s, sk, block_len, q.device), scores, HIDDEN)
     m = torch.clamp_min(scores.amax(dim=-1, keepdim=True), NEG_INF)
     p = torch.exp(scores - m)
     l = p.sum(dim=-1)                                          # [B, H, Sq]
@@ -135,10 +159,11 @@ def check_operand(name: str, t: torch.Tensor, shape, dtype, device) -> None:
 
 def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          mask: Optional[torch.Tensor] = None, rope: Rope = None,
-                         with_lse: bool = False):
+                         with_lse: bool = False, block_len: int = 0):
     """Launch ``csrc/flash_attention.cu``, or ``csrc/flash_attention_direct.cu``
     under ``CTDB_FLASH_DIRECT=1`` when the keys fit one kv tile (bf16 q/k/v
-    on one card); lse is written only ``with_lse``."""
+    on one card); lse is written only ``with_lse``.  ``block_len`` > 0
+    launches the block-causal instantiation of the first."""
     b, s, h, dh = q.shape
     kv = k.shape[2]
     dev = q.device
@@ -162,12 +187,17 @@ def flash_attention_cuda(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     lse = (torch.empty((b, h, s), dtype=torch.float32, device=dev)
            if with_lse else None)
-    kernel = DIRECT_KERNEL if direct_mode() and single_kv_tile(s) else FLASH_KERNEL
+    args = (q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
+            cos_ptr, sin_ptr, out.data_ptr(),
+            None if lse is None else lse.data_ptr(), b, s, kv_tile_len(s),
+            h, kv, dh, dh ** -0.5)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    kernel(q.data_ptr(), k.data_ptr(), v.data_ptr(), bias.data_ptr(),
-           cos_ptr, sin_ptr, out.data_ptr(),
-           None if lse is None else lse.data_ptr(), b, s, kv_tile_len(s),
-           h, kv, dh, dh ** -0.5, stream)
+    if block_len:
+        BLOCK_CAUSAL_KERNEL(*args, block_len, stream)
+    elif direct_mode() and single_kv_tile(s):
+        DIRECT_KERNEL(*args, stream)
+    else:
+        FLASH_KERNEL(*args, stream)
     return (out, lse) if with_lse else out
 
 
@@ -216,17 +246,22 @@ class FlashAttention(torch.autograd.Function):
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                    mask: Optional[torch.Tensor] = None, rope: Rope = None) -> torch.Tensor:
+                    mask: Optional[torch.Tensor] = None, rope: Rope = None,
+                    block_len: int = 0) -> torch.Tensor:
     """q: [B, S, H, Dh]; k, v: [B, S, KV, Dh]; mask: [B, S] (1 = real);
-    ``rope=(cos, sin)`` each [B, S, Dh//2] f32, applied inside.
+    ``rope=(cos, sin)`` each [B, S, Dh//2] f32, applied inside;
+    ``block_len`` > 0: block-causal (forward only).
 
     With grad enabled and an input that requires it, the call goes through
     :class:`FlashAttention`; otherwise CPU tensors take
     :func:`flash_attention_plain` and CUDA tensors launch the kernel."""
-    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
-                                    or v.requires_grad):
+    grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad)
+    if grad and block_len:
+        raise NotImplementedError("block-causal flash attention has no backward")
+    if grad:
         cos, sin = (None, None) if rope is None else rope
         return FlashAttention.apply(q, k, v, mask, cos, sin)
     if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, mask=mask, rope=rope)
-    return flash_attention_cuda(q, k, v, mask=mask, rope=rope)
+        return flash_attention_plain(q, k, v, mask=mask, rope=rope, block_len=block_len)
+    return flash_attention_cuda(q, k, v, mask=mask, rope=rope, block_len=block_len)

@@ -2,7 +2,9 @@
 
 The port (``ct_diffusionmodelbench_tpu_torch``) keeps its own copy of the
 config; every preset must equal the JAX package's field by field and in the
-analytic counts.  The bridge must carry bf16 and f32 leaves bit for bit.
+analytic counts, but for what only the port has: the SDAR family's
+``block_length`` field (0 in every config the JAX package can make) and its
+presets (``PORT_ONLY_PRESETS``).  The bridge must carry bf16 and f32 leaves bit for bit.
 """
 
 import ast
@@ -49,10 +51,18 @@ def _is_forbidden(module: str) -> bool:
             or module.startswith("ct_diffusionmodelbench_tpu."))
 
 
+def _jax_fields(t) -> dict:
+    """The port config's fields that the JAX package's config has; the
+    port-only ``block_length`` must be 0 there."""
+    d = dataclasses.asdict(t)
+    assert d.pop("block_length") == 0
+    return d
+
+
 @pytest.mark.parametrize("name", sorted(jcfg.PRESETS))
 def test_preset_matches_jax(name):
     j, t = jcfg.PRESETS[name], tcfg.PRESETS[name]
-    assert dataclasses.asdict(j) == dataclasses.asdict(t)
+    assert dataclasses.asdict(j) == _jax_fields(t)
     assert (j.is_moe, j.q_size, j.kv_size) == (t.is_moe, t.q_size, t.kv_size)
     assert j.param_count() == t.param_count()
     assert j.active_param_count() == t.active_param_count()
@@ -61,7 +71,8 @@ def test_preset_matches_jax(name):
 
 
 def test_preset_names_match():
-    assert sorted(jcfg.PRESETS) == sorted(tcfg.PRESETS)
+    assert sorted(jcfg.PRESETS) == sorted(set(tcfg.PRESETS) - set(tcfg.PORT_ONLY_PRESETS))
+    assert all(tcfg.PRESETS[n].family == "sdar" for n in tcfg.PORT_ONLY_PRESETS)
 
 
 def test_config_from_hf_matches_jax():
@@ -71,7 +82,7 @@ def test_config_from_hf_matches_jax():
           "num_experts_per_tok": 4, "moe_intermediate_size": 96,
           "use_qk_norm": True, "eos_token_id": [7, 8], "rope_theta": 5e5}
     assert (dataclasses.asdict(jcfg.config_from_hf(hf, name="x"))
-            == dataclasses.asdict(tcfg.config_from_hf(hf, name="x")))
+            == _jax_fields(tcfg.config_from_hf(hf, name="x")))
     assert tcfg.get_config("llada-tiny", dtype="float32").dtype == "float32"
 
 
