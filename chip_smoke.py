@@ -245,6 +245,10 @@ Phases, in order:
    rows an expert, most tiles padding) against their plain versions, with
    and without ``tile_valid``, timed beside ``torch._grouped_mm`` and their
    bound (the ``sdar`` field of their rows in the kernels line);
+   G3, the MoE combine (``ops/grouped_gemm_cuda.py::combine``), at the same
+   pass (its 1024 slots over m_pad 9216 rows of D 2048), bit-equal to its
+   plain chain and timed in turns beside it and its bound, each run queued
+   behind a sleeping kernel as in phase 31;
    then an ``sdar-tiny`` decode's exact launches: K12 once a layer for
    every step and commit, the block-causal flash kernel once a layer a
    batch, no other attention kernel.
@@ -252,8 +256,10 @@ Phases, in order:
 Every exact launch check above expects the glue kernels too
 (:func:`glue_launches`): a block pass launches ``rms_norm`` twice (four
 times with qk-norm) and ``swiglu_act`` once (a dense FFN or a shared
-expert), and a forward its final norm once more; remat runs a block
-again, so the glue follows the attention kernel's count a layer.
+expert), an MoE block G3 (``moe_combine``) once, and a forward its final
+norm once more; remat runs a block again, so the glue follows the
+attention kernel's count a layer.  The kernels-against-plain checks give
+the plain run the combine's plain chain too.
 
 The bf16 MoE weights are freed before phase 11, the int8 ones before
 phase 15, Dream's before phase 16, the dense training state before phase
@@ -357,7 +363,8 @@ MINIF2F_HEADER = ("import Mathlib\nimport Aesop\n\nset_option maxHeartbeats 4000
 INT8_SERVING_KERNELS = ("grouped_gateup_q", "grouped_down_q", "flash_attention_fwd")
 BWD_KERNELS = ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
 # The model step's glue kernels (ops/glue.py): every norm and SwiGLU
-# activation launches one (counts: glue_launches).
+# activation launches one (counts: glue_launches, which also counts G3, the
+# MoE combine, once an MoE block).
 GLUE_KERNELS = ("rms_norm", "swiglu_act")
 # Phase 31: dense8b-eval's rows (B 4, S 832) at llada-8b's D and F; rms_norm
 # takes GLUE_SETS operand sets in turn, so no launch finds its 27 MB input
@@ -427,10 +434,14 @@ def glue_launches(cfg, blocks: int, forwards: int) -> dict:
     ``cfg`` that ran ``blocks`` block passes in all (a rank's layers times
     the forwards, twice under remat): two norms a block, four with
     qk-norm; one activation a block with a dense FFN or a shared expert;
-    the final norm once a forward."""
+    the final norm once a forward.  An MoE model's blocks each launch G3
+    (``moe_combine``) once too; a dense model's count has no such key."""
     act = not cfg.is_moe or cfg.num_shared_experts > 0
-    return {"rms_norm": (4 if cfg.qk_norm else 2) * blocks + forwards,
+    glue = {"rms_norm": (4 if cfg.qk_norm else 2) * blocks + forwards,
             "swiglu_act": blocks if act else 0}
+    if cfg.is_moe:
+        glue["moe_combine"] = blocks
+    return glue
 
 
 def expected_launches(glue: dict, **counts) -> dict:
@@ -942,7 +953,8 @@ def depth_phase(cfg, params, ids, dev, mask=None, logit_start=PROMPT,
     # one name the model calls it by.
     seams = [(attention, "flash_attention", fa.flash_attention_plain),
              (gg, "grouped_gateup", gg.grouped_gateup_plain),
-             (gg, "grouped_down", gg.grouped_down_plain)]
+             (gg, "grouped_down", gg.grouped_down_plain),
+             (gg, "combine", gg.combine_plain)]
     cfg2 = cfg.replace(num_layers=2)  # the first two layers of the full stacks
     return pinned_compare(label, cfg2, ids, dev, params, params, seams, mask=mask,
                           logit_start=logit_start)
@@ -1286,7 +1298,8 @@ def chat_depth_phase(cfg, params, ids, dev):
     from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
 
     seams = [(attention, "flash_attention", fa.flash_attention_plain),
-             (gg, "grouped_ffn_fused", gg.grouped_ffn_fused_plain)]
+             (gg, "grouped_ffn_fused", gg.grouped_ffn_fused_plain),
+             (gg, "combine", gg.combine_plain)]
     return pinned_compare("2-layer logits through K3 and K9, kernels vs plain",
                           cfg.replace(num_layers=2), ids, dev, params, params, seams)
 
@@ -1813,7 +1826,8 @@ def block_cache_phase(cfg, params, dev, exact):
 
     seams = [(attention, "flash_attention", fa.flash_attention_plain),
              (gg, "grouped_gateup", gg.grouped_gateup_plain),
-             (gg, "grouped_down", gg.grouped_down_plain)]
+             (gg, "grouped_down", gg.grouped_down_plain),
+             (gg, "combine", gg.combine_plain)]
     err_logits = pinned_compare("2-layer refresh + cached step logits, kernels vs plain",
                                 cfg2, ids, dev, params, params, seams,
                                 forward=refresh_and_step)
@@ -2057,7 +2071,8 @@ def quant_phase(cfg, qparams, ids, dev):
     del d2
     seams = [(attention, "flash_attention", fa.flash_attention_plain),
              (gg, "grouped_gateup_q", gg.grouped_gateup_q_plain),
-             (gg, "grouped_down_q", gg.grouped_down_q_plain)]
+             (gg, "grouped_down_q", gg.grouped_down_q_plain),
+             (gg, "combine", gg.combine_plain)]
     err_plain = pinned_compare("2-layer int8 logits, kernels vs plain", cfg2, ids,
                                dev, q2, q2, seams)
     return err_deq, err_plain
@@ -2613,7 +2628,8 @@ def moe_train_depth_phase(cfg, params, dev):
              (fab, "flash_attention_bwd", fab.flash_attention_bwd_plain),
              (gg, "grouped_gateup", gg.grouped_gateup_plain),
              (gg, "grouped_down", gg.grouped_down_plain),
-             (ggm, "grouped_mm", ggm.grouped_mm_plain)]
+             (ggm, "grouped_mm", ggm.grouped_mm_plain),
+             (ggm, "combine", gg.combine_plain)]
     saved = [getattr(mod, name) for mod, name, _ in seams]
     reset_launch_counts()
     try:
@@ -3879,12 +3895,55 @@ def sdar_grouped_check(dev, g) -> dict:
                             **vars(layout)) for r in rows}
 
 
+def sdar_combine_check(dev, g) -> dict:
+    """G3 at sdar30b-eval's cached pass: 128 rows routed by ``router_probs``
+    over one layer's router (128 experts, top-8), the layout's padded rows
+    bf16 [m_pad 9216, D 2048] as K2 leaves them; bit-equal to the plain
+    chain, then timed in turns beside it and its bound (the k rows read
+    and the output written), each run queued behind a sleeping kernel.
+    Returns G3's row."""
+    from ct_diffusionmodelbench_tpu_torch.models import get_config
+    from ct_diffusionmodelbench_tpu_torch.models.moe import router_probs
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+
+    cfg = get_config("sdar-30b-a3b")
+    D, E, k = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok
+    n = SDAR_B * SDAR_BL
+    x = torch.randn((n, D), generator=g, device=dev).to(torch.bfloat16)
+    router = (torch.randn((D, E), generator=g, device=dev) * D ** -0.5).to(torch.bfloat16)
+    probs, topk_idx, _ = router_probs(x, router, k, cfg.norm_topk_prob)
+    dest, _, _, m_pad = gg.counting_layout(topk_idx, E, gg.layout_tile_m(n * k))
+    rows = torch.randn((m_pad, D), generator=g, device=dev).to(torch.bfloat16)
+    got = gg.combine(rows, dest, probs, n, k, torch.bfloat16)
+    equal = bool(torch.equal(got, gg.combine_plain(rows, dest, probs, n, k, torch.bfloat16)))
+    print(f"  moe_combine (G3) N {n}, k {k}, D {D}, m_pad {m_pad}: bit-equal to the plain "
+          f"chain {equal}", flush=True)
+    if not equal:
+        raise AssertionError("moe_combine: kernel disagrees with its plain chain")
+    host_us_per_launch({"moe_combine": lambda: gg.combine_cuda(rows, dest, probs, n, k,
+                                                               torch.bfloat16)})
+    # 50 chains of 18 launches stay inside the sleep's time on the host.
+    t = time_turns_queued({
+        "kernel": lambda: gg.combine_cuda(rows, dest, probs, n, k, torch.bfloat16),
+        "plain": lambda: gg.combine_plain(rows, dest, probs, n, k, torch.bfloat16)},
+        iters=50)
+    bound, by = bound_ms(2.0 * n * k * D, 2 * n * k * D + 2 * n * D + (8 + 4) * n * k)
+    row = dict(name="moe_combine", source="csrc/moe_combine.cu ctdb_moe_combine_kernel",
+               replaces="none (XLA fused the reference's k-loop combine on the TPU)",
+               max_abs_err=0.0, ms=t["kernel"], plain_ms=t["plain"], library_ms=None,
+               bound_ms=bound, bound_by=by, bound_share=bound / t["kernel"], m_pad=m_pad)
+    print(f"  moe_combine: {row['ms']:.4f} ms, plain chain {row['plain_ms']:.4f} ms, bound "
+          f"{bound:.4f} ms ({by}), {row['bound_share']:.4f} of its bound", flush=True)
+    return row
+
+
 def sdar_phase(dev):
     """Phase 32: K12 and the block-causal flash mode at sdar30b-eval's
     shapes against their plain versions, timed, K1 and K2 at its cached
-    pass (:func:`sdar_grouped_check`), and an sdar-tiny decode's exact
-    launches.  Returns (K12's and the flash mode's rows, {K1 / K2: their
-    row at the cached pass})."""
+    pass (:func:`sdar_grouped_check`), G3 there
+    (:func:`sdar_combine_check`), and an sdar-tiny decode's exact
+    launches.  Returns (K12's, the flash mode's and G3's rows, {K1 / K2:
+    their row at the cached pass})."""
     import numpy as np
 
     from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
@@ -3958,6 +4017,7 @@ def sdar_phase(dev):
               f"its bound", flush=True)
     del k, v, q, qp, kp, vp, got, want
     grouped = sdar_grouped_check(dev, g)
+    rows.append(sdar_combine_check(dev, g))
 
     runner = ModelRunner.random_init("sdar-tiny", seed=3, device=dev)
     cfg = runner.cfg
@@ -4011,7 +4071,7 @@ def main() -> int:
     libs = [grouped_gemm_cuda.LIBRARY, grouped_gemm_cuda.LIBRARY_Q,
             grouped_gemm_cuda.LIBRARY_FUSED, flash_attention.LIBRARY,
             flash_attention.LIBRARY_DIRECT, flash_attention_bwd.LIBRARY, glue.LIBRARY,
-            cache_attention.LIBRARY]
+            cache_attention.LIBRARY, grouped_gemm_cuda.LIBRARY_COMBINE]
     build_s = build_all(libs)
     print(f"kernel build: {build_s:.2f} s", flush=True)
     ptxas_report(libs)

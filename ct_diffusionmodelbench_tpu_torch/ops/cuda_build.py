@@ -24,6 +24,8 @@ import time
 from pathlib import Path
 from typing import Dict, List, Optional, Sequence
 
+import torch
+
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "cuda_kernels"
 ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
@@ -163,4 +165,14 @@ def reset_launch_counts() -> None:
 # ctypes argument kinds, for the Kernel argtypes lists.
 PTR = ctypes.c_void_p
 INT = ctypes.c_int
+INT64 = ctypes.c_int64
 FLOAT = ctypes.c_float
+
+
+def dtype_code(name: str, dtype) -> int:
+    """The C entry points' code of a tensor dtype: 0 float32, 1 bfloat16;
+    raises for any other."""
+    codes = {torch.float32: 0, torch.bfloat16: 1}
+    if dtype not in codes:
+        raise ValueError(f"{name} has dtype {dtype}, expected float32 or bfloat16")
+    return codes[dtype]

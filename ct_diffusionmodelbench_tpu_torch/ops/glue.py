@@ -31,11 +31,9 @@ import torch
 import torch.nn.functional as F
 
 from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import (
-    FLOAT, INT, PTR, Kernel, Library)
+    FLOAT, INT, INT64, PTR, Kernel, Library, dtype_code)
 from ct_diffusionmodelbench_tpu_torch.ops.grouped_gemm import _silu_grads
 
-INT64 = ctypes.c_int64
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_ROW_BYTES = 4096 * 16   # the kernel's widest row: 1024 threads × 4 vectors
 
 LIBRARY = Library("glue.cu")
@@ -70,12 +68,6 @@ def _check_aligned(name: str, t: torch.Tensor, device) -> None:
         raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _dtype_code(name: str, dtype: torch.dtype) -> int:
-    if dtype not in DTYPE_CODES:
-        raise ValueError(f"{name} has dtype {dtype}, expected float32 or bfloat16")
-    return DTYPE_CODES[dtype]
-
-
 def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
     """Launch ``ctdb_rms_norm``: x contiguous ``[..., D]``, D a multiple of
     8; one block a row for D > 1024, one warp a row below."""
@@ -83,8 +75,8 @@ def rms_norm_cuda(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Ten
     if dev.type != "cuda":
         raise ValueError(f"rms_norm_cuda needs CUDA tensors, got {dev}")
     d = x.shape[-1]
-    x_code = _dtype_code("x", x.dtype)
-    s_code = _dtype_code("scale", scale.dtype)
+    x_code = dtype_code("x", x.dtype)
+    s_code = dtype_code("scale", scale.dtype)
     if d % 8 or d * x.element_size() > MAX_ROW_BYTES:
         raise ValueError(f"rms_norm_cuda needs D a multiple of 8 and at most "
                          f"{MAX_ROW_BYTES} bytes a row, got D {d} in {x.dtype}")
@@ -114,7 +106,7 @@ def swiglu_act_cuda(gate: torch.Tensor, up: torch.Tensor,
         raise ValueError(f"gate and up must be float32, got {gate.dtype} and {up.dtype}")
     if gate.shape != up.shape:
         raise ValueError(f"gate {tuple(gate.shape)} and up {tuple(up.shape)} differ")
-    out_code = _dtype_code("out", out_dtype)
+    out_code = dtype_code("out", out_dtype)
     _check_aligned("gate", gate, dev)
     _check_aligned("up", up, dev)
     out = torch.empty(gate.shape, dtype=out_dtype, device=dev)

@@ -72,7 +72,7 @@ class GroupedFFN(torch.autograd.Function):
     """The routed expert FFN, x [N, D] → [N, D], with a backward.
 
     Forward: ``grouped_expert_ffn_cuda``'s (K1/K2, or K3 under
-    ``CTDB_GROUPED_FUSED=1``, on the card).  Backward, on the forward's
+    ``CTDB_GROUPED_FUSED=1``, then the combine G3, on the card).  Backward, on the forward's
     padded layout (each expert's rows one group, the tail padding rows the
     last expert's; padding rows get a zero cotangent and add nothing):
 

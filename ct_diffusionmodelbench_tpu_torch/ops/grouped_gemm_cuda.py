@@ -36,6 +36,11 @@ raises.  The kernels compute forwards only: the bf16 FFN's backward is
 and an input that requires it, each wrapper raises rather than return an
 output that silently drops the gradient; the int8 pair always does, as
 int8 weights are inference-only in the reference too.
+
+The weighted combine after the down product, :func:`combine`, is G3 on the
+card (``csrc/moe_combine.cu``): one kernel for the reference's k-loop of
+gathers, scales and f32 sums, bit-equal to :func:`combine_plain`, the
+PyTorch chain that the CPU takes; it too raises under grad.
 """
 
 from __future__ import annotations
@@ -47,7 +52,7 @@ import torch
 import torch.nn.functional as F
 
 from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import (
-    INT, PTR, Kernel, Library)
+    INT, INT64, PTR, Kernel, Library, dtype_code)
 from ct_diffusionmodelbench_tpu_torch.ops.quant import is_quantized
 
 TILE_M = 64
@@ -69,6 +74,9 @@ FUSED_KERNEL = Kernel("grouped_ffn_fused", LIBRARY_FUSED, "ctdb_grouped_ffn_fuse
 # The fused kernel spreads one row tile's FFN over a thread block cluster of
 # F / 128 CTAs; 8 is the portable cluster size, so F is at most 1024.
 FUSED_MAX_F = 8 * 128
+LIBRARY_COMBINE = Library("moe_combine.cu")
+COMBINE_KERNEL = Kernel("moe_combine", LIBRARY_COMBINE, "ctdb_moe_combine",
+                        [PTR] * 4 + [INT] * 3 + [INT64] * 3 + [INT] * 2 + [PTR])
 
 
 def _round_up(x, m):
@@ -476,9 +484,9 @@ def gather_rows(x: torch.Tensor, dest: torch.Tensor, k: int, m_pad: int):
     return x.index_select(0, src)
 
 
-def combine(out_padded, dest, topk_probs, n: int, k: int, dtype):
+def combine_plain(out_padded, dest, topk_probs, n: int, k: int, dtype):
     """Weighted unsort: K accumulated f32 gathers of [N, D] (the reference's
-    ``kloop`` form)."""
+    ``kloop`` form), as a PyTorch chain."""
     dest_k = dest.reshape(n, k)
     out = torch.zeros((n, out_padded.shape[1]), dtype=torch.float32,
                       device=out_padded.device)
@@ -486,6 +494,55 @@ def combine(out_padded, dest, topk_probs, n: int, k: int, dtype):
         rows = out_padded.index_select(0, dest_k[:, kk])
         out.addcmul_(rows, topk_probs[:, kk][:, None])  # in f32, in place
     return out.to(dtype)
+
+
+def combine_cuda(out_padded, dest, topk_probs, n: int, k: int, dtype) -> torch.Tensor:
+    """Launch G3 (``ctdb_moe_combine``): ``out_padded`` contiguous [m_pad, D],
+    D a multiple of 8, bf16 or f32; ``dest`` contiguous int64 [N·K];
+    ``topk_probs`` f32 [N, K] of any strides (the router's top-k slice).
+    The operands' shapes and dtypes are checked before their device."""
+    if out_padded.ndim != 2:
+        raise ValueError(f"out_padded must be [m_pad, D], got {tuple(out_padded.shape)}")
+    m_pad, d = out_padded.shape
+    rows_code = dtype_code("out_padded", out_padded.dtype)
+    out_code = dtype_code("the output", dtype)
+    if topk_probs.dtype != torch.float32:
+        raise ValueError(f"topk_probs must be float32, got {topk_probs.dtype}")
+    if d % 8:
+        raise ValueError(f"combine needs D a multiple of 8, got {d}")
+    if dest.dtype != torch.int64 or tuple(dest.shape) != (n * k,):
+        raise ValueError(f"dest must be int64 ({n * k},), got {dest.dtype} "
+                         f"{tuple(dest.shape)}")
+    if tuple(topk_probs.shape) != (n, k):
+        raise ValueError(f"topk_probs must be ({n}, {k}), got {tuple(topk_probs.shape)}")
+    dev = out_padded.device
+    if dev.type != "cuda":
+        raise ValueError(f"combine_cuda needs CUDA tensors, got {dev}")
+    if dest.device != dev or topk_probs.device != dev:
+        raise ValueError(f"dest and topk_probs must be on {dev}")
+    if not out_padded.is_contiguous() or out_padded.data_ptr() % 16:
+        raise ValueError("out_padded must be contiguous and 16-byte aligned")
+    if not dest.is_contiguous():
+        raise ValueError("dest must be contiguous")
+    out = torch.empty((n, d), dtype=dtype, device=dev)
+    if n:
+        COMBINE_KERNEL(out_padded.data_ptr(), dest.data_ptr(), topk_probs.data_ptr(),
+                       out.data_ptr(), n, k, d, m_pad, topk_probs.stride(0),
+                       topk_probs.stride(1), rows_code, out_code,
+                       torch.cuda.current_stream(dev).cuda_stream)
+    return out
+
+
+def combine(out_padded, dest, topk_probs, n: int, k: int, dtype):
+    """Weighted unsort of the padded rows into [N, D] in ``dtype``:
+    token n gets the f32 sum over its slots j of ``out_padded[dest[n·k +
+    j]] · topk_probs[n, j]``, in slot order.  :func:`combine_plain` on the
+    CPU, G3 on the card (bit-equal); forward only (see
+    :func:`_refuse_grad`)."""
+    if out_padded.device.type == "cpu":
+        return combine_plain(out_padded, dest, topk_probs, n, k, dtype)
+    _refuse_grad("combine", out_padded, topk_probs)
+    return combine_cuda(out_padded, dest, topk_probs, n, k, dtype)
 
 
 def ffn_padded(x, topk_idx, we_gate, we_up, we_down, tile_m: int = TILE_M,

@@ -1264,8 +1264,73 @@ def test_grouped_ffn_backward_matches_plain(cuda_device, monkeypatch, d, f, e):
     monkeypatch.setattr(ggm, "grouped_mm", ggm.grouped_mm_plain)
     want = torch.autograd.grad(out, ins, cot)
     assert KERNELS["grouped_gateup"].launches == 1   # the backward launches none
+    assert KERNELS["moe_combine"].launches == 1
     assert all(gw.dtype == w.dtype for gw, w in zip(got, ins))
     _moe_grads_close(got, want)
+
+
+def _combine_inputs(dev, n, k, e, d, rows_dtype, drop, seed):
+    """(out_padded, dest, probs) of a router-like routing: softmax over e
+    experts, a stable sort, the top-k probabilities as the sorted tensor's
+    strided slice; with ``drop`` the upper half of the experts lie on
+    another rank and their slots' rows are zero."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    probs = torch.softmax(torch.randn((n, e), generator=g, device=dev), dim=-1)
+    sp, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topk_probs, topk_idx = sp[:, :k], order[:, :k]
+    experts = e // 2 if drop else e
+    if drop:
+        topk_idx = torch.where(topk_idx < experts, topk_idx, torch.full_like(topk_idx, experts))
+    dest, _, _, m_pad = gg.counting_layout(topk_idx, experts, gg.layout_tile_m(n * k), drop)
+    rows = (torch.randn((m_pad, d), generator=g, device=dev) * 2).to(rows_dtype)
+    if drop:
+        rows[dest.reshape(n, k)[topk_idx == experts]] = 0
+    return rows, dest, topk_probs, m_pad
+
+
+@pytest.mark.parametrize("n,k,e,d,rows_dtype,out_dtype,drop,m_pad", [
+    (128, 8, 128, 2048, torch.bfloat16, torch.bfloat16, False, 9216),
+    (2560, 8, 64, 2048, torch.bfloat16, torch.bfloat16, False, None),
+    (128, 8, 128, 2048, torch.float32, torch.bfloat16, False, 9216),
+    (128, 8, 128, 2048, torch.bfloat16, torch.float32, False, 9216),
+    (257, 1, 128, 2048, torch.bfloat16, torch.bfloat16, False, None),
+    (300, 8, 128, 2048, torch.bfloat16, torch.bfloat16, True, None),
+    (33, 11, 16, 64, torch.bfloat16, torch.bfloat16, False, None),
+], ids=["sdar30b_cached_pass", "llada_moe_n2560", "f32_rows", "f32_out", "k1",
+        "drop_foreign", "k11_d64"])
+def test_combine_kernel_is_bit_equal_to_chain(cuda_device, n, k, e, d, rows_dtype,
+                                              out_dtype, drop, m_pad):
+    """G3 against the plain chain run on the card, bit for bit: the same f32
+    fused multiply-adds in slot order (addcmul_ rounds self + t1 · t2 once
+    there), one rounding to the output's dtype.  Shapes:
+    sdar30b-eval's cached pass (1024 slots over m_pad 9216), LLaDA-MoE's
+    main path, f32 rows, f32 output, k 1, dropped slots (zero rows), and
+    k past one group of eight at a narrow D."""
+    rows, dest, probs, got_m_pad = _combine_inputs(cuda_device, n, k, e, d, rows_dtype,
+                                                   drop, seed=n + k)
+    assert m_pad is None or got_m_pad == m_pad
+    reset_launch_counts()
+    got = gg.combine(rows, dest, probs, n, k, out_dtype)
+    assert KERNELS["moe_combine"].launches == 1
+    want = gg.combine_plain(rows, dest, probs, n, k, out_dtype)
+    assert got.dtype == out_dtype and torch.equal(got, want)
+    assert torch.equal(gg.combine(rows, dest, probs.contiguous(), n, k, out_dtype), want)
+
+
+def test_combine_kernel_refuses_grad(cuda_device):
+    """With grad on and an input that needs it, the combine raises rather
+    than drop the gradient; under no_grad it launches."""
+    rows, dest, probs, _ = _combine_inputs(cuda_device, 16, 2, 8, 64, torch.bfloat16,
+                                           False, seed=1)
+    for need in (rows, probs):
+        need.requires_grad_(True)
+        with pytest.raises(NotImplementedError, match="no backward"):
+            gg.combine(rows, dest, probs, 16, 2, torch.bfloat16)
+        with torch.no_grad():
+            got = gg.combine(rows, dest, probs, 16, 2, torch.bfloat16)
+        assert torch.equal(got, gg.combine_plain(rows.detach(), dest, probs.detach(), 16, 2,
+                                                 torch.bfloat16))
+        need.requires_grad_(False)
 
 
 @pytest.mark.parametrize("remat", [False, True, "dots"])
@@ -1340,12 +1405,13 @@ def test_tiny_moe_train_step_kernels_against_plain(cuda_device, monkeypatch, rem
     launches = {n: kk.launches for n, kk in KERNELS.items() if kk.launches}
     # The glue (ops/glue.py): per microbatch's forward the qk-norms and the
     # blocks' two norms (4 a layer) and the final norm, and the shared
-    # expert's activation; under remat the blocks run again in the backward.
+    # expert's activation; G3, the combine, once a block's forward; under
+    # remat the blocks run again in the backward.
     assert launches == {"grouped_gateup": fwd, "grouped_down": fwd,
                         "flash_attention_fwd": fwd,
                         "flash_attention_bwd_dq": cfg.num_layers * 2,
                         "flash_attention_bwd_dkv": cfg.num_layers * 2,
-                        "rms_norm": 4 * fwd + 2, "swiglu_act": fwd}
+                        "rms_norm": 4 * fwd + 2, "swiglu_act": fwd, "moe_combine": fwd}
     assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
     assert state.count == 1
 

@@ -116,7 +116,8 @@ def test_block_causal_flash_kernel_matches_plain(cuda_device, b, s, h, kv, dh, b
 def test_sdar_tiny_decode_launches(cuda_device, monkeypatch):
     """An sdar-tiny decode on the card runs K12 once a layer for every step
     and commit, the block-causal flash kernel once a layer for the prefill,
-    and no other attention: no SDPA, no reference attention."""
+    and no other attention: no SDPA, no reference attention; K1, K2 and G3
+    (the combine) once a layer for every pass."""
     runner = ModelRunner.random_init("sdar-tiny", seed=3, device=cuda_device)
     cfg = runner.cfg
     rng = np.random.default_rng(0)
@@ -136,6 +137,7 @@ def test_sdar_tiny_decode_launches(cuda_device, monkeypatch):
     assert launches["flash_attention_fwd_block_causal"] == cfg.num_layers
     assert launches["flash_attention_fwd"] == launches["flash_attention_direct"] == 0
     assert launches["grouped_gateup"] == launches["grouped_down"] == cfg.num_layers * (1 + passes)
+    assert launches["moe_combine"] == cfg.num_layers * (1 + passes)
     assert not called and not (out[:, 16:] == cfg.mask_token_id).any()
 
 
