@@ -1014,9 +1014,9 @@ def capture_layer(fwd, params, ids, mask, li, **kw):
         routed.append((x, out[1]))
         return out
 
-    def recording_flash(q, k, v, mask=None, rope=None):
+    def recording_flash(q, k, v, mask=None, rope=None, block_len=0):
         attended.append((q, k, v, mask, rope))
-        return flash(q, k, v, mask=mask, rope=rope)
+        return flash(q, k, v, mask=mask, rope=rope, block_len=block_len)
 
     try:
         moe.router_probs, attention.flash_attention = recording_router, recording_flash

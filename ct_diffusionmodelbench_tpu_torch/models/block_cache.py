@@ -16,17 +16,20 @@ Approximation contract (as the reference's): exact for a 1-layer model
 frozen positions' K/V are stale by up to ``steps_per_block - 1`` steps.
 Dream/DiffuCoder (shifted logits) and causal models are refused.
 
-Both passes are built from ``models/transformer.py``'s helpers (positions,
-embedding, projections with int8 leaves, the FFN with the whole expert
-stacks and the layer id, the LM head), so they and the exact forward
-cannot drift apart.  The refresh's attention takes the rotated q/k without
-``rope`` (the flash kernel with no fused rotation on a CUDA tensor); the
-cached step's rectangular attention (block queries × S keys) is the plain
-``attention_reference``, as in the reference.
+Both passes run ``models/transformer.py``'s embedding, layer body
+(:func:`~ct_diffusionmodelbench_tpu_torch.models.transformer.block`) and
+head, so they and the exact forward cannot drift apart; each brings only
+its attention.  The refresh's rotates q/k, writes the rotated K and V into
+the cache and attends without ``rope`` (the flash kernel with no fused
+rotation on a CUDA tensor); the cached step's rectangular attention (block
+queries × S keys) is the plain ``attention_reference``, as in the
+reference.
 
 With the tracer on (``utils/profiling.py``), each refresh and each cached
 step is a ``model.forward`` span, counted as one pass over the positions
-it runs (B·S for a refresh, B·block_length for a cached step).
+it runs (B·S for a refresh, B·block_length for a cached step), with
+``model.embed``, ``model.attn`` and ``model.ffn`` a layer, and
+``model.head`` inside, as the full forward's.
 """
 
 from __future__ import annotations
@@ -37,10 +40,9 @@ from typing import Optional
 import torch
 
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
-from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rms_norm, rope_angles
+from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rope_angles
 from ct_diffusionmodelbench_tpu_torch.models.transformer import (
-    _attn_project, _ffn_block, _project, count_pass, embed_tokens, lm_head_logits,
-    split_layers, token_positions)
+    block, count_pass, embed_tokens, final_logits, split_layers, token_positions)
 from ct_diffusionmodelbench_tpu_torch.ops.attention import attention, attention_reference
 from ct_diffusionmodelbench_tpu_torch.utils.profiling import span
 
@@ -58,10 +60,6 @@ def _check_supported(cfg: ModelConfig) -> None:
                                   "of their own: models/sdar_cache.py")
 
 
-def _lm_head(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
-    return lm_head_logits(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
-
-
 def forward_refresh(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
                     attn_mask: Optional[torch.Tensor], block_start: int,
                     block_length: int):
@@ -69,28 +67,27 @@ def forward_refresh(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
     and every layer's rotated K and V, each [L, B, S, KV, Dh].
     ``block_start`` / ``block_length`` are host ints."""
     B, S = input_ids.shape
-    H, KV, Dh = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
-    x = embed_tokens(params, input_ids)
-    cos, sin = rope_angles(token_positions(attn_mask, B, S, x.device), Dh,
-                           cfg.rope_theta)
-    layers, stacks = split_layers(cfg, params)
-    k_cache = torch.empty((cfg.num_layers, B, S, KV, Dh), dtype=x.dtype, device=x.device)
+    with span("model.embed"):
+        x = embed_tokens(params, input_ids)
+        cos, sin = rope_angles(token_positions(attn_mask, B, S, x.device),
+                               cfg.head_dim, cfg.rope_theta)
+    k_cache = torch.empty((cfg.num_layers, B, S, cfg.num_kv_heads, cfg.head_dim),
+                          dtype=x.dtype, device=x.device)
     v_cache = torch.empty_like(k_cache)
-    for li, lp in enumerate(layers):
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = _attn_project(cfg, h, lp)
+
+    def attend(li, q, k, v):
         # The cache holds ROTATED k: positions are absolute and fixed, so a
         # cached step never rotates it again.
-        qr = apply_rope(q, cos, sin)
-        kr = apply_rope(k, cos, sin)
+        qr, kr = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
         k_cache[li] = kr
         v_cache[li] = v
-        attn = attention(qr, kr, v, mask=attn_mask, impl=cfg.attn_impl)
-        x = x + _project(attn.reshape(B, S, H * Dh), lp["wo"])
-        ffn, _ = _ffn_block(cfg, x, lp, stacks, li)
-        x = x + ffn
+        return attention(qr, kr, v, mask=attn_mask, impl=cfg.attn_impl)
+
+    layers, stacks = split_layers(cfg, params)
+    for li, lp in enumerate(layers):
+        x, _ = block(cfg, x, lp, li, attend, stacks)
     xb = x[:, block_start:block_start + block_length]
-    return _lm_head(cfg, params, xb), k_cache, v_cache
+    return final_logits(cfg, params, xb), k_cache, v_cache
 
 
 def forward_cached_step(cfg: ModelConfig, params: dict, block_ids: torch.Tensor,
@@ -104,24 +101,23 @@ def forward_cached_step(cfg: ModelConfig, params: dict, block_ids: torch.Tensor,
     block's logits [B, bl, V] f32."""
     B, bl = block_ids.shape
     S = k_cache.shape[2]
-    H, Dh = cfg.num_heads, cfg.head_dim
-    x = embed_tokens(params, block_ids)
-    pos = token_positions(attn_mask, B, S, x.device)[:, block_start:block_start + bl]
-    cos, sin = rope_angles(pos, Dh, cfg.rope_theta)
-    layers, stacks = split_layers(cfg, params)
-    for li, lp in enumerate(layers):
-        h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = _attn_project(cfg, h, lp)
+    with span("model.embed"):
+        x = embed_tokens(params, block_ids)
+        pos = token_positions(attn_mask, B, S, x.device)[:, block_start:block_start + bl]
+        cos, sin = rope_angles(pos, cfg.head_dim, cfg.rope_theta)
+
+    def attend(li, q, k, v):
         kc, vc = k_cache[li], v_cache[li]
         k_full = torch.cat([kc[:, :block_start], apply_rope(k, cos, sin),
                             kc[:, block_start + bl:]], dim=1)
         v_full = torch.cat([vc[:, :block_start], v, vc[:, block_start + bl:]], dim=1)
-        attn = attention_reference(apply_rope(q, cos, sin), k_full, v_full,
+        return attention_reference(apply_rope(q, cos, sin), k_full, v_full,
                                    mask=attn_mask)
-        x = x + _project(attn.reshape(B, bl, H * Dh), lp["wo"])
-        ffn, _ = _ffn_block(cfg, x, lp, stacks, li)
-        x = x + ffn
-    return _lm_head(cfg, params, x)
+
+    layers, stacks = split_layers(cfg, params)
+    for li, lp in enumerate(layers):
+        x, _ = block(cfg, x, lp, li, attend, stacks)
+    return final_logits(cfg, params, x)
 
 
 @functools.lru_cache(maxsize=None)

@@ -21,9 +21,10 @@ approximation):
   The commit is a pass of its own: each step wrote K and V of a state that
   still held masks.
 
-The passes are built from ``models/transformer.py``'s helpers (embedding,
-projections, qk-norm, the FFN with the whole expert stacks and the layer
-id, the LM head), so they and the full forward cannot drift apart.
+The passes run ``models/transformer.py``'s embedding, layer body
+(:func:`~ct_diffusionmodelbench_tpu_torch.models.transformer.block`) and
+head, so they and the full forward cannot drift apart; each brings only
+its attention, which rotates q and k and writes the cache.
 Positions restart at each row's first real token; a generated position i
 sits at ``i - key_start``, the row's real prompt length plus ``i - P``.
 
@@ -59,10 +60,9 @@ from typing import Callable, Dict, Optional
 import torch
 
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
-from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rms_norm, rope_angles
+from ct_diffusionmodelbench_tpu_torch.models.layers import apply_rope, rope_angles
 from ct_diffusionmodelbench_tpu_torch.models.transformer import (
-    _attn_project, _ffn_block, _project, count_pass, embed_tokens, lm_head_logits,
-    split_layers, token_positions)
+    block, count_pass, embed_tokens, final_logits, split_layers, token_positions)
 from ct_diffusionmodelbench_tpu_torch.ops.attention import attention
 from ct_diffusionmodelbench_tpu_torch.ops.cache_attention import cache_attention
 from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS
@@ -107,30 +107,26 @@ def forward_prefill(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
     positions get the prompt's rotated K and V.  ``real_keys``: the real
     tokens of ``attn_mask`` (a host int)."""
     B, P = input_ids.shape
-    H, Dh = cfg.num_heads, cfg.head_dim
     with span("model.embed"):
         x = embed_tokens(params, input_ids)
-        cos, sin = rope_angles(token_positions(attn_mask, B, P, x.device), Dh,
+        cos, sin = rope_angles(token_positions(attn_mask, B, P, x.device), cfg.head_dim,
                                cfg.rope_theta)
         if attn_mask is None:
             cache.key_start.zero_()
         else:
             cache.key_start.copy_(P - attn_mask.to(torch.int32).sum(dim=-1, dtype=torch.int32))
     cache.prompt_len, cache.real_keys = P, real_keys
+
+    def attend(li, q, k, v):
+        q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
+        cache.k[li, :, :P] = k
+        cache.v[li, :, :P] = v
+        return attention(q, k, v, mask=attn_mask, impl=cfg.attn_impl,
+                         block_len=cfg.block_length)
+
     layers, stacks = split_layers(cfg, params)
     for li, lp in enumerate(layers):
-        with span("model.attn"):
-            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k, v = _attn_project(cfg, h, lp)
-            q, k = apply_rope(q, cos, sin), apply_rope(k, cos, sin)
-            cache.k[li, :, :P] = k
-            cache.v[li, :, :P] = v
-            out = attention(q, k, v, mask=attn_mask, impl=cfg.attn_impl,
-                            block_len=cfg.block_length)
-            x = x + _project(out.reshape(B, P, H * Dh), lp["wo"])
-        with span("model.ffn"):
-            ffn, _ = _ffn_block(cfg, x, lp, stacks, li)
-            x = x + ffn
+        x, _ = block(cfg, x, lp, li, attend, stacks)
     return cache
 
 
@@ -140,31 +136,25 @@ def forward_block(cfg: ModelConfig, params: dict, block_ids: torch.Tensor,
     cache.start + bl`` against the cache, its K and V written into the
     cache: the block's logits [B, bl, V] f32, or None (the commit) without
     ``logits``.  Reads nothing on the host."""
-    B, bl = block_ids.shape
-    H, Dh = cfg.num_heads, cfg.head_dim
+    bl = block_ids.shape[1]
     with span("model.embed"):
         x = embed_tokens(params, block_ids)
         slots = cache.start + torch.arange(bl, dtype=torch.int32, device=x.device)
-        cos, sin = rope_angles(slots[None] - cache.key_start[:, None], Dh, cfg.rope_theta)
+        cos, sin = rope_angles(slots[None] - cache.key_start[:, None], cfg.head_dim,
+                               cfg.rope_theta)
         slots = slots.long()
         key_end = cache.start + bl
+
+    def attend(li, q, k, v):
+        q = apply_rope(q, cos, sin)
+        cache.k[li].index_copy_(1, slots, apply_rope(k, cos, sin))
+        cache.v[li].index_copy_(1, slots, v)
+        return cache_attention(q, cache.k[li], cache.v[li], cache.key_start, key_end)
+
     layers, stacks = split_layers(cfg, params)
     for li, lp in enumerate(layers):
-        with span("model.attn"):
-            h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-            q, k, v = _attn_project(cfg, h, lp)
-            q = apply_rope(q, cos, sin)
-            cache.k[li].index_copy_(1, slots, apply_rope(k, cos, sin))
-            cache.v[li].index_copy_(1, slots, v)
-            out = cache_attention(q, cache.k[li], cache.v[li], cache.key_start, key_end)
-            x = x + _project(out.reshape(B, bl, H * Dh), lp["wo"])
-        with span("model.ffn"):
-            ffn, _ = _ffn_block(cfg, x, lp, stacks, li)
-            x = x + ffn
-    if not logits:
-        return None
-    with span("model.head"):
-        return lm_head_logits(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+        x, _ = block(cfg, x, lp, li, attend, stacks)
+    return final_logits(cfg, params, x) if logits else None
 
 
 def count_keys(cache: SdarCache, batch: int, bl: int, start: int) -> None:

@@ -28,8 +28,8 @@ With the tracer on (``utils/profiling.py``), each call of the inference
 entry point is a ``model.forward`` span with its counters
 (:func:`count_pass`), and :func:`forward` records ``model.embed``, one
 ``model.attn`` (``attn_norm`` through the residual add) and one
-``model.ffn`` (``ffn_norm`` through the FFN's add) a layer, and
-``model.head`` (final norm, slice, LM head).
+``model.ffn`` (``ffn_norm`` through the FFN's add) a layer, both in
+:func:`block`, and ``model.head`` (final norm, slice, LM head).
 
 The SDAR family (``cfg.block_length`` > 0) runs the same blocks with
 block-causal attention (``ops/attention.py``): blocks of ``block_length``
@@ -38,8 +38,10 @@ runner's left padding a generated block starts right after the prompt when
 the padded prompt length is a multiple of the block length (the SDAR
 sampler pads it so); positions restart at each row's first real token and
 pad keys are never seen; logits are unshifted (position i predicts token
-i).  Its cached decode is ``models/sdar_cache.py``, built from the helpers
-here.
+i).  Every pass runs the layer body :func:`block`, each with its own
+attention: the full forward here, the dual cache's refresh and cached step
+(``models/block_cache.py``) and SDAR's prefill and block pass
+(``models/sdar_cache.py``).
 
 Under a ``parallel/`` mesh whose model axis is above 1 the forward takes
 this rank's shard of the parameters (``parallel/sharding.py``): a
@@ -214,6 +216,12 @@ def lm_head_logits(params: dict, x: torch.Tensor,
     return qdot(x, head)
 
 
+def final_logits(cfg: ModelConfig, params: dict, x: torch.Tensor) -> torch.Tensor:
+    """The cache passes' head: final norm, then f32 vocab logits."""
+    with span("model.head"):
+        return lm_head_logits(params, rms_norm(x, params["final_norm"], cfg.norm_eps))
+
+
 def _project(x: torch.Tensor, w) -> torch.Tensor:
     """``x @ w`` in x's dtype: a bf16 product for plain weights, the f32
     ``qdot`` rounded once for quantized ones (as the reference's
@@ -271,11 +279,15 @@ def embed_tokens(params: dict, input_ids: torch.Tensor,
     return reduce_from_model(rows).to(embed.dtype)
 
 
-def _attn_project(cfg: ModelConfig, h: torch.Tensor, lp: dict, tp: int = 1):
+def _attn_project(cfg: ModelConfig, h: torch.Tensor, lp: dict,
+                  plan: Optional[TPPlan] = None):
     """QKV projection: [B, S, D] → q [B, S, H, Dh], k/v [B, S, KV, Dh],
-    biased and qk-normed per config, unrotated.  ``tp`` > 1: ``lp`` holds
-    this rank's H/tp and KV/tp heads (the qk-norm gain is per head dim,
-    so head sharding leaves it whole)."""
+    biased and qk-normed per config, unrotated.  Under a plan that shards
+    attention, ``lp`` holds this rank's H/tp and KV/tp heads (the qk-norm
+    gain is per head dim, so head sharding leaves it whole)."""
+    tp = 1
+    if plan is not None and plan.attn:
+        h, tp = copy_to_model(h), plan.tp
     B, S, _ = h.shape
     H, KV, Dh = cfg.num_heads // tp, cfg.num_kv_heads // tp, cfg.head_dim
     q = _project(h, lp["wq"])
@@ -297,6 +309,14 @@ def _attn_project(cfg: ModelConfig, h: torch.Tensor, lp: dict, tp: int = 1):
         q = rms_norm(q, gq, cfg.norm_eps)
         k = rms_norm(k, gk, cfg.norm_eps)
     return q, k, v
+
+
+def _out_project(a: torch.Tensor, w, plan: Optional[TPPlan] = None) -> torch.Tensor:
+    """Attention output @ ``wo``; under a plan that shards attention, this
+    rank's f32 partial product summed over the model group."""
+    if plan is not None and plan.attn:
+        return reduce_from_model(qdot(a, w)).to(a.dtype)
+    return _project(a, w)
 
 
 def _swiglu_partial(h: torch.Tensor, lp: dict) -> torch.Tensor:
@@ -329,33 +349,23 @@ def _ffn_block(cfg: ModelConfig, x, lp, moe_stacks=None, layer_index=None,
     return swiglu(h, lp["w_gate"], lp["w_up"], lp["w_down"]), zero
 
 
-def _block_forward(cfg: ModelConfig, x, lp, cos, sin, mask, moe_stacks=None,
-                   layer_index=None, plan: Optional[TPPlan] = None):
-    """One transformer block. x: [B, S, D]; lp: this layer's params.
-
-    ``plan`` (tensor parallelism under the active mesh): a head-sharded
-    attention computes this rank's heads, ``wo``'s f32 partial product is
-    summed over the model group before the residual add, and the FFN's
-    likewise (``_ffn_block``); parts the plan replicates run whole."""
+def block(cfg: ModelConfig, x: torch.Tensor, lp: dict, li: int, attend: Callable,
+          stacks: Optional[dict] = None, plan: Optional[TPPlan] = None):
+    """Layer ``li`` of every pass on x [B, S, D]: (x, the FFN's aux loss).
+    ``lp``: the layer's params; ``stacks``: the whole MoE expert stacks or
+    None.  ``attend(li, q, k, v)`` → [B, S, H, Dh] is the pass's attention
+    on the layer's unrotated projections: where it rotates, which keys it
+    reads, whether K and V go into a cache.  ``plan`` (tensor parallelism
+    under the active mesh): a head-sharded attention computes this rank's
+    heads, ``wo``'s partial product and the FFN's are summed over the model
+    group before their residual adds; parts the plan replicates run whole."""
     B, S, _ = x.shape
     with span("model.attn"):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        if plan is not None and plan.attn:
-            q, k, v = _attn_project(cfg, copy_to_model(h), lp, plan.tp)
-            attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
-                                 causal=cfg.causal, rope=(cos, sin),
-                                 block_len=cfg.block_length)
-            o = qdot(attn_out.reshape(B, S, -1), lp["wo"])
-            x = x + reduce_from_model(o).to(x.dtype)
-        else:
-            q, k, v = _attn_project(cfg, h, lp)
-            attn_out = attention(q, k, v, mask=mask, impl=cfg.attn_impl,
-                                 causal=cfg.causal, rope=(cos, sin),
-                                 block_len=cfg.block_length)
-            x = x + _project(attn_out.reshape(B, S, cfg.num_heads * cfg.head_dim),
-                             lp["wo"])
+        q, k, v = _attn_project(cfg, h, lp, plan)
+        x = x + _out_project(attend(li, q, k, v).reshape(B, S, -1), lp["wo"], plan)
     with span("model.ffn"):
-        ffn_out, aux = _ffn_block(cfg, x, lp, moe_stacks, layer_index, plan)
+        ffn_out, aux = _ffn_block(cfg, x, lp, stacks, li, plan)
         x = x + ffn_out
     return x, aux
 
@@ -368,8 +378,14 @@ def _save_dots(ctx, op, *args, **kwargs):
 def run_blocks(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
                attn_mask, plan: Optional[TPPlan] = None,
                remat: "bool | str" = False):
-    """The ``cfg.num_layers`` blocks of ``params`` on x: (x, the sum of the
-    layers' aux losses).  ``remat``: see :func:`forward`."""
+    """The ``cfg.num_layers`` blocks of ``params`` on x with the full
+    forward's attention: (x, the sum of the layers' aux losses).
+    ``remat``: see :func:`forward`."""
+
+    def attend(li, q, k, v):
+        return attention(q, k, v, mask=attn_mask, impl=cfg.attn_impl,
+                         causal=cfg.causal, rope=(cos, sin), block_len=cfg.block_length)
+
     layers, stacks = split_layers(cfg, params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ckpt_kw = dict(use_reentrant=False)
@@ -378,11 +394,9 @@ def run_blocks(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
                                         _save_dots)
     for li, lp in enumerate(layers):
         if remat:
-            x, aux_l = checkpoint(_block_forward, cfg, x, lp, cos, sin,
-                                  attn_mask, stacks, li, plan, **ckpt_kw)
+            x, aux_l = checkpoint(block, cfg, x, lp, li, attend, stacks, plan, **ckpt_kw)
         else:
-            x, aux_l = _block_forward(cfg, x, lp, cos, sin, attn_mask, stacks,
-                                      li, plan)
+            x, aux_l = block(cfg, x, lp, li, attend, stacks, plan)
         aux = aux + aux_l
     return x, aux
 

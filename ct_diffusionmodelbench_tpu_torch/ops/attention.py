@@ -95,10 +95,8 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         impl = "reference"
     elif impl == "auto":
         impl = "flash" if q.is_cuda else "reference"
-    if impl == "flash" and block_len:
-        return flash_attention(q, k, v, mask=mask, rope=rope, block_len=block_len)
     if impl == "flash":
-        return flash_attention(q, k, v, mask=mask, rope=rope)
+        return flash_attention(q, k, v, mask=mask, rope=rope, block_len=block_len)
     if impl == "reference":
         if rope is not None:
             # Imported here: models/__init__ imports the transformer, which

@@ -13,7 +13,7 @@ computing masked garbage.  The mesh is (data, stage, model): the batch
 splits over ``data`` inside each microbatch, as the reference's
 ``P(None, DATA_AXIS)`` on the [M, mb, ...] stack, and ``model > 1`` adds
 megatron tensor parallelism within a stage for dense blocks (the port's
-``_block_forward`` with a column / row plan).
+``models/transformer.py::block`` with a column / row plan).
 
 The embedding, the final norm and the LM head are replicated on every
 stage (the reference's ``pp_param_specs``): every stage embeds the tokens,

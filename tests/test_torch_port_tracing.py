@@ -8,7 +8,9 @@
   profile: both are on the clock of ``torch.profiler``'s Kineto events.
 - A ``llada-tiny`` decode (fixed schedule, threshold decoding, CFG, the
   block cache) and a ``dream-tiny`` decode record one ``sampler.step`` a
-  model call, a ``model.forward`` count equal to the calls, and runner
+  model call, a ``model.forward`` count equal to the calls, under each
+  ``model.forward`` one ``model.embed`` and ``model.head`` and one
+  ``model.attn`` and ``model.ffn`` a layer, and runner
   counters equal to the batch's shape and its mask's zeros; their outputs
   with the tracer on equal those with it off, bit for bit.
 """
@@ -246,15 +248,12 @@ def test_decode_span_tree(case):
     assert {spans[spans[i].parent].name for i, n in enumerate(names)
             if n in ("model.forward", "sampler.select")} == {"sampler.step"}
     assert counters["model.positions"] == sum(calls.positions)
-    if case == "block-cache":
-        assert not {"model.embed", "model.attn", "model.ffn", "model.head"} & set(names)
-    else:
-        layers = runner.cfg.num_layers
-        for name, per_pass in (("model.embed", 1), ("model.attn", layers),
-                               ("model.ffn", layers), ("model.head", 1)):
-            found = [i for i, n in enumerate(names) if n == name]
-            assert len(found) == per_pass * passes
-            assert {names[spans[i].parent] for i in found} == {"model.forward"}
+    layers = runner.cfg.num_layers
+    for name, per_pass in (("model.embed", 1), ("model.attn", layers),
+                           ("model.ffn", layers), ("model.head", 1)):
+        found = [i for i, n in enumerate(names) if n == name]
+        assert len(found) == per_pass * passes
+        assert {names[spans[i].parent] for i in found} == {"model.forward"}
     assert counters["runner.positions"] == B * (P + GEN)
     assert counters["runner.pad_positions"] == int((mask == 0).sum()) == 5
     for s in spans:
