@@ -249,6 +249,14 @@ Phases, in order:
    pass (its 1024 slots over m_pad 9216 rows of D 2048), bit-equal to its
    plain chain and timed in turns beside it and its bound, each run queued
    behind a sleeping kernel as in phase 31;
+   G4 and G5, the router's top-k and the padded layout with its rows
+   (``ops/grouped_gemm_cuda.py::router_topk``, ``routed_layout``), at the
+   same pass, at the cell's prefill (147456 slots over m_pad 163840,
+   tile_m 128) and at a forward of phase 3's decode (llada-moe-7b's E 64,
+   20480 slots; G5 also with ``drop_foreign``, 32 experts held), each
+   bit-equal to the chain it replaces and timed in turns beside it and its
+   bound (and beside the chain's ``gather_rows``, which writes the pad rows
+   G5 leaves unwritten);
    then an ``sdar-tiny`` decode's exact launches: K12 once a layer for
    every step and commit, the block-causal flash kernel once a layer a
    batch, no other attention kernel.
@@ -256,10 +264,12 @@ Phases, in order:
 Every exact launch check above expects the glue kernels too
 (:func:`glue_launches`): a block pass launches ``rms_norm`` twice (four
 times with qk-norm) and ``swiglu_act`` once (a dense FFN or a shared
-expert), an MoE block G3 (``moe_combine``) once, and a forward its final
-norm once more; remat runs a block again, so the glue follows the
-attention kernel's count a layer.  The kernels-against-plain checks give
-the plain run the combine's plain chain too.
+expert), an MoE block G3 (``moe_combine``), G4 (``moe_topk``) and G5
+(``moe_layout``) once, and a forward its final norm once more; remat runs
+a block again, so the glue follows the attention kernel's count a layer.
+The kernels-against-plain checks give the plain run the chains of the
+combine, the router's top-k and the layout too (``combine_plain``,
+``router_topk_plain``, ``routed_layout_plain``).
 
 The bf16 MoE weights are freed before phase 11, the int8 ones before
 phase 15, Dream's before phase 16, the dense training state before phase
@@ -435,12 +445,13 @@ def glue_launches(cfg, blocks: int, forwards: int) -> dict:
     the forwards, twice under remat): two norms a block, four with
     qk-norm; one activation a block with a dense FFN or a shared expert;
     the final norm once a forward.  An MoE model's blocks each launch G3
-    (``moe_combine``) once too; a dense model's count has no such key."""
+    (``moe_combine``), G4 (``moe_topk``) and G5 (``moe_layout``) once too;
+    a dense model's count has no such keys."""
     act = not cfg.is_moe or cfg.num_shared_experts > 0
     glue = {"rms_norm": (4 if cfg.qk_norm else 2) * blocks + forwards,
             "swiglu_act": blocks if act else 0}
     if cfg.is_moe:
-        glue["moe_combine"] = blocks
+        glue.update(moe_combine=blocks, moe_topk=blocks, moe_layout=blocks)
     return glue
 
 
@@ -945,6 +956,7 @@ def depth_phase(cfg, params, ids, dev, mask=None, logit_start=PROMPT,
                 label="2-layer logits, kernels vs plain"):
     """2-layer full-width forward: kernels against their plain versions, the
     plain run on the kernel run's expert choice."""
+    from ct_diffusionmodelbench_tpu_torch.models import moe
     from ct_diffusionmodelbench_tpu_torch.ops import attention
     from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
     from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
@@ -954,7 +966,9 @@ def depth_phase(cfg, params, ids, dev, mask=None, logit_start=PROMPT,
     seams = [(attention, "flash_attention", fa.flash_attention_plain),
              (gg, "grouped_gateup", gg.grouped_gateup_plain),
              (gg, "grouped_down", gg.grouped_down_plain),
-             (gg, "combine", gg.combine_plain)]
+             (gg, "combine", gg.combine_plain),
+             (gg, "routed_layout", gg.routed_layout_plain),
+             (moe, "router_topk", gg.router_topk_plain)]
     cfg2 = cfg.replace(num_layers=2)  # the first two layers of the full stacks
     return pinned_compare(label, cfg2, ids, dev, params, params, seams, mask=mask,
                           logit_start=logit_start)
@@ -1293,13 +1307,16 @@ def chat_depth_phase(cfg, params, ids, dev):
     """2-layer full-width forward through K3 and K9 against the same forward
     on their plain versions, the plain run on the kernel run's expert
     choice."""
+    from ct_diffusionmodelbench_tpu_torch.models import moe
     from ct_diffusionmodelbench_tpu_torch.ops import attention
     from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
     from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
 
     seams = [(attention, "flash_attention", fa.flash_attention_plain),
              (gg, "grouped_ffn_fused", gg.grouped_ffn_fused_plain),
-             (gg, "combine", gg.combine_plain)]
+             (gg, "combine", gg.combine_plain),
+             (gg, "routed_layout", gg.routed_layout_plain),
+             (moe, "router_topk", gg.router_topk_plain)]
     return pinned_compare("2-layer logits through K3 and K9, kernels vs plain",
                           cfg.replace(num_layers=2), ids, dev, params, params, seams)
 
@@ -1760,7 +1777,7 @@ def block_cache_phase(cfg, params, dev, exact):
     versions."""
     from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
     from ct_diffusionmodelbench_tpu_torch.io.tokenizer import Tokenizer
-    from ct_diffusionmodelbench_tpu_torch.models import make_cached_fns
+    from ct_diffusionmodelbench_tpu_torch.models import make_cached_fns, moe
     from ct_diffusionmodelbench_tpu_torch.ops import attention
     from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
     from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
@@ -1827,7 +1844,9 @@ def block_cache_phase(cfg, params, dev, exact):
     seams = [(attention, "flash_attention", fa.flash_attention_plain),
              (gg, "grouped_gateup", gg.grouped_gateup_plain),
              (gg, "grouped_down", gg.grouped_down_plain),
-             (gg, "combine", gg.combine_plain)]
+             (gg, "combine", gg.combine_plain),
+             (gg, "routed_layout", gg.routed_layout_plain),
+             (moe, "router_topk", gg.router_topk_plain)]
     err_logits = pinned_compare("2-layer refresh + cached step logits, kernels vs plain",
                                 cfg2, ids, dev, params, params, seams,
                                 forward=refresh_and_step)
@@ -2049,6 +2068,7 @@ def quant_phase(cfg, qparams, ids, dev):
     """2 layers at full width: the int8 forward against the bf16 forward on
     the dequantized weights (the same function), and the int8 kernels
     against their plain versions; expert choice shared in both."""
+    from ct_diffusionmodelbench_tpu_torch.models import moe
     from ct_diffusionmodelbench_tpu_torch.ops import attention
     from ct_diffusionmodelbench_tpu_torch.ops import flash_attention as fa
     from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
@@ -2072,7 +2092,9 @@ def quant_phase(cfg, qparams, ids, dev):
     seams = [(attention, "flash_attention", fa.flash_attention_plain),
              (gg, "grouped_gateup_q", gg.grouped_gateup_q_plain),
              (gg, "grouped_down_q", gg.grouped_down_q_plain),
-             (gg, "combine", gg.combine_plain)]
+             (gg, "combine", gg.combine_plain),
+             (gg, "routed_layout", gg.routed_layout_plain),
+             (moe, "router_topk", gg.router_topk_plain)]
     err_plain = pinned_compare("2-layer int8 logits, kernels vs plain", cfg2, ids,
                                dev, q2, q2, seams)
     return err_deq, err_plain
@@ -2629,7 +2651,9 @@ def moe_train_depth_phase(cfg, params, dev):
              (gg, "grouped_gateup", gg.grouped_gateup_plain),
              (gg, "grouped_down", gg.grouped_down_plain),
              (ggm, "grouped_mm", ggm.grouped_mm_plain),
-             (ggm, "combine", gg.combine_plain)]
+             (ggm, "combine", gg.combine_plain),
+             (gg, "routed_layout", gg.routed_layout_plain),
+             (moe, "router_topk", gg.router_topk_plain)]
     saved = [getattr(mod, name) for mod, name, _ in seams]
     reset_launch_counts()
     try:
@@ -3350,7 +3374,8 @@ def par_sp_task(rank, out_dir):
     peak = torch.cuda.max_memory_allocated()
     step_s, mesh = list(trainer.step_times), trainer.mesh
     want, p2p = sp_launches_per_rank()
-    want = expected_launches(glue_launches(cfg, 2 * SP_LAYERS * SP_STEPS, SP_STEPS), **want)
+    want = expected_launches(
+        glue_launches(cfg, 2 * SP_LAYERS * SP_STEPS, SP_STEPS), **want)
     if launches != want:
         raise AssertionError(f"rank {rank}: launches {launches}, expected {want}")
     if counts["p2p"] != p2p:
@@ -3434,8 +3459,9 @@ def pp_launches_per_rank(cfg):
     the final norm once a step."""
     n = PP_LAYERS // PP_STAGES * PP_MICRO * PP_STEPS
     return expected_launches(
-        glue_launches(cfg, n, PP_STEPS), flash_attention_fwd=n, flash_attention_bwd_dq=n,
-        flash_attention_bwd_dkv=n, grouped_gateup=n, grouped_down=n)
+        glue_launches(cfg, n, PP_STEPS), flash_attention_fwd=n,
+        flash_attention_bwd_dq=n, flash_attention_bwd_dkv=n, grouped_gateup=n,
+        grouped_down=n)
 
 
 def par_pp_task(rank, out_dir):
@@ -3937,13 +3963,126 @@ def sdar_combine_check(dev, g) -> dict:
     return row
 
 
+# G4 and G5's shapes: (label, config, tokens, experts held by the rank or
+# None for all of them).  sdar30b-eval's cached pass (128 rows: 1024 slots
+# over m_pad 9216, tile_m 64) and prefill (32 × 576 rows: 147456 slots over
+# m_pad 163840, tile_m 128); a forward of phase 3's llada-moe-7b decode
+# (B 8 × S 320 = 2560 rows: 20480 slots, tile_m 64, E 64, the M of phase 2's
+# grouped pair), and the same with expert parallelism over two ranks (32
+# experts here, the other rank's slots dropped).
+ROUTE_SHAPES = (("cached pass", "sdar-30b-a3b", SDAR_B * SDAR_BL, None),
+                ("prefill", "sdar-30b-a3b", SDAR_B * SDAR_P, None),
+                ("llada_moe", "llada-moe-7b", BATCH * SEQ, None),
+                ("llada_moe_ep", "llada-moe-7b", BATCH * SEQ, 32))
+
+
+def route_check(dev, g) -> list:
+    """G4 and G5 at :data:`ROUTE_SHAPES`, routed by a router of the
+    config's width: each kernel bit-equal to the chain it replaces in every
+    output (G4: softmax, stable sort, slice and renormalisation; G5:
+    counting_layout, valid_tiles and gather_rows' real rows, with
+    ``drop_foreign`` where the rank holds part of the experts), then timed
+    in turns beside it and its bound (bytes: the logits read, the
+    probabilities and the top-k written; the indices read, dest written,
+    each token's row read once and its k real rows written).  G5 leaves the
+    pad rows unwritten; the chain's gather_rows, which writes every row, is
+    timed beside it, with the bound that writing every row would have.
+    Each run but the prefill's is queued behind a sleeping kernel, as in
+    phase 31.  Returns G4's and G5's rows: the cached pass's numbers, and
+    each other shape's under its label (G4 at the dropped shape is the
+    unsplit one's and is not run again)."""
+    from ct_diffusionmodelbench_tpu_torch.models import get_config
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+
+    topk = dict(name="moe_topk", source="csrc/moe_route.cu ctdb_moe_topk_kernel",
+                replaces="none (XLA fused the router's softmax and lax.top_k on the TPU)",
+                max_abs_err=0.0, library_ms=None)
+    layout = dict(name="moe_layout", source="csrc/moe_route.cu ctdb_moe_layout_*_kernel",
+                  replaces="none (XLA fused the padded layout and its row gather on the TPU)",
+                  max_abs_err=0.0, library_ms=None)
+    for shape, preset, n, held in ROUTE_SHAPES:
+        cfg = get_config(preset)
+        D, E, k, norm = (cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok,
+                         cfg.norm_topk_prob)
+        router = (torch.randn((D, E), generator=g, device=dev) * D ** -0.5).to(torch.bfloat16)
+        x = torch.randn((n, D), generator=g, device=dev).to(torch.bfloat16)
+        logits = torch.matmul(x.float(), router.float())
+        want = gg.router_topk_plain(logits, k, norm)
+        equal = all(torch.equal(a, b) for a, b in zip(gg.router_topk_cuda(logits, k, norm),
+                                                       want))
+        idx, m, e, drop = want[1], n * k, E, held is not None
+        if drop:
+            e = held
+            idx = torch.where(idx < e, idx, torch.full_like(idx, e))
+        tile_m = gg.layout_tile_m(m)
+        xs, dest, tile_expert, sizes, valid = gg.routed_layout_cuda(x, idx, e, tile_m, drop)
+        w_xs, w_dest, w_te, w_sizes, w_valid = gg.routed_layout_plain(x, idx, e, tile_m, drop)
+        m_pad = w_xs.shape[0]
+        same = xs.shape == w_xs.shape and torch.equal(xs[dest], w_xs[dest]) and all(
+            torch.equal(a, b) for a, b in ((dest, w_dest), (tile_expert, w_te),
+                                           (sizes, w_sizes), (valid, w_valid)))
+        dropped = int((idx == e).sum()) if drop else 0
+        print(f"  {shape}: moe_topk (G4) N {n}, E {E}, k {k}: bit-equal to the chain "
+              f"{equal}; moe_layout (G5) M {m}, E {e}{', drop_foreign' if drop else ''} "
+              f"({dropped} slots dropped), tile_m {tile_m}, m_pad {m_pad}: indices and real "
+              f"rows equal to the chain {same}", flush=True)
+        if not (equal and same):
+            raise AssertionError(f"moe_topk / moe_layout ({shape}): a kernel disagrees "
+                                 "with its chain")
+        del xs, w_xs
+
+        fns = {"layout": lambda: gg.routed_layout_cuda(x, idx, e, tile_m, drop),
+               "layout_plain": lambda: gg.routed_layout_plain(x, idx, e, tile_m, drop),
+               "gather_rows": lambda: gg.gather_rows(x, w_dest, k, m_pad)}
+        if not drop:
+            fns.update(topk=lambda: gg.router_topk_cuda(logits, k, norm),
+                       topk_plain=lambda: gg.router_topk_plain(logits, k, norm))
+        if shape == "cached pass":
+            host_us_per_launch({"moe_topk": fns["topk"], "moe_layout": fns["layout"]})
+        if shape == "prefill":
+            t = time_turns(fns, iters=5)
+        else:
+            # 20 chains of some thirty launches stay inside the sleep's time.
+            t = time_turns_queued(fns, iters=20)
+        l_bound, l_by = bound_ms(0.0, 2 * 8 * m + 2 * n * D + 2 * m * D)
+        all_rows, _ = bound_ms(0.0, 2 * 8 * m + 2 * n * D + 2 * m_pad * D)
+        got = {"layout": dict(ms=t["layout"], plain_ms=t["layout_plain"], bound_ms=l_bound,
+                              bound_by=l_by, bound_share=l_bound / t["layout"], m=m,
+                              m_pad=m_pad, tile_m=tile_m,
+                              pad_rows=dict(written=False, gather_rows_ms=t["gather_rows"],
+                                            all_rows_bound_ms=all_rows))}
+        line = (f"  {shape}: moe_layout {t['layout']:.4f} ms, chain "
+                f"{t['layout_plain']:.4f} ms (its gather_rows alone, every one of the "
+                f"{m_pad} rows: {t['gather_rows']:.4f} ms), bound {l_bound:.4f} ms ({l_by}; "
+                f"{all_rows:.4f} with every row written)")
+        if not drop:
+            t_bound, t_by = bound_ms(0.0, 2 * 4 * n * E + (4 + 8) * n * k)
+            got["topk"] = dict(ms=t["topk"], plain_ms=t["topk_plain"], bound_ms=t_bound,
+                               bound_by=t_by, bound_share=t_bound / t["topk"], n=n)
+            line = (f"  {shape}: moe_topk {t['topk']:.4f} ms, chain {t['topk_plain']:.4f} ms, "
+                    f"bound {t_bound:.4f} ms ({t_by});" + line[len(shape) + 3:])
+        print(line, flush=True)
+        for row, name in ((topk, "topk"), (layout, "layout")):
+            if name not in got:
+                continue
+            if shape == "cached pass":
+                row.update(got[name])
+            else:
+                row[shape] = got[name]
+        del x, logits, want, idx, w_dest, fns
+        gc.collect()
+        torch.cuda.empty_cache()
+    return [topk, layout]
+
+
 def sdar_phase(dev):
     """Phase 32: K12 and the block-causal flash mode at sdar30b-eval's
     shapes against their plain versions, timed, K1 and K2 at its cached
     pass (:func:`sdar_grouped_check`), G3 there
-    (:func:`sdar_combine_check`), and an sdar-tiny decode's exact
-    launches.  Returns (K12's, the flash mode's and G3's rows, {K1 / K2:
-    their row at the cached pass})."""
+    (:func:`sdar_combine_check`), G4 and G5 there and at its prefill
+    (:func:`sdar_route_check`), and an sdar-tiny decode's exact
+    launches.  Returns (K12's, the flash mode's, G3's, G4's and G5's rows,
+    {K1 / K2: their row at the cached pass})."""
     import numpy as np
 
     from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
@@ -4018,6 +4157,7 @@ def sdar_phase(dev):
     del k, v, q, qp, kp, vp, got, want
     grouped = sdar_grouped_check(dev, g)
     rows.append(sdar_combine_check(dev, g))
+    rows += route_check(dev, g)
 
     runner = ModelRunner.random_init("sdar-tiny", seed=3, device=dev)
     cfg = runner.cfg
@@ -4071,7 +4211,8 @@ def main() -> int:
     libs = [grouped_gemm_cuda.LIBRARY, grouped_gemm_cuda.LIBRARY_Q,
             grouped_gemm_cuda.LIBRARY_FUSED, flash_attention.LIBRARY,
             flash_attention.LIBRARY_DIRECT, flash_attention_bwd.LIBRARY, glue.LIBRARY,
-            cache_attention.LIBRARY, grouped_gemm_cuda.LIBRARY_COMBINE]
+            cache_attention.LIBRARY, grouped_gemm_cuda.LIBRARY_COMBINE,
+            grouped_gemm_cuda.LIBRARY_ROUTE]
     build_s = build_all(libs)
     print(f"kernel build: {build_s:.2f} s", flush=True)
     ptxas_report(libs)
@@ -4271,7 +4412,8 @@ def main() -> int:
             "k8_ms", "dream_geometry", "dream_launches", "no_skip_ms", "valid_tiles",
             "block_cache_launches", "threshold_launches", "refresh_no_rope", "cached_step",
             "moe_training", "sharded", "sharded_training", "sequence_parallel",
-            "pipeline", "keys", "sdar")
+            "pipeline", "keys", "sdar", "prefill", "llada_moe", "llada_moe_ep", "n", "m",
+            "m_pad", "tile_m", "pad_rows")
     print("first designs' ms (constants from PERF.md, not measured in this run): "
           + json.dumps(FIRST_DESIGN_MS), flush=True)
     print(json.dumps({"kernels": [{k: r[k] for k in keys if k in r}

@@ -32,6 +32,7 @@ import torch.nn.functional as F
 from ct_diffusionmodelbench_tpu_torch.models.layers import swiglu
 from ct_diffusionmodelbench_tpu_torch.ops.glue import swiglu_act
 from ct_diffusionmodelbench_tpu_torch.ops.grouped_gemm import grouped_expert_ffn
+from ct_diffusionmodelbench_tpu_torch.ops.grouped_gemm_cuda import router_topk
 from ct_diffusionmodelbench_tpu_torch.ops.quant import dequantize_tensor, is_quantized, qdot
 from ct_diffusionmodelbench_tpu_torch.parallel.comm import (
     copy_to_model, reduce_from_model, sum_over_data, sum_over_seq)
@@ -40,19 +41,14 @@ from ct_diffusionmodelbench_tpu_torch.parallel.mesh import current_mesh, current
 
 def router_probs(x: torch.Tensor, w_router: torch.Tensor, top_k: int,
                  norm_topk: bool):
-    """(topk_probs [N,K] f32, topk_idx [N,K], full_probs [N,E] f32).
+    """(topk_probs [N,K] f32, topk_idx [N,K] int64, full_probs [N,E] f32).
 
-    Top-k through a stable descending sort: ties go to the lowest expert
-    index, as ``jax.lax.top_k`` orders them (``torch.topk`` on CUDA does not
-    promise that)."""
+    The f32 logits' softmax and top-k through a stable descending sort:
+    ties go to the lowest expert index, as ``jax.lax.top_k`` orders them
+    (``ops/grouped_gemm_cuda.py::router_topk``: G4 on the card unless the
+    logits need a gradient)."""
     logits = torch.matmul(x.float(), w_router.float())
-    probs = torch.softmax(logits, dim=-1)
-    sorted_p, order = torch.sort(probs, dim=-1, descending=True, stable=True)
-    topk_probs = sorted_p[:, :top_k]
-    topk_idx = order[:, :top_k]
-    if norm_topk:
-        topk_probs = topk_probs / topk_probs.sum(dim=-1, keepdim=True)
-    return topk_probs, topk_idx, probs
+    return router_topk(logits, top_k, norm_topk)
 
 
 def load_balancing_loss(full_probs: torch.Tensor, topk_idx: torch.Tensor,

@@ -6,7 +6,8 @@ down kernels, their int8 weight-only forms and the fused megakernel).  The
 padded layout is the reference's, row for row:
 ``tile_m`` 64 (128 for M ≥ 65536), ``m_pad = round_up(M, tile_m) +
 E·tile_m``, every ``tile_m``-row tile owned by one expert
-(``tile_expert``), padding rows duplicating token 0 with combine weight 0.
+(``tile_expert``), padding rows with combine weight 0 (they duplicate
+token 0 on the CPU; the card leaves them unwritten, see G5 below).
 
 Kernels (``csrc/grouped_gemm.cu``): :func:`grouped_gateup` computes
 ``silu(x @ Wg[e]) * (x @ Wu[e])`` and :func:`grouped_down` ``h @ Wd[e]``,
@@ -41,6 +42,18 @@ The weighted combine after the down product, :func:`combine`, is G3 on the
 card (``csrc/moe_combine.cu``): one kernel for the reference's k-loop of
 gathers, scales and f32 sums, bit-equal to :func:`combine_plain`, the
 PyTorch chain that the CPU takes; it too raises under grad.
+
+The routing before the expert kernels is two kernels on the card
+(``csrc/moe_route.cu``).  :func:`router_topk` is G4: the router's softmax,
+stable top-k and renormalisation from its f32 logits, bit-equal to
+:func:`router_topk_plain`, the chain that the CPU takes; under grad its
+backward (:func:`router_topk_backward`) is the chain's autograd written
+out, so training launches G4 too.  :func:`routed_layout` is G5: the padded
+layout, the pad-skip vector and the row gather in one call, equal to
+:func:`routed_layout_plain` (:func:`counting_layout`, :func:`valid_tiles`
+and :func:`gather_rows`), which the CPU takes, in every index and every
+real row; G5 leaves the pad rows unwritten, since only rows of the expert
+kernels' outputs that the combine never reads depend on them.
 """
 
 from __future__ import annotations
@@ -77,6 +90,18 @@ FUSED_MAX_F = 8 * 128
 LIBRARY_COMBINE = Library("moe_combine.cu")
 COMBINE_KERNEL = Kernel("moe_combine", LIBRARY_COMBINE, "ctdb_moe_combine",
                         [PTR] * 4 + [INT] * 3 + [INT64] * 3 + [INT] * 2 + [PTR])
+LIBRARY_ROUTE = Library("moe_route.cu")
+TOPK_KERNEL = Kernel("moe_topk", LIBRARY_ROUTE, "ctdb_moe_topk",
+                     [PTR] * 4 + [INT] * 4 + [PTR])
+LAYOUT_KERNEL = Kernel("moe_layout", LIBRARY_ROUTE, "ctdb_moe_layout",
+                       [PTR, INT64, INT64] + [PTR] * 4 + [INT64] + [PTR] * 3 + [INT] * 7
+                       + [PTR])
+# G4 keeps a row of at most 32 columns a lane in one warp and repeats
+# PyTorch's sum of a k-slice of at most 32; G5 ranks 2048 routing slots a
+# count CTA, keeps per-warp counts of at most 512 groups (the experts and the
+# dropped group) and stages at most 64 rows a token.
+TOPK_MAX_EXPERTS, TOPK_MAX_K = 1024, 32
+LAYOUT_CHUNK, LAYOUT_MAX_GROUPS, LAYOUT_MAX_K = 2048, 512, 64
 
 
 def _round_up(x, m):
@@ -484,6 +509,170 @@ def gather_rows(x: torch.Tensor, dest: torch.Tensor, k: int, m_pad: int):
     return x.index_select(0, src)
 
 
+# ---------------------------------------------------------------------------
+# routing: the router's top-k (G4) and the padded layout with its rows (G5)
+# ---------------------------------------------------------------------------
+
+def router_topk_plain(logits: torch.Tensor, top_k: int, norm_topk: bool):
+    """(topk_probs [N, K] f32, topk_idx [N, K] int64, full_probs [N, E] f32)
+    of the router's f32 logits: softmax, a stable descending sort (ties to
+    the lowest expert index, as ``jax.lax.top_k`` orders them; ``torch.topk``
+    on CUDA does not promise that), the first K, renormalised to sum 1 with
+    ``norm_topk``."""
+    probs = torch.softmax(logits, dim=-1)
+    sorted_p, order = torch.sort(probs, dim=-1, descending=True, stable=True)
+    topk_probs = sorted_p[:, :top_k]
+    topk_idx = order[:, :top_k]
+    if norm_topk:
+        topk_probs = topk_probs / topk_probs.sum(dim=-1, keepdim=True)
+    return topk_probs, topk_idx, probs
+
+
+def router_topk_cuda(logits: torch.Tensor, top_k: int, norm_topk: bool):
+    """Launch G4 (``ctdb_moe_topk``) on contiguous f32 logits [N, E], E at
+    most ``TOPK_MAX_EXPERTS``, 1 ≤ K ≤ min(E, ``TOPK_MAX_K``); returns
+    contiguous outputs.  Shape and dtype are checked before the device."""
+    if logits.ndim != 2 or logits.dtype != torch.float32:
+        raise ValueError(f"logits must be float32 [N, E], got {logits.dtype} "
+                         f"{tuple(logits.shape)}")
+    n, e = logits.shape
+    if not 1 <= e <= TOPK_MAX_EXPERTS:
+        raise ValueError(f"G4 takes 1 to {TOPK_MAX_EXPERTS} experts, got {e}")
+    if not 1 <= top_k <= min(e, TOPK_MAX_K):
+        raise ValueError(f"top_k must lie in [1, {min(e, TOPK_MAX_K)}], got {top_k}")
+    dev = logits.device
+    if dev.type != "cuda":
+        raise ValueError(f"router_topk_cuda needs a CUDA tensor, got {dev}")
+    if not logits.is_contiguous():
+        raise ValueError("logits must be contiguous")
+    probs = torch.empty_like(logits)
+    topk_probs = torch.empty((n, top_k), dtype=torch.float32, device=dev)
+    topk_idx = torch.empty((n, top_k), dtype=torch.int64, device=dev)
+    if n:
+        TOPK_KERNEL(logits.data_ptr(), probs.data_ptr(), topk_probs.data_ptr(),
+                    topk_idx.data_ptr(), n, e, top_k, int(bool(norm_topk)),
+                    torch.cuda.current_stream(dev).cuda_stream)
+    return topk_probs, topk_idx, probs
+
+
+def router_topk_backward(probs, topk_idx, norm_topk: bool, g_topk, g_probs):
+    """The logits' gradient of :func:`router_topk_plain` from the saved
+    softmax ``probs`` and ``topk_idx`` and the cotangents of (topk_probs,
+    full_probs): the chain's autograd op by op (the renormalisation's
+    quotient and sum, the sort's scatter, the softmax's backward)."""
+    if norm_topk:
+        raw = probs.gather(-1, topk_idx)
+        s = raw.sum(dim=-1, keepdim=True)
+        g_topk = g_topk / s + (-g_topk * ((raw / s) / s)).sum(dim=-1, keepdim=True)
+    g = torch.zeros_like(probs).scatter_(-1, topk_idx, g_topk) + g_probs
+    return torch._softmax_backward_data(g, probs, -1, probs.dtype)
+
+
+class _RouterTopk(torch.autograd.Function):
+    """G4 forward, :func:`router_topk_backward` backward."""
+
+    @staticmethod
+    def forward(ctx, logits, top_k, norm_topk):
+        topk_probs, topk_idx, probs = router_topk_cuda(logits, top_k, norm_topk)
+        ctx.mark_non_differentiable(topk_idx)
+        ctx.save_for_backward(probs, topk_idx)
+        ctx.norm_topk = norm_topk
+        return topk_probs, topk_idx, probs
+
+    @staticmethod
+    @torch.autograd.function.once_differentiable
+    def backward(ctx, g_topk, _, g_probs):
+        probs, topk_idx = ctx.saved_tensors
+        return (router_topk_backward(probs, topk_idx, ctx.norm_topk, g_topk, g_probs),
+                None, None)
+
+
+def router_topk(logits: torch.Tensor, top_k: int, norm_topk: bool):
+    """The router's top-k from its f32 logits [N, E] (see
+    :func:`router_topk_plain`).  G4 on the card, bit-equal to the chain run
+    there, with or without grad; the chain itself on the CPU."""
+    if logits.device.type == "cpu":
+        return router_topk_plain(logits, top_k, norm_topk)
+    if torch.is_grad_enabled() and logits.requires_grad:
+        return _RouterTopk.apply(logits, top_k, norm_topk)
+    return router_topk_cuda(logits, top_k, norm_topk)
+
+
+def routed_layout_cuda(x: torch.Tensor, topk_idx: torch.Tensor, e: int, tile_m: int,
+                       drop_foreign: bool = False):
+    """Launch G5 (``ctdb_moe_layout``): x contiguous bf16 or f32 [N, D] with
+    16-byte rows, 16-byte aligned; ``topk_idx`` int64 [N, K] of any strides,
+    K at most ``LAYOUT_MAX_K``.  Returns :func:`routed_layout`'s tuple; the
+    pad rows of x_padded are left as allocated.  Shapes, dtypes and sizes
+    are checked before the device."""
+    if x.ndim != 2:
+        raise ValueError(f"x must be [N, D], got {tuple(x.shape)}")
+    dtype_code("x", x.dtype)
+    n, d = x.shape
+    if (d * x.element_size()) % 16:
+        raise ValueError(f"G5 copies 16-byte words: a row of x holds {d * x.element_size()} "
+                         "bytes")
+    if topk_idx.dtype != torch.int64 or topk_idx.ndim != 2 or topk_idx.shape[0] != n:
+        raise ValueError(f"topk_idx must be int64 [{n}, K], got {topk_idx.dtype} "
+                         f"{tuple(topk_idx.shape)}")
+    k = topk_idx.shape[1]
+    if not 1 <= k <= LAYOUT_MAX_K:
+        raise ValueError(f"G5 takes 1 to {LAYOUT_MAX_K} slots a token, got {k}")
+    groups = e + 1 if drop_foreign else e
+    if e < 1 or groups > LAYOUT_MAX_GROUPS:
+        raise ValueError(f"G5 takes 1 to {LAYOUT_MAX_GROUPS} groups, got {groups}")
+    if tile_m < 1:
+        raise ValueError(f"tile_m must be positive, got {tile_m}")
+    m = n * k
+    m_pad = padded_rows(m, groups, tile_m)
+    if m_pad >= 2 ** 31:
+        raise ValueError(f"m_pad {m_pad} needs 64-bit row indices")
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"routed_layout_cuda needs CUDA tensors, got {dev}")
+    if topk_idx.device != dev:
+        raise ValueError(f"topk_idx must be on {dev}")
+    if not x.is_contiguous() or x.data_ptr() % 16:
+        raise ValueError("x must be contiguous and 16-byte aligned")
+    tiles = m_pad // tile_m
+    chunks = max(1, -(-m // LAYOUT_CHUNK))
+    x_padded = torch.empty((m_pad, d), dtype=x.dtype, device=dev)
+    dest = torch.empty(m, dtype=torch.int64, device=dev)
+    # One int32 allocation for the chunks' bases and the three outputs.
+    base, sizes, tile_expert, tile_valid = torch.empty(
+        chunks * groups + e + 2 * tiles, dtype=torch.int32, device=dev).split(
+            [chunks * groups, e, tiles, tiles])
+    LAYOUT_KERNEL(topk_idx.data_ptr(), topk_idx.stride(0), topk_idx.stride(1), x.data_ptr(),
+                  x_padded.data_ptr(), dest.data_ptr(), base.data_ptr(), base.numel(),
+                  sizes.data_ptr(), tile_expert.data_ptr(), tile_valid.data_ptr(), n, k,
+                  groups, e, tile_m, tiles, d * x.element_size() // 16,
+                  torch.cuda.current_stream(dev).cuda_stream)
+    return x_padded, dest, tile_expert, sizes, tile_valid
+
+
+def routed_layout_plain(x: torch.Tensor, topk_idx: torch.Tensor, e: int,
+                        tile_m: int = TILE_M, drop_foreign: bool = False):
+    """:func:`routed_layout` as the PyTorch chain: :func:`counting_layout`,
+    :func:`gather_rows` (pad rows hold token 0) and :func:`valid_tiles`."""
+    dest, tile_expert, sizes, m_pad = counting_layout(topk_idx, e, tile_m, drop_foreign)
+    x_padded = gather_rows(x, dest, topk_idx.shape[1], m_pad)
+    return x_padded, dest, tile_expert, sizes, valid_tiles(sizes, tile_expert, tile_m, m_pad)
+
+
+def routed_layout(x: torch.Tensor, topk_idx: torch.Tensor, e: int, tile_m: int = TILE_M,
+                  drop_foreign: bool = False):
+    """The expert kernels' inputs: (x_padded [m_pad, D], dest [N·K] int64,
+    tile_expert, sizes [E], tile_valid), m_pad being :func:`padded_rows`.
+    The CPU takes :func:`routed_layout_plain`; G5 on the card gives the
+    same indices and real rows and leaves the pad rows unwritten (the
+    combine never reads what they feed).  Forward only (see
+    :func:`_refuse_grad`)."""
+    if x.device.type == "cpu":
+        return routed_layout_plain(x, topk_idx, e, tile_m, drop_foreign)
+    _refuse_grad("routed_layout", x)
+    return routed_layout_cuda(x, topk_idx, e, tile_m, drop_foreign)
+
+
 def combine_plain(out_padded, dest, topk_probs, n: int, k: int, dtype):
     """Weighted unsort: K accumulated f32 gathers of [N, D] (the reference's
     ``kloop`` form), as a PyTorch chain."""
@@ -548,9 +737,11 @@ def combine(out_padded, dest, topk_probs, n: int, k: int, dtype):
 def ffn_padded(x, topk_idx, we_gate, we_up, we_down, tile_m: int = TILE_M,
                layer_index: Optional[int] = None, drop_foreign: bool = False):
     """The expert FFN's rows on the padded layout, before the combine:
-    (out_padded [m_pad, D], dest [N·K], group sizes [E], tile_m).  Counting layout, one row gather, the gate/up and down kernels
-    (their int8 forms for quantized ``{"q", "s"}`` weights, which need D and
-    F to be multiples of 128, as the reference's; the fused kernel instead
+    (out_padded [m_pad, D], dest [N·K], group sizes [E], tile_m).  The
+    layout and its rows (:func:`routed_layout`, G5 on the card), then the
+    gate/up and down kernels (their int8 forms for quantized ``{"q", "s"}``
+    weights, which need D and F to be multiples of 128, as the reference's;
+    the fused kernel instead
     under ``CTDB_GROUPED_FUSED=1`` for plain weights with D and F multiples
     of 128 and F at most ``FUSED_MAX_F``, a cluster's reach), each with the
     pad-skip vector.  ``drop_foreign``: see :func:`counting_layout`; the
@@ -564,10 +755,8 @@ def ffn_padded(x, topk_idx, we_gate, we_up, we_down, tile_m: int = TILE_M,
     if quantized and not aligned:
         raise ValueError(f"int8 grouped FFN needs D, F % 128 == 0, got {d}, {fm}")
     tile_m = layout_tile_m(n * k, tile_m)
-    dest, tile_expert, sizes, m_pad = counting_layout(topk_idx, e, tile_m,
-                                                      drop_foreign)
-    xs = gather_rows(x, dest, k, m_pad)
-    valid = valid_tiles(sizes, tile_expert, tile_m, m_pad)
+    xs, dest, tile_expert, sizes, valid = routed_layout(x, topk_idx, e, tile_m,
+                                                        drop_foreign)
     if not quantized and aligned and fm <= FUSED_MAX_F and fused_mode():
         out_padded = grouped_ffn_fused(xs, we_gate, we_up, we_down, tile_expert,
                                        tile_m, layer_index, valid)

@@ -1333,6 +1333,166 @@ def test_combine_kernel_refuses_grad(cuda_device):
         need.requires_grad_(False)
 
 
+# ---------------------------------------------------------------------------
+# The MoE routing: G4 (the router's softmax, stable top-k and
+# renormalisation) and G5 (the padded layout, tile_valid and the real rows),
+# each against the chain it replaces run on the card, bit for bit: G4 repeats
+# PyTorch's warp softmax and its k-slice sum in their order of operations, G5
+# computes integers and copies rows.
+# ---------------------------------------------------------------------------
+
+def _router_logits(dev, n, e, seed, ties=False):
+    """f32 router logits [n, e]; with ``ties`` seven distinct values a row,
+    so many probabilities tie exactly."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if ties:
+        return torch.randint(-3, 4, (n, e), generator=g, device=dev).float() * 0.5
+    return torch.randn((n, e), generator=g, device=dev) * 2
+
+
+@pytest.mark.parametrize("n,e,k,norm,ties", [
+    (128, 128, 8, True, False),
+    (18432, 128, 8, True, False),
+    (2560, 64, 8, False, False),
+    (2560, 64, 8, True, False),
+    (300, 128, 8, True, True),
+    (300, 64, 8, False, True),
+    (77, 8, 2, True, False),
+    (50, 100, 6, True, False),
+    (33, 1024, 32, True, False),
+    (40, 16, 1, True, False),
+], ids=["sdar30b_cached_pass", "sdar30b_prefill", "llada_moe", "llada_moe_norm", "ties_e128",
+        "ties_e64", "tiny_e8_k2", "e100_k6", "e1024_k32", "k1"])
+def test_topk_kernel_is_bit_equal_to_chain(cuda_device, n, e, k, norm, ties):
+    """G4 against the chain on the card: the same expert order (ties to the
+    lower expert), the same softmax and top-k probabilities, bit for bit."""
+    logits = _router_logits(cuda_device, n, e, seed=n + e + k, ties=ties)
+    reset_launch_counts()
+    probs, idx, full = gg.router_topk(logits, k, norm)
+    assert KERNELS["moe_topk"].launches == 1
+    want_probs, want_idx, want_full = gg.router_topk_plain(logits, k, norm)
+    assert idx.dtype == torch.int64 and torch.equal(idx, want_idx)
+    assert torch.equal(full, want_full)
+    assert torch.equal(probs, want_probs)
+    if ties:
+        assert (want_full[:, :, None] == want_full[:, None, :]).sum() > n * e
+
+
+@pytest.mark.parametrize("norm", [True, False], ids=["norm", "no_norm"])
+def test_router_launches_its_kernel_under_grad(cuda_device, norm):
+    """Logits that need a gradient launch G4 too: its forward is the
+    chain's bit for bit, and its backward (``router_topk_backward``) gives
+    the router's weight the chain's gradient bit for bit, from a loss on
+    the top-k and on the full probabilities (the aux loss's use); under
+    no_grad the same outputs."""
+    dev = cuda_device
+    g = torch.Generator(device=dev).manual_seed(4)
+    x = torch.randn((64, 128), generator=g, device=dev, dtype=torch.bfloat16)
+    w = torch.randn((128, 64), generator=g, device=dev, dtype=torch.bfloat16)
+    w.requires_grad_(True)
+    g_topk = torch.randn((64, 8), generator=g, device=dev)
+    g_full = torch.randn((64, 64), generator=g, device=dev)
+
+    def run():
+        out = moe.router_probs(x, w, 8, norm)
+        loss = (out[0] * g_topk).sum() + (out[2] * g_full).sum()
+        return out, torch.autograd.grad(loss, w)[0]
+
+    reset_launch_counts()
+    (probs, idx, full), grad = run()
+    assert KERNELS["moe_topk"].launches == 1 and probs.requires_grad
+    assert not idx.requires_grad
+    with pytest.MonkeyPatch.context() as m:
+        m.setattr(moe, "router_topk", gg.router_topk_plain)
+        want, want_grad = run()
+    assert KERNELS["moe_topk"].launches == 1
+    assert all(torch.equal(a, b) for a, b in zip((probs, idx, full), want))
+    assert grad.abs().max() > 0 and torch.equal(grad, want_grad)
+    with torch.no_grad():
+        got = moe.router_probs(x, w, 8, norm)
+    assert KERNELS["moe_topk"].launches == 2
+    assert all(torch.equal(a, b.detach()) for a, b in zip(got, (probs, idx, full)))
+
+
+def _layout_inputs(dev, n, k, e, d, case, seed):
+    """(x bf16 [n, d], topk_idx [n, k]) routed by the router's chain, its
+    strided top-k slice as it comes; ``drop``: experts e .. 2e - 1 lie on
+    another rank (slot id e); ``one_expert``: every slot on expert 5."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    x = torch.randn((n, d), generator=g, device=dev, dtype=torch.bfloat16)
+    if case == "one_expert":
+        return x, torch.full((n, k), 5, dtype=torch.int64, device=dev)
+    logits = torch.randn((n, 2 * e if case == "drop" else e), generator=g, device=dev)
+    _, idx, _ = gg.router_topk_plain(logits, k, True)
+    if case == "drop":
+        idx = torch.where(idx < e, idx, torch.full_like(idx, e))
+    return x, idx
+
+
+@pytest.mark.parametrize("n,k,e,d,case,tile_m", [
+    (128, 8, 128, 2048, "router", 64),
+    (18432, 8, 128, 2048, "router", 128),
+    (2560, 8, 64, 2048, "router", 64),
+    (300, 8, 64, 2048, "drop", 64),
+    (300, 1, 128, 64, "one_expert", 64),
+    (257, 1, 128, 64, "router", 64),
+    (5, 8, 8, 64, "router", 64),
+], ids=["sdar30b_cached_pass", "sdar30b_prefill", "llada_moe_m20480", "drop_foreign",
+        "one_expert", "k1", "tiny"])
+def test_layout_kernel_is_bit_equal_to_chain(cuda_device, n, k, e, d, case, tile_m):
+    """G5 against counting_layout, valid_tiles and gather_rows run on the
+    card: every index bit-equal, every real row of x_padded exact.  Shapes:
+    sdar30b-eval's cached pass (1024 slots, m_pad 9216) and prefill (147456
+    slots over 72 count CTAs, tile_m 128), LLaDA-MoE's M 20480, dropped
+    slots, one expert holding every slot, k 1 and a single tile."""
+    drop = case == "drop"
+    x, idx = _layout_inputs(cuda_device, n, k, e, d, case, seed=n + k + e)
+    assert gg.layout_tile_m(n * k) == tile_m
+    reset_launch_counts()
+    xs, dest, tile_expert, sizes, valid = gg.routed_layout(x, idx, e, tile_m, drop)
+    assert KERNELS["moe_layout"].launches == 1
+    want_dest, want_te, want_sizes, m_pad = gg.counting_layout(idx, e, tile_m, drop)
+    assert xs.shape == (m_pad, d)
+    for got, want in ((dest, want_dest), (tile_expert, want_te), (sizes, want_sizes),
+                      (valid, gg.valid_tiles(want_sizes, want_te, tile_m, m_pad))):
+        assert got.dtype == want.dtype and torch.equal(got, want)
+    want_xs = gg.gather_rows(x, want_dest, k, m_pad)
+    assert torch.equal(xs[dest], want_xs[dest])
+
+
+def test_layout_pad_rows_are_never_read(cuda_device):
+    """G5 leaves x_padded's pad rows unwritten.  Filled with NaN (the
+    allocator hands the layout a freed NaN block of the same size), K1, K2
+    with tile_valid and G3 still give the chain's output bit for bit, whose
+    pad rows hold token 0: a row's products read only that row, and the
+    combine reads only the real rows."""
+    dev, n, k, e, d, f = cuda_device, 128, 8, 128, 256, 128
+    g = torch.Generator(device=dev).manual_seed(5)
+    x, idx = _layout_inputs(dev, n, k, e, d, "router", seed=6)
+    probs, _, _ = gg.router_topk_plain(torch.randn((n, e), generator=g, device=dev), k, True)
+    wg, wu = (_bf16_experts(g, dev, (), e, d, f) for _ in range(2))
+    wd = _bf16_experts(g, dev, (), e, f, d)
+    tile_m = gg.layout_tile_m(n * k)
+    m_pad = gg.padded_rows(n * k, e, tile_m)
+    nan = torch.full((m_pad, d), float("nan"), dtype=torch.bfloat16, device=dev)
+    ptr = nan.data_ptr()
+    del nan
+    xs, dest, tile_expert, _, valid = gg.routed_layout(x, idx, e, tile_m)
+    assert xs.data_ptr() == ptr
+    pad = torch.ones(m_pad, dtype=torch.bool, device=dev)
+    pad[dest] = False
+    assert torch.isnan(xs[pad].float()).all()
+
+    def ffn(x_padded):
+        h = gg.grouped_gateup(x_padded, wg, wu, tile_expert, tile_m, None, valid)
+        out = gg.grouped_down(h, wd, tile_expert, tile_m, None, valid)
+        return gg.combine(out, dest, probs, n, k, x.dtype)
+
+    got = ffn(xs)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, ffn(gg.gather_rows(x, dest, k, m_pad)))
+
+
 @pytest.mark.parametrize("remat", [False, True, "dots"])
 def test_tiny_moe_train_step_kernels_against_plain(cuda_device, monkeypatch, remat):
     """Loss and every gradient of a bf16 ``llada-moe-tiny`` through the
@@ -1379,6 +1539,9 @@ def test_tiny_moe_train_step_kernels_against_plain(cuda_device, monkeypatch, rem
         loss_k, grads_k = loss_and_grads()
     with monkeypatch.context() as m:
         m.setattr(moe, "router_probs", pinned_router)
+        m.setattr(moe, "router_topk", gg.router_topk_plain)
+        m.setattr(gg, "routed_layout", gg.routed_layout_plain)
+        m.setattr(ggm, "combine", gg.combine_plain)
         m.setattr(fa, "flash_attention_fwd", lambda *a, **kw: fa.flash_attention_plain(
             *a, with_lse=True, **kw))
         m.setattr(fab, "flash_attention_bwd", fab.flash_attention_bwd_plain)
@@ -1405,13 +1568,15 @@ def test_tiny_moe_train_step_kernels_against_plain(cuda_device, monkeypatch, rem
     launches = {n: kk.launches for n, kk in KERNELS.items() if kk.launches}
     # The glue (ops/glue.py): per microbatch's forward the qk-norms and the
     # blocks' two norms (4 a layer) and the final norm, and the shared
-    # expert's activation; G3, the combine, once a block's forward; under
-    # remat the blocks run again in the backward.
+    # expert's activation; G3, the combine, G4, the router's top-k, and G5,
+    # the layout, once a block's forward; under remat the blocks run again
+    # in the backward.
     assert launches == {"grouped_gateup": fwd, "grouped_down": fwd,
                         "flash_attention_fwd": fwd,
                         "flash_attention_bwd_dq": cfg.num_layers * 2,
                         "flash_attention_bwd_dkv": cfg.num_layers * 2,
-                        "rms_norm": 4 * fwd + 2, "swiglu_act": fwd, "moe_combine": fwd}
+                        "rms_norm": 4 * fwd + 2, "swiglu_act": fwd, "moe_combine": fwd,
+                        "moe_topk": fwd, "moe_layout": fwd}
     assert torch.isfinite(metrics["loss"]) and float(metrics["grad_norm"]) > 0
     assert state.count == 1
 

@@ -116,8 +116,9 @@ def test_block_causal_flash_kernel_matches_plain(cuda_device, b, s, h, kv, dh, b
 def test_sdar_tiny_decode_launches(cuda_device, monkeypatch):
     """An sdar-tiny decode on the card runs K12 once a layer for every step
     and commit, the block-causal flash kernel once a layer for the prefill,
-    and no other attention: no SDPA, no reference attention; K1, K2 and G3
-    (the combine) once a layer for every pass."""
+    and no other attention: no SDPA, no reference attention; K1, K2, G3
+    (the combine), G4 (the router's top-k) and G5 (the layout) once a layer
+    for every pass."""
     runner = ModelRunner.random_init("sdar-tiny", seed=3, device=cuda_device)
     cfg = runner.cfg
     rng = np.random.default_rng(0)
@@ -138,6 +139,7 @@ def test_sdar_tiny_decode_launches(cuda_device, monkeypatch):
     assert launches["flash_attention_fwd"] == launches["flash_attention_direct"] == 0
     assert launches["grouped_gateup"] == launches["grouped_down"] == cfg.num_layers * (1 + passes)
     assert launches["moe_combine"] == cfg.num_layers * (1 + passes)
+    assert launches["moe_topk"] == launches["moe_layout"] == cfg.num_layers * (1 + passes)
     assert not called and not (out[:, 16:] == cfg.mask_token_id).any()
 
 
