@@ -260,6 +260,21 @@ Phases, in order:
    then an ``sdar-tiny`` decode's exact launches: K12 once a layer for
    every step and commit, the block-causal flash kernel once a layer a
    batch, no other attention kernel.
+33. Latent attention (kanana30b-ctx32k's kernels): K13
+   (``ops/mla_attention.py::mla_cache_attention``) at the cell's cached
+   passes (B 4, a block of 4 at 32 heads against 32516 and 32768 latent
+   keys of 576, left padding of 0-16128 a row), the prefill kernel (K8's
+   block-causal design at q/k heads of 192 and v heads of 128) against its
+   plain version on a 4096-position row and timed at the cell's row (32512
+   positions, 24480 real), and G4's sigmoid mode at the cell's cached pass
+   (16 rows) and prefill row (32512 rows), bit-equal to its chain; each
+   timed in turns beside its plain version, its bound and, for the two
+   attention kernels, SDPA with an explicit mask (a yardstick the port
+   never calls); then a decode of kanana's first two layers at full width
+   (one dense, one of 128 experts; B 2, P 256, 4 blocks of 4 steps) with
+   its exact launches: K13 once a layer for every step and commit, the
+   prefill kernel once a layer a batch, G4's sigmoid mode, G5, G3, K1 and
+   K2 once an MoE block, three norms a block.
 
 Every exact launch check above expects the glue kernels too
 (:func:`glue_launches`): a block pass launches ``rms_norm`` twice (four
@@ -542,6 +557,8 @@ def ptxas_report(libs) -> None:
     watch = {"flash_fwd_kernel<128>": "16flash_fwd_kernelILi128ELb0E",
              "flash_fwd_kernel<128, block-causal>": "16flash_fwd_kernelILi128ELb1E",
              "cache_attn_kernel<128>": "17cache_attn_kernelILi128E",
+             "mla_prefill_kernel<192, 128>": "18mla_prefill_kernelILi192ELi128E",
+             "mla_latent_attn_kernel (K13)": "22mla_latent_attn_kernel",
              "flash_bwd_dq_kernel<128>": "19flash_bwd_dq_kernelILi128E",
              "flash_bwd_dkv_kernel<128>": "20flash_bwd_dkv_kernelILi128E",
              "flash_direct_kernel<128, 1, resident> (chat)":
@@ -898,13 +915,13 @@ def pinned_compare(label, cfg2, ids, dev, params_a, params_b, seams_b, mask=None
     chosen, flipped = [], []  # per layer: run a's top-k; tokens whose own
                               # run-b choice differs from it
 
-    def recording_router(x, w, top_k, norm_topk):
-        out = router_probs(x, w, top_k, norm_topk)
+    def recording_router(x, w, top_k, norm_topk, *mode):
+        out = router_probs(x, w, top_k, norm_topk, *mode)
         chosen.append(out[1])
         return out
 
-    def pinned_router(x, w, top_k, norm_topk):
-        _, own, probs = router_probs(x, w, top_k, norm_topk)
+    def pinned_router(x, w, top_k, norm_topk, *mode):
+        _, own, probs = router_probs(x, w, top_k, norm_topk, *mode)
         idx = chosen[len(flipped)]
         flipped.append((own.sort(dim=-1).values
                         != idx.sort(dim=-1).values).any(dim=-1))
@@ -1023,8 +1040,8 @@ def capture_layer(fwd, params, ids, mask, li, **kw):
     routed, attended = [], []
     router_probs, flash = moe.router_probs, attention.flash_attention
 
-    def recording_router(x, w, top_k, norm_topk):
-        out = router_probs(x, w, top_k, norm_topk)
+    def recording_router(x, w, top_k, norm_topk, *mode):
+        out = router_probs(x, w, top_k, norm_topk, *mode)
         routed.append((x, out[1]))
         return out
 
@@ -1901,8 +1918,8 @@ def int8_kernel_phase(runner, dev):
     seen = []
     router_probs = moe.router_probs
 
-    def recording_router(x, w, top_k, norm_topk):
-        out = router_probs(x, w, top_k, norm_topk)
+    def recording_router(x, w, top_k, norm_topk, *mode):
+        out = router_probs(x, w, top_k, norm_topk, *mode)
         seen.append((x, out[1]))
         return out
 
@@ -2631,13 +2648,13 @@ def moe_train_depth_phase(cfg, params, dev):
     router = moe.router_probs
     chosen, used = [], []
 
-    def recording_router(x, w, top_k, norm_topk):
-        out = router(x, w, top_k, norm_topk)
+    def recording_router(x, w, top_k, norm_topk, *mode):
+        out = router(x, w, top_k, norm_topk, *mode)
         chosen.append(out[1])
         return out
 
-    def pinned_router(x, w, top_k, norm_topk):
-        _, _, probs = router(x, w, top_k, norm_topk)
+    def pinned_router(x, w, top_k, norm_topk, *mode):
+        _, _, probs = router(x, w, top_k, norm_topk, *mode)
         idx = chosen[len(used)]
         used.append(idx)
         topk_probs = probs.gather(-1, idx)
@@ -4189,6 +4206,186 @@ def sdar_phase(dev):
     return rows, grouped
 
 
+# kanana30b-ctx32k's shapes: B 4 rows padded to P 32512 (S 32768 with the
+# 256 generated), a block of 4 at 32 heads; each row's left padding for
+# prompts of 16384, 20448, 24480 and 32512 tokens, one a stratum.
+KANANA_B, KANANA_BL, KANANA_H = 4, 4, 32
+KANANA_P, KANANA_S = 32512, 32768
+KANANA_FIRST = (16128, 12064, 8032, 0)
+
+
+def sdpa_ms(fn):
+    """SDPA's time as a yardstick, or None where no backend of this torch
+    takes the shapes (the port never calls it)."""
+    try:
+        return time_turns({"library": fn}, iters=3)["library"]
+    except RuntimeError as e:
+        print(f"  SDPA not timed: {str(e).splitlines()[0]}", flush=True)
+        return None
+
+
+def mla_phase(dev):
+    """Phase 33: K13, the latent prefill kernel and G4's sigmoid mode at
+    kanana30b-ctx32k's shapes against their plain versions, timed, and a
+    two-layer kanana decode's exact launches.  Returns their rows."""
+    import numpy as np
+
+    from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
+    from ct_diffusionmodelbench_tpu_torch.io.tokenizer import Tokenizer
+    from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
+    from ct_diffusionmodelbench_tpu_torch.models.mla import prefill_pairs
+    from ct_diffusionmodelbench_tpu_torch.ops import grouped_gemm_cuda as gg
+    from ct_diffusionmodelbench_tpu_torch.ops import mla_attention as ma
+    from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import reset_launch_counts
+
+    g = torch.Generator(device=dev).manual_seed(33)
+    B, bl, H = KANANA_B, KANANA_BL, KANANA_H
+    scale = 192 ** -0.5
+
+    def bf16(*shape):
+        return torch.randn(shape, generator=g, device=dev).to(torch.bfloat16)
+
+    cache_row = dict(name="mla_cache_attention",
+                     source="csrc/mla_attention.cu ctdb_mla_cache_attention (K13)",
+                     replaces="none (the JAX package has no latent attention)")
+    first = torch.tensor(KANANA_FIRST, dtype=torch.int32, device=dev)
+    q = bf16(B, bl, H, 576)
+    cache = bf16(B, KANANA_S, 576)
+    for n_keys in (KANANA_P + bl, KANANA_S):
+        end = torch.tensor([n_keys], dtype=torch.int32, device=dev)
+        err = compare(f"mla_cache_attention, {n_keys} keys",
+                      ma.mla_cache_attention_cuda(q, cache, first, end, 512, scale),
+                      ma.mla_cache_attention_plain(q, cache, first, end, 512, scale),
+                      **FLASH_TOL)
+        keys = int((n_keys - first).sum())
+        bound, by = bound_ms(2.0 * bl * keys * H * (576 + 512),
+                             2 * (keys * 576 + B * bl * H * (576 + 512)))
+        t = time_turns({
+            "kernel": lambda: ma.mla_cache_attention_cuda(q, cache, first, end, 512, scale),
+            "plain": lambda: ma.mla_cache_attention_plain(q, cache, first, end, 512, scale)},
+            iters=10)
+        seen = (torch.arange(n_keys, device=dev)[None] >= first[:, None].long())
+        qt = q.reshape(B, 1, bl * H, 576)
+        kt = cache[:, None, :n_keys]
+        vt = kt[..., :512]
+        lib = sdpa_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+            qt, kt, vt, attn_mask=seen[:, None, None, :], scale=scale))
+        row = dict(keys=n_keys, max_abs_err=err, ms=t["kernel"], plain_ms=t["plain"],
+                   library_ms=lib, bound_ms=bound, bound_by=by, bound_share=bound / t["kernel"])
+        if n_keys == KANANA_S:
+            cache_row["last_commit"] = row
+        else:
+            cache_row.update(row)
+        print(f"  mla_cache_attention {n_keys} keys: {t['kernel']:.4f} ms, plain "
+              f"{t['plain']:.4f}, SDPA {lib}, bound {bound:.4f} ({by}), "
+              f"{bound / t['kernel']:.4f} of its bound", flush=True)
+    del q, cache
+
+    pre_row = dict(name="mla_prefill_attention",
+                   source="csrc/mla_attention.cu ctdb_mla_prefill_attention (K8's block-causal "
+                          "design at 192 / 128)",
+                   replaces="none (the JAX package has no latent attention)")
+    S, start = 4096, torch.tensor([1000], dtype=torch.int32, device=dev)
+    qs, ks, vs = bf16(1, S, H, 192), bf16(1, S, H, 192), bf16(1, S, H, 128)
+    got = ma.mla_prefill_attention_cuda(qs, ks, vs, start, bl, scale)
+    want = ma.mla_prefill_attention_plain(qs, ks, vs, start, bl, scale)
+    err = compare("mla_prefill_attention, a 4096-position row", got, want, **FLASH_TOL)
+    t = time_turns({
+        "kernel": lambda: ma.mla_prefill_attention_cuda(qs, ks, vs, start, bl, scale),
+        "plain": lambda: ma.mla_prefill_attention_plain(qs, ks, vs, start, bl, scale)},
+        iters=3)
+    pre_row.update(max_abs_err=err, check_shape=dict(S=S, first=1000, ms=t["kernel"],
+                                                     plain_ms=t["plain"]))
+    del qs, ks, vs, got, want
+    P, real = KANANA_P, KANANA_P - KANANA_FIRST[2]
+    start = torch.tensor([KANANA_FIRST[2]], dtype=torch.int32, device=dev)
+    qs, ks, vs = bf16(1, P, H, 192), bf16(1, P, H, 192), bf16(1, P, H, 128)
+    pairs = prefill_pairs([real], P, bl)
+    bound, by = bound_ms(2.0 * pairs * H * 320, 2 * real * H * 640)
+    t = time_turns({"kernel": lambda: ma.mla_prefill_attention_cuda(qs, ks, vs, start, bl,
+                                                                     scale)}, iters=3)
+    pos = torch.arange(P, device=dev)
+    vis = ((pos[None, :] < ((pos // bl + 1) * bl)[:, None]) & (pos[None, :] >= KANANA_FIRST[2])
+           ) | torch.eye(P, dtype=torch.bool, device=dev)
+    qt, kt, vt = qs.transpose(1, 2), ks.transpose(1, 2), vs.transpose(1, 2)
+    lib = sdpa_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=vis[None, None], scale=scale))
+    del vis
+    pre_row.update(ms=t["kernel"], plain_ms=None, library_ms=lib, bound_ms=bound, bound_by=by,
+                   bound_share=bound / t["kernel"], prefill=dict(P=P, real=real, pairs=pairs))
+    print(f"  mla_prefill_attention, a row of {P} ({real} real): {t['kernel']:.4f} ms, SDPA "
+          f"{lib}, bound {bound:.4f} ({by}), {bound / t['kernel']:.4f} of its bound; at S "
+          f"{S}: {pre_row['check_shape']['ms']:.4f} ms, plain "
+          f"{pre_row['check_shape']['plain_ms']:.4f}", flush=True)
+    del qs, ks, vs, qt, kt, vt
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    topk_row = dict(name="moe_topk_sigmoid",
+                    source="csrc/moe_route.cu ctdb_moe_topk_sigmoid_kernel (G4's sigmoid mode)",
+                    replaces="none (DeepSeek-V3's router; the JAX package has none)",
+                    max_abs_err=0.0, library_ms=None)
+    cfg = get_config("kanana-2-30b-a3b")
+    D, E, k = cfg.hidden_size, cfg.num_experts, cfg.num_experts_per_tok
+    for shape, n in (("cached pass", B * bl), ("prefill", P)):
+        router = (torch.randn((D, E), generator=g, device=dev) * D ** -0.5).to(torch.bfloat16)
+        logits = torch.matmul(torch.randn((n, D), generator=g, device=dev).float(),
+                              router.float())
+        bias = 0.02 * torch.randn((E,), generator=g, device=dev)
+        args = (logits, k, True, True, bias, cfg.routed_scaling_factor)
+        equal = all(torch.equal(a, b) for a, b in zip(gg.router_topk_cuda(*args),
+                                                       gg.router_topk_plain(*args)))
+        print(f"  {shape}: moe_topk_sigmoid N {n}, E {E}, k {k}: bit-equal to the chain "
+              f"{equal}", flush=True)
+        if not equal:
+            raise AssertionError(f"moe_topk_sigmoid ({shape}): the kernel disagrees with "
+                                 "its chain")
+        t = time_turns_queued({"kernel": lambda: gg.router_topk_cuda(*args),
+                               "plain": lambda: gg.router_topk_plain(*args)}, iters=20)
+        bound, by = bound_ms(0.0, 2 * 4 * n * E + 4 * E + (4 + 8) * n * k)
+        got = dict(ms=t["kernel"], plain_ms=t["plain"], bound_ms=bound, bound_by=by,
+                   bound_share=bound / t["kernel"], n=n)
+        if shape == "cached pass":
+            topk_row.update(got)
+        else:
+            topk_row[shape] = got
+        print(f"  {shape}: moe_topk_sigmoid {t['kernel']:.4f} ms, chain {t['plain']:.4f} ms, "
+              f"bound {bound:.4f} ms ({by})", flush=True)
+
+    cfg = get_config("kanana-2-30b-a3b", num_layers=2)
+    params = init_params(cfg, seed=3, device=dev)
+    params["blocks"]["e_bias"].normal_(0.0, 0.02, generator=g)
+    runner = ModelRunner(cfg, params, Tokenizer.byte_fallback(
+        vocab_size=cfg.vocab_size, eos_token_id=cfg.eos_token_id), device=dev)
+    ids = torch.randint(10, 128000, (2, 256), generator=g, device=dev).cpu().numpy()
+    tmask = np.ones((2, 256), np.int32)
+    tmask[0, :61] = 0
+    reset_launch_counts()
+    out = runner.generate_ids(ids, attn_mask=tmask, gen_length=16, steps=16, block_length=bl)
+    steps, passes = 16, 16 + 4            # a step runs the final norm, a commit not
+    L, moe = cfg.num_layers, cfg.num_layers - cfg.dense_layers
+    blocks, moe_blocks = L * (1 + passes), moe * (1 + passes)
+    want = expected_launches(
+        {"rms_norm": 3 * blocks + steps, "swiglu_act": blocks},
+        mla_cache_attention=L * passes, mla_prefill_attention=L,
+        moe_topk_sigmoid=moe_blocks, moe_layout=moe_blocks, moe_combine=moe_blocks,
+        grouped_gateup=moe_blocks, grouped_down=moe_blocks)
+    seen = launch_counts()
+    print(f"  kanana 2-layer decode (2 rows, 4 blocks of 4 steps): launches "
+          f"{launch_counts(nonzero=True)}", flush=True)
+    if seen != want:
+        raise AssertionError(f"kanana 2-layer launches {seen}, expected {want}")
+    if (out[:, 256:] == cfg.mask_token_id).any():
+        raise AssertionError("kanana 2-layer decode: a mask id is left")
+    rows = [cache_row, pre_row, topk_row]
+    for r in rows:
+        r["launches"] = seen[r["name"]]
+    del runner, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return rows
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4201,7 +4398,8 @@ def main() -> int:
     from ct_diffusionmodelbench_tpu_torch.eval import ModelRunner
     from ct_diffusionmodelbench_tpu_torch.models import get_config, init_params
     from ct_diffusionmodelbench_tpu_torch.ops import (
-        cache_attention, flash_attention, flash_attention_bwd, glue, grouped_gemm_cuda)
+        cache_attention, flash_attention, flash_attention_bwd, glue, grouped_gemm_cuda,
+        mla_attention)
     from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import KERNELS, build_all
 
     dev = torch.device("cuda", 0)
@@ -4212,7 +4410,7 @@ def main() -> int:
             grouped_gemm_cuda.LIBRARY_FUSED, flash_attention.LIBRARY,
             flash_attention.LIBRARY_DIRECT, flash_attention_bwd.LIBRARY, glue.LIBRARY,
             cache_attention.LIBRARY, grouped_gemm_cuda.LIBRARY_COMBINE,
-            grouped_gemm_cuda.LIBRARY_ROUTE]
+            grouped_gemm_cuda.LIBRARY_ROUTE, mla_attention.LIBRARY]
     build_s = build_all(libs)
     print(f"kernel build: {build_s:.2f} s", flush=True)
     ptxas_report(libs)
@@ -4406,6 +4604,10 @@ def main() -> int:
             r["sdar"] = sdar_grouped[r["name"]]
     results += sdar
     print(f"  phase 32: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    print("latent attention kernels:", flush=True)
+    results += mla_phase(dev)
+    print(f"  phase 33: {time.perf_counter() - t0:.1f} s", flush=True)
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "kernel_ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
             "tflops", "bound_share", "sdpa_backward_ms", "training_shape", "pair_ms",

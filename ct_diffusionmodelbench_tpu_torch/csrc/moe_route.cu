@@ -181,6 +181,91 @@ ctdb_moe_topk_kernel(const float* __restrict__ logits, float* __restrict__ probs
   }
 }
 
+// G4's sigmoid mode (DeepSeek-V3's noaux_tc router with one group):
+// logits [N, E] f32 -> probs [N, E] the sigmoid scores, topk_idx the k
+// columns of the largest scores + bias[c] (bias null: + nothing), in the
+// stable descending order of ctdb_moe_topk_kernel, topk_probs the chosen
+// unbiased scores, with norm divided by their sum + 1e-20 (PyTorch's
+// k-slice sum, as above), times scale.  Each step is the chain's op on the
+// card: 1 / (1 + expf(-x)) for torch.sigmoid, one f32 add for the bias,
+// __fadd_rn / __fdiv_rn / __fmul_rn for the renormalisation and the scale.
+template <int kIter>
+__global__ void __launch_bounds__(kTopkThreads)
+ctdb_moe_topk_sigmoid_kernel(const float* __restrict__ logits, const float* __restrict__ bias,
+                             float* __restrict__ probs, float* __restrict__ topk_probs,
+                             long long* __restrict__ topk_idx, int n, int e, int k, int norm,
+                             float scale) {
+  const int lane = threadIdx.x % kWarp;
+  const long long row =
+      static_cast<long long>(blockIdx.x) * (kTopkThreads / kWarp) + threadIdx.x / kWarp;
+  if (row >= n) return;  // a whole warp
+  const float* src = logits + row * e;
+  float* dst = probs + row * e;
+  float v[kIter];   // the scores
+  float u[kIter];   // the selection values
+  unsigned live = 0;
+#pragma unroll
+  for (int it = 0; it < kIter; ++it) {
+    const int c = lane + it * kWarp;
+    v[it] = 0.0f;
+    u[it] = 0.0f;
+    if (c < e) {
+      v[it] = __fdiv_rn(1.0f, __fadd_rn(1.0f, expf(-src[c])));
+      u[it] = bias == nullptr ? v[it] : __fadd_rn(v[it], bias[c]);
+      dst[c] = v[it];
+      live |= 1u << it;
+    }
+  }
+
+  float mine = 0.0f;
+  int mine_idx = 0;
+  for (int r = 0; r < k; ++r) {
+    float bu = 0.0f, bv = 0.0f;
+    int bi = -1;
+#pragma unroll
+    for (int it = 0; it < kIter; ++it) {
+      const int c = lane + it * kWarp;
+      if (((live >> it) & 1u) && (bi < 0 || ahead(u[it], c, bu, bi))) {
+        bu = u[it];
+        bv = v[it];
+        bi = c;
+      }
+    }
+#pragma unroll
+    for (int off = kWarp / 2; off > 0; off /= 2) {
+      const float ou = __shfl_xor_sync(kFull, bu, off);
+      const float ov = __shfl_xor_sync(kFull, bv, off);
+      const int oi = __shfl_xor_sync(kFull, bi, off);
+      if (oi >= 0 && (bi < 0 || ahead(ou, oi, bu, bi))) {
+        bu = ou;
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (bi % kWarp == lane) live &= ~(1u << (bi / kWarp));
+    if (lane == r) {
+      mine = bv;
+      mine_idx = bi;
+    }
+  }
+
+  float out = mine;
+  if (norm) {
+    int width = 1;
+    while (width * 2 <= k) width *= 2;
+    const float upper = __shfl_down_sync(kFull, mine, width);
+    float s = lane + width < k ? __fadd_rn(mine, upper) : mine;
+    for (int off = width / 2; off > 0; off /= 2)
+      s = __fadd_rn(s, __shfl_down_sync(kFull, s, off));
+    out = __fdiv_rn(mine, __fadd_rn(__shfl_sync(kFull, s, 0), 1e-20f));
+  }
+  out = __fmul_rn(out, scale);
+  if (lane < k) {
+    topk_probs[row * k + lane] = out;
+    topk_idx[row * k + lane] = mine_idx;
+  }
+}
+
 namespace {
 
 // The layout's tail, by one CTA, from each group's size in shared memory:
@@ -342,9 +427,41 @@ int launch_topk(const float* logits, float* probs, float* topk_probs, long long*
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int kIter>
+int launch_topk_sigmoid(const float* logits, const float* bias, float* probs, float* topk_probs,
+                        long long* topk_idx, int n, int e, int k, int norm, float scale,
+                        cudaStream_t st) {
+  constexpr int rows = kTopkThreads / kWarp;
+  const unsigned blocks = static_cast<unsigned>((static_cast<long long>(n) + rows - 1) / rows);
+  ctdb_moe_topk_sigmoid_kernel<kIter><<<blocks, kTopkThreads, 0, st>>>(
+      logits, bias, probs, topk_probs, topk_idx, n, e, k, norm, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 extern "C" {
+
+// As ctdb_moe_topk, in G4's sigmoid mode: bias [e] f32 or null, scale the
+// routed scaling factor.
+int ctdb_moe_topk_sigmoid(const float* logits, const float* bias, float* probs,
+                          float* topk_probs, long long* topk_idx, int n, int e, int k, int norm,
+                          float scale, void* stream) {
+  if (n < 1 || e < 1 || e > 32 * kWarp || k < 1 || k > e || k > kMaxTopK)
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const int per_lane = (e + kWarp - 1) / kWarp;
+#define CTDB_TOPK_SIGMOID(I)                                                                  \
+  return launch_topk_sigmoid<I>(logits, bias, probs, topk_probs, topk_idx, n, e, k, norm, scale, \
+                                st)
+  if (per_lane <= 1) CTDB_TOPK_SIGMOID(1);
+  if (per_lane <= 2) CTDB_TOPK_SIGMOID(2);
+  if (per_lane <= 4) CTDB_TOPK_SIGMOID(4);
+  if (per_lane <= 8) CTDB_TOPK_SIGMOID(8);
+  if (per_lane <= 16) CTDB_TOPK_SIGMOID(16);
+  CTDB_TOPK_SIGMOID(32);
+#undef CTDB_TOPK_SIGMOID
+}
 
 // logits [n, e] f32 contiguous; probs [n, e], topk_probs [n, k] f32 and
 // topk_idx [n, k] int64, contiguous; 1 <= e <= 1024, 1 <= k <= min(e, 32).

@@ -57,6 +57,7 @@ from ct_diffusionmodelbench_tpu_torch.io.checkpoint import (
 from ct_diffusionmodelbench_tpu_torch.io.tokenizer import Tokenizer, resolve_mask_id
 from ct_diffusionmodelbench_tpu_torch.models.block_cache import make_cached_fns
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig, get_config
+from ct_diffusionmodelbench_tpu_torch.models.mla import interleaved_to_halves
 from ct_diffusionmodelbench_tpu_torch.models.sdar_cache import make_sdar_fns
 from ct_diffusionmodelbench_tpu_torch.models.transformer import (
     init_params, make_forward_fn)
@@ -167,6 +168,9 @@ class ModelRunner:
             self.device = resolve_device(device)
             quantize = quant == "int8" and not is_quantized(params["blocks"]["wq"])
             self.params = place_params(params, self.device, quantize)
+        if cfg.is_mla:
+            # The published interleaved rope columns, in the port's halves.
+            self.params = interleaved_to_halves(cfg, self.params)
         self.forward_fn = make_forward_fn(cfg, device=self.device)
         # Left-pad prompts to a multiple of this (padding is numerically
         # transparent: mask-aware attention, RoPE positions restart).

@@ -1,7 +1,9 @@
-"""Mixture-of-experts FFN block (LLaDA-MoE).
+"""Mixture-of-experts FFN block (LLaDA-MoE; DeepSeek-V3's sigmoid router).
 
 Counterpart of ``models/moe.py``: softmax router → top-k expert probs
-(optionally renormalized), routed experts through the grouped path
+(optionally renormalized; or, port only, DeepSeek-V3's sigmoid scores with
+a selection bias, renormalized and scaled: :func:`router_probs`), routed
+experts through the grouped path
 (``impl="grouped"``, the default on every device) or the dense one-hot
 oracle (``impl="dense"``), the shared expert added on top, and the
 switch-style load-balancing aux loss.  Every piece is differentiable: the
@@ -40,15 +42,19 @@ from ct_diffusionmodelbench_tpu_torch.parallel.mesh import current_mesh, current
 
 
 def router_probs(x: torch.Tensor, w_router: torch.Tensor, top_k: int,
-                 norm_topk: bool):
+                 norm_topk: bool, sigmoid: bool = False,
+                 bias: Optional[torch.Tensor] = None, scale: float = 1.0):
     """(topk_probs [N,K] f32, topk_idx [N,K] int64, full_probs [N,E] f32).
 
     The f32 logits' softmax and top-k through a stable descending sort:
     ties go to the lowest expert index, as ``jax.lax.top_k`` orders them
     (``ops/grouped_gemm_cuda.py::router_topk``: G4 on the card unless the
-    logits need a gradient)."""
+    logits need a gradient).  ``sigmoid``: DeepSeek-V3's router instead,
+    the top-k of the sigmoid scores plus the selection ``bias`` [E], the
+    weights the chosen unbiased scores, renormalized with ``norm_topk``,
+    times ``scale``; ``full_probs`` are then the sigmoid scores."""
     logits = torch.matmul(x.float(), w_router.float())
-    return router_topk(logits, top_k, norm_topk)
+    return router_topk(logits, top_k, norm_topk, sigmoid=sigmoid, bias=bias, scale=scale)
 
 
 def load_balancing_loss(full_probs: torch.Tensor, topk_idx: torch.Tensor,
@@ -113,8 +119,13 @@ def _shared_partial(xc: torch.Tensor, params: dict) -> torch.Tensor:
 
 def moe_block(x: torch.Tensor, params: dict, *, top_k: int, norm_topk: bool,
               impl: str = "auto", layer_index: Optional[int] = None,
-              plan=None):
+              plan=None, sigmoid: bool = False, scale: float = 1.0,
+              routes: Optional[list] = None):
     """x [N, D] → ([N, D], aux_loss scalar).
+
+    ``sigmoid`` / ``scale``: the router of :func:`router_probs`, with the
+    layer's selection bias ``params["e_bias"]`` where it has one.
+    ``routes``: a list that gets the chosen experts, ``topk_idx`` [N, K].
 
     ``layer_index`` with 4-D ``we_*`` stacks keeps the full [L, E, D, Fm]
     stacks intact: the kernels index the layer themselves.
@@ -128,7 +139,9 @@ def moe_block(x: torch.Tensor, params: dict, *, top_k: int, norm_topk: bool,
     split shared expert where it says so; the output is then already summed
     over the model group."""
     topk_probs, topk_idx, full_probs = router_probs(
-        x, params["router"], top_k, norm_topk)
+        x, params["router"], top_k, norm_topk, sigmoid, params.get("e_bias"), scale)
+    if routes is not None:
+        routes.append(topk_idx)
     if impl == "auto":
         impl = "grouped"
     we = [params["we_gate"], params["we_up"], params["we_down"]]

@@ -31,6 +31,13 @@ entry point is a ``model.forward`` span with its counters
 ``model.ffn`` (``ffn_norm`` through the FFN's add) a layer, both in
 :func:`block`, and ``model.head`` (final norm, slice, LM head).
 
+Multi-head latent attention (``cfg.is_mla``: DeepSeek-V3's layers,
+``models/mla.py``) projects q and the latent row in :func:`block` and hands
+them to the pass's attention as ``attend(li, q, latent, None)``; the full
+forward attends in the up-projected form.  An MoE model's first
+``cfg.dense_layers`` layers have a dense FFN (:func:`split_layers`), and
+its router may be DeepSeek-V3's sigmoid one (``models/moe.py``).
+
 The SDAR family (``cfg.block_length`` > 0) runs the same blocks with
 block-causal attention (``ops/attention.py``): blocks of ``block_length``
 positions from the first position of the padded row, so under the
@@ -75,6 +82,7 @@ from torch.utils.checkpoint import (
     CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts)
 
 from ct_diffusionmodelbench_tpu_torch.device import DeviceLike, resolve_device
+from ct_diffusionmodelbench_tpu_torch.models import mla
 from ct_diffusionmodelbench_tpu_torch.models.config import ModelConfig
 from ct_diffusionmodelbench_tpu_torch.models.layers import rms_norm, rope_angles, swiglu
 from ct_diffusionmodelbench_tpu_torch.models.moe import moe_block
@@ -89,6 +97,8 @@ from ct_diffusionmodelbench_tpu_torch.parallel.sharding import TPPlan, tp_plan
 from ct_diffusionmodelbench_tpu_torch.utils.profiling import count, span
 
 EXPERT_STACK_KEYS = ("we_gate", "we_up", "we_down")
+DENSE_FFN_KEYS = ("w_gate", "w_up", "w_down")
+MOE_KEYS = ("router", "e_bias", "ws_gate", "ws_up", "ws_down") + EXPERT_STACK_KEYS
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 # remat="dots": the products whose outputs the backward keeps (no batch
 # dimension, as jax.checkpoint_policies.dots_with_no_batch_dims_saveable).
@@ -126,14 +136,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
 
     L, D, V = cfg.num_layers, cfg.hidden_size, cfg.vocab_size
     Hq, Hkv, Dh = cfg.q_size, cfg.kv_size, cfg.head_dim
-    blocks = {
-        "attn_norm": ones((L, D)),
-        "wq": dense((L, D, Hq), D, "wq"),
-        "wk": dense((L, D, Hkv), D, "wk"),
-        "wv": dense((L, D, Hkv), D, "wv"),
-        "wo": dense((L, Hq, D), Hq, "wo"),
-        "ffn_norm": ones((L, D)),
-    }
+    if cfg.is_mla:
+        H, R, P = cfg.num_heads, cfg.kv_lora_rank, cfg.qk_rope_head_dim
+        Hv = H * cfg.v_head_dim
+        blocks = {
+            "attn_norm": ones((L, D)),
+            "wq": dense((L, D, H * cfg.qk_head_dim), D, "wq"),
+            "wkv_a": dense((L, D, R + P), D, "wkv_a"),
+            "kv_norm": ones((L, R)),
+            "wkv_b": dense((L, R, H * (cfg.qk_nope_head_dim + cfg.v_head_dim)), R, "wkv_b"),
+            "wo": dense((L, Hv, D), Hv, "wo"),
+            "ffn_norm": ones((L, D)),
+        }
+    else:
+        blocks = {
+            "attn_norm": ones((L, D)),
+            "wq": dense((L, D, Hq), D, "wq"),
+            "wk": dense((L, D, Hkv), D, "wk"),
+            "wv": dense((L, D, Hkv), D, "wv"),
+            "wo": dense((L, Hq, D), Hq, "wo"),
+            "ffn_norm": ones((L, D)),
+        }
     if cfg.attention_bias:
         blocks["bq"] = zeros((L, Hq))
         blocks["bk"] = zeros((L, Hkv))
@@ -141,22 +164,27 @@ def init_params(cfg: ModelConfig, seed: int = 0, device: DeviceLike = None,
     if cfg.qk_norm:
         blocks["q_norm"] = ones((L, Dh))
         blocks["k_norm"] = ones((L, Dh))
+    # An MoE model's first cfg.dense_layers layers are dense: their FFN
+    # stacks hold those layers, the expert stacks the rest (split_layers).
+    Ld = cfg.dense_layers if cfg.is_moe else L
     if cfg.is_moe:
-        E, Fm = cfg.num_experts, cfg.moe_intermediate_size
-        blocks["router"] = dense((L, D, E), D, "router")
-        blocks["we_gate"] = dense((L, E, D, Fm), D, "we_gate")
-        blocks["we_up"] = dense((L, E, D, Fm), D, "we_up")
-        blocks["we_down"] = dense((L, E, Fm, D), Fm, "we_down")
+        E, Fm, Lm = cfg.num_experts, cfg.moe_intermediate_size, L - Ld
+        blocks["router"] = dense((Lm, D, E), D, "router")
+        if cfg.scoring_func == "sigmoid":
+            blocks["e_bias"] = torch.zeros((Lm, E), dtype=torch.float32, device=dev)
+        blocks["we_gate"] = dense((Lm, E, D, Fm), D, "we_gate")
+        blocks["we_up"] = dense((Lm, E, D, Fm), D, "we_up")
+        blocks["we_down"] = dense((Lm, E, Fm, D), Fm, "we_down")
         if cfg.num_shared_experts:
             Fs = Fm * cfg.num_shared_experts
-            blocks["ws_gate"] = dense((L, D, Fs), D, "ws_gate")
-            blocks["ws_up"] = dense((L, D, Fs), D, "ws_up")
-            blocks["ws_down"] = dense((L, Fs, D), Fs, "ws_down")
-    else:
+            blocks["ws_gate"] = dense((Lm, D, Fs), D, "ws_gate")
+            blocks["ws_up"] = dense((Lm, D, Fs), D, "ws_up")
+            blocks["ws_down"] = dense((Lm, Fs, D), Fs, "ws_down")
+    if Ld:
         Fd = cfg.intermediate_size
-        blocks["w_gate"] = dense((L, D, Fd), D, "w_gate")
-        blocks["w_up"] = dense((L, D, Fd), D, "w_up")
-        blocks["w_down"] = dense((L, Fd, D), Fd, "w_down")
+        blocks["w_gate"] = dense((Ld, D, Fd), D, "w_gate")
+        blocks["w_up"] = dense((Ld, D, Fd), D, "w_up")
+        blocks["w_down"] = dense((Ld, Fd, D), Fd, "w_down")
     params = {
         "embed": dense((V, D), D, "embed"),
         "blocks": blocks,
@@ -251,7 +279,10 @@ def _per_layer_experts(stacks: dict) -> bool:
 def split_layers(cfg: ModelConfig, params: dict):
     """(per-layer param dicts, the whole MoE expert stacks or None): every
     stack is unbound once per forward but the experts', which stay whole
-    unless :func:`_per_layer_experts`."""
+    unless :func:`_per_layer_experts`.  In an MoE model with leading dense
+    layers (``cfg.dense_layers``), the dense FFN stacks hold those layers
+    and the MoE stacks the rest: layer li takes MoE entry li - dense_layers
+    (the whole expert stacks too, ``_ffn_block``)."""
     blocks = params["blocks"]
     stacks = {k: blocks[k] for k in EXPERT_STACK_KEYS if k in blocks} or None
     if stacks is not None and _per_layer_experts(stacks):
@@ -259,7 +290,16 @@ def split_layers(cfg: ModelConfig, params: dict):
     layers = {k: v if isinstance(v, (list, tuple)) else _unbind(v)
               for k, v in blocks.items()
               if stacks is None or k not in EXPERT_STACK_KEYS}
-    return [{k: v[li] for k, v in layers.items()}
+    k = cfg.dense_layers
+    if not k:
+        return [{name: v[li] for name, v in layers.items()}
+                for li in range(cfg.num_layers)], stacks
+    shared = {name: v for name, v in layers.items() if name not in DENSE_FFN_KEYS + MOE_KEYS}
+    dense = {name: v for name, v in layers.items() if name in DENSE_FFN_KEYS}
+    moe = {name: v for name, v in layers.items() if name in MOE_KEYS}
+    return [{**{name: v[li] for name, v in shared.items()},
+             **({name: v[li] for name, v in dense.items()} if li < k
+                else {name: v[li - k] for name, v in moe.items()})}
             for li in range(cfg.num_layers)], stacks
 
 
@@ -327,21 +367,23 @@ def _swiglu_partial(h: torch.Tensor, lp: dict) -> torch.Tensor:
 
 
 def _ffn_block(cfg: ModelConfig, x, lp, moe_stacks=None, layer_index=None,
-               plan: Optional[TPPlan] = None):
+               plan: Optional[TPPlan] = None, routes: Optional[list] = None):
     """Post-attention FFN half of a block: residual stream → (ffn_out, aux).
-    Under a tp plan the output is already summed over the model group."""
+    Under a tp plan the output is already summed over the model group.
+    ``routes``: an MoE layer appends its chosen experts (``moe_block``)."""
     B, S, D = x.shape
     h = rms_norm(x, lp["ffn_norm"], cfg.norm_eps)
-    if cfg.is_moe:
-        moe_params = {k: lp[k] for k in
-                      ("router", "we_gate", "we_up", "we_down",
-                       "ws_gate", "ws_up", "ws_down") if k in lp}
+    if cfg.is_moe and (layer_index is None or layer_index >= cfg.dense_layers):
+        moe_params = {k: lp[k] for k in MOE_KEYS if k in lp}
         if moe_stacks is not None:
             moe_params.update(moe_stacks)
         out, aux = moe_block(h.reshape(B * S, D), moe_params,
                              top_k=cfg.num_experts_per_tok,
                              norm_topk=cfg.norm_topk_prob,
-                             layer_index=layer_index, plan=plan)
+                             layer_index=(None if layer_index is None
+                                          else layer_index - cfg.dense_layers),
+                             plan=plan, sigmoid=cfg.scoring_func == "sigmoid",
+                             scale=cfg.routed_scaling_factor, routes=routes)
         return out.reshape(B, S, D), aux
     zero = torch.zeros((), dtype=torch.float32, device=x.device)
     if plan is not None and plan.ffn:
@@ -350,22 +392,28 @@ def _ffn_block(cfg: ModelConfig, x, lp, moe_stacks=None, layer_index=None,
 
 
 def block(cfg: ModelConfig, x: torch.Tensor, lp: dict, li: int, attend: Callable,
-          stacks: Optional[dict] = None, plan: Optional[TPPlan] = None):
+          stacks: Optional[dict] = None, plan: Optional[TPPlan] = None,
+          routes: Optional[list] = None):
     """Layer ``li`` of every pass on x [B, S, D]: (x, the FFN's aux loss).
     ``lp``: the layer's params; ``stacks``: the whole MoE expert stacks or
     None.  ``attend(li, q, k, v)`` → [B, S, H, Dh] is the pass's attention
-    on the layer's unrotated projections: where it rotates, which keys it
-    reads, whether K and V go into a cache.  ``plan`` (tensor parallelism
+    on the layer's unrotated projections (under latent attention q and the
+    latent row, ``models/mla.py::project``, and no v): where it rotates,
+    which keys it reads, whether K and V go into a cache.  ``plan`` (tensor parallelism
     under the active mesh): a head-sharded attention computes this rank's
     heads, ``wo``'s partial product and the FFN's are summed over the model
-    group before their residual adds; parts the plan replicates run whole."""
+    group before their residual adds; parts the plan replicates run whole.
+    ``routes``: a list that an MoE layer appends its chosen experts to."""
     B, S, _ = x.shape
     with span("model.attn"):
         h = rms_norm(x, lp["attn_norm"], cfg.norm_eps)
-        q, k, v = _attn_project(cfg, h, lp, plan)
+        if cfg.is_mla:
+            q, k, v = mla.project(cfg, h, lp)
+        else:
+            q, k, v = _attn_project(cfg, h, lp, plan)
         x = x + _out_project(attend(li, q, k, v).reshape(B, S, -1), lp["wo"], plan)
     with span("model.ffn"):
-        ffn_out, aux = _ffn_block(cfg, x, lp, stacks, li, plan)
+        ffn_out, aux = _ffn_block(cfg, x, lp, stacks, li, plan, routes)
         x = x + ffn_out
     return x, aux
 
@@ -382,11 +430,17 @@ def run_blocks(cfg: ModelConfig, params: dict, x: torch.Tensor, cos, sin,
     forward's attention: (x, the sum of the layers' aux losses).
     ``remat``: see :func:`forward`."""
 
+    layers, stacks = split_layers(cfg, params)
+    if cfg.is_mla:
+        key_start = mla.key_starts(attn_mask, x.shape[0], x.shape[1], x.device)
+
     def attend(li, q, k, v):
+        if cfg.is_mla:
+            q_pe, lat = mla.rotate(cfg, q, k, cos, sin)
+            return mla.up_attention(cfg, q, q_pe, lat, layers[li]["wkv_b"], key_start)
         return attention(q, k, v, mask=attn_mask, impl=cfg.attn_impl,
                          causal=cfg.causal, rope=(cos, sin), block_len=cfg.block_length)
 
-    layers, stacks = split_layers(cfg, params)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     ckpt_kw = dict(use_reentrant=False)
     if remat == "dots":
@@ -433,7 +487,7 @@ def forward(cfg: ModelConfig, params: dict, input_ids: torch.Tensor,
         x = embed_tokens(params, input_ids, plan)
         positions = (token_positions(attn_mask, B, S, x.device) if scope is None
                      else seq_positions(attn_mask, B, S, scope, x.device))
-        cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta)
+        cos, sin = rope_angles(positions, cfg.rope_dim, cfg.rope_theta)
 
     x, aux = run_blocks(cfg, params, x, cos, sin, attn_mask, plan, remat)
     aux = aux / max(cfg.num_layers, 1)

@@ -45,8 +45,9 @@ PyTorch chain that the CPU takes; it too raises under grad.
 
 The routing before the expert kernels is two kernels on the card
 (``csrc/moe_route.cu``).  :func:`router_topk` is G4: the router's softmax,
-stable top-k and renormalisation from its f32 logits, bit-equal to
-:func:`router_topk_plain`, the chain that the CPU takes; under grad its
+stable top-k and renormalisation from its f32 logits (or, in its sigmoid
+mode, DeepSeek-V3's biased sigmoid selection and scaled weights), bit-equal
+to :func:`router_topk_plain`, the chain that the CPU takes; under grad its
 backward (:func:`router_topk_backward`) is the chain's autograd written
 out, so training launches G4 too.  :func:`routed_layout` is G5: the padded
 layout, the pad-skip vector and the row gather in one call, equal to
@@ -65,7 +66,7 @@ import torch
 import torch.nn.functional as F
 
 from ct_diffusionmodelbench_tpu_torch.ops.cuda_build import (
-    INT, INT64, PTR, Kernel, Library, dtype_code)
+    FLOAT, INT, INT64, PTR, Kernel, Library, dtype_code)
 from ct_diffusionmodelbench_tpu_torch.ops.quant import is_quantized
 
 TILE_M = 64
@@ -93,6 +94,8 @@ COMBINE_KERNEL = Kernel("moe_combine", LIBRARY_COMBINE, "ctdb_moe_combine",
 LIBRARY_ROUTE = Library("moe_route.cu")
 TOPK_KERNEL = Kernel("moe_topk", LIBRARY_ROUTE, "ctdb_moe_topk",
                      [PTR] * 4 + [INT] * 4 + [PTR])
+TOPK_SIGMOID_KERNEL = Kernel("moe_topk_sigmoid", LIBRARY_ROUTE, "ctdb_moe_topk_sigmoid",
+                             [PTR] * 5 + [INT] * 4 + [FLOAT, PTR])
 LAYOUT_KERNEL = Kernel("moe_layout", LIBRARY_ROUTE, "ctdb_moe_layout",
                        [PTR, INT64, INT64] + [PTR] * 4 + [INT64] + [PTR] * 3 + [INT] * 7
                        + [PTR])
@@ -513,12 +516,29 @@ def gather_rows(x: torch.Tensor, dest: torch.Tensor, k: int, m_pad: int):
 # routing: the router's top-k (G4) and the padded layout with its rows (G5)
 # ---------------------------------------------------------------------------
 
-def router_topk_plain(logits: torch.Tensor, top_k: int, norm_topk: bool):
+def router_topk_plain(logits: torch.Tensor, top_k: int, norm_topk: bool,
+                      sigmoid: bool = False, bias: Optional[torch.Tensor] = None,
+                      scale: float = 1.0):
     """(topk_probs [N, K] f32, topk_idx [N, K] int64, full_probs [N, E] f32)
     of the router's f32 logits: softmax, a stable descending sort (ties to
     the lowest expert index, as ``jax.lax.top_k`` orders them; ``torch.topk``
     on CUDA does not promise that), the first K, renormalised to sum 1 with
-    ``norm_topk``."""
+    ``norm_topk``.
+
+    ``sigmoid`` (DeepSeek-V3's ``noaux_tc`` router with one group): the
+    sigmoid of the logits, sorted the same way after adding the f32
+    selection ``bias`` [E] (or nothing), the first K's unbiased scores
+    renormalised by their sum + 1e-20 with ``norm_topk``, times ``scale``
+    (HF's ``DeepseekV3TopkRouter`` op for op)."""
+    if sigmoid:
+        scores = torch.sigmoid(logits)
+        choice = scores if bias is None else scores + bias.float()
+        order = torch.sort(choice, dim=-1, descending=True, stable=True)[1]
+        topk_idx = order[:, :top_k]
+        topk_probs = scores.gather(-1, topk_idx)
+        if norm_topk:
+            topk_probs = topk_probs / (topk_probs.sum(dim=-1, keepdim=True) + 1e-20)
+        return topk_probs * scale, topk_idx, scores
     probs = torch.softmax(logits, dim=-1)
     sorted_p, order = torch.sort(probs, dim=-1, descending=True, stable=True)
     topk_probs = sorted_p[:, :top_k]
@@ -528,10 +548,14 @@ def router_topk_plain(logits: torch.Tensor, top_k: int, norm_topk: bool):
     return topk_probs, topk_idx, probs
 
 
-def router_topk_cuda(logits: torch.Tensor, top_k: int, norm_topk: bool):
-    """Launch G4 (``ctdb_moe_topk``) on contiguous f32 logits [N, E], E at
-    most ``TOPK_MAX_EXPERTS``, 1 ≤ K ≤ min(E, ``TOPK_MAX_K``); returns
-    contiguous outputs.  Shape and dtype are checked before the device."""
+def router_topk_cuda(logits: torch.Tensor, top_k: int, norm_topk: bool,
+                     sigmoid: bool = False, bias: Optional[torch.Tensor] = None,
+                     scale: float = 1.0):
+    """Launch G4 (``ctdb_moe_topk``, or ``ctdb_moe_topk_sigmoid`` with
+    ``sigmoid``) on contiguous f32 logits [N, E], E at most
+    ``TOPK_MAX_EXPERTS``, 1 ≤ K ≤ min(E, ``TOPK_MAX_K``); ``bias`` a
+    contiguous f32 [E] on the same card or None; returns contiguous
+    outputs.  Shape and dtype are checked before the device."""
     if logits.ndim != 2 or logits.dtype != torch.float32:
         raise ValueError(f"logits must be float32 [N, E], got {logits.dtype} "
                          f"{tuple(logits.shape)}")
@@ -545,13 +569,21 @@ def router_topk_cuda(logits: torch.Tensor, top_k: int, norm_topk: bool):
         raise ValueError(f"router_topk_cuda needs a CUDA tensor, got {dev}")
     if not logits.is_contiguous():
         raise ValueError("logits must be contiguous")
+    if bias is not None and (bias.dtype != torch.float32 or tuple(bias.shape) != (e,)
+                             or bias.device != dev or not bias.is_contiguous()):
+        raise ValueError(f"bias must be a contiguous float32 [{e}] on {dev}, got "
+                         f"{bias.dtype} {tuple(bias.shape)} on {bias.device}")
     probs = torch.empty_like(logits)
     topk_probs = torch.empty((n, top_k), dtype=torch.float32, device=dev)
     topk_idx = torch.empty((n, top_k), dtype=torch.int64, device=dev)
-    if n:
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if n and sigmoid:
+        TOPK_SIGMOID_KERNEL(logits.data_ptr(), None if bias is None else bias.data_ptr(),
+                            probs.data_ptr(), topk_probs.data_ptr(), topk_idx.data_ptr(),
+                            n, e, top_k, int(bool(norm_topk)), float(scale), stream)
+    elif n:
         TOPK_KERNEL(logits.data_ptr(), probs.data_ptr(), topk_probs.data_ptr(),
-                    topk_idx.data_ptr(), n, e, top_k, int(bool(norm_topk)),
-                    torch.cuda.current_stream(dev).cuda_stream)
+                    topk_idx.data_ptr(), n, e, top_k, int(bool(norm_topk)), stream)
     return topk_probs, topk_idx, probs
 
 
@@ -587,15 +619,19 @@ class _RouterTopk(torch.autograd.Function):
                 None, None)
 
 
-def router_topk(logits: torch.Tensor, top_k: int, norm_topk: bool):
+def router_topk(logits: torch.Tensor, top_k: int, norm_topk: bool, sigmoid: bool = False,
+                bias: Optional[torch.Tensor] = None, scale: float = 1.0):
     """The router's top-k from its f32 logits [N, E] (see
     :func:`router_topk_plain`).  G4 on the card, bit-equal to the chain run
-    there, with or without grad; the chain itself on the CPU."""
+    there, with or without grad (the sigmoid mode without grad only); the
+    chain itself on the CPU."""
     if logits.device.type == "cpu":
-        return router_topk_plain(logits, top_k, norm_topk)
+        return router_topk_plain(logits, top_k, norm_topk, sigmoid, bias, scale)
     if torch.is_grad_enabled() and logits.requires_grad:
+        if sigmoid:
+            raise NotImplementedError("G4's sigmoid mode has no backward")
         return _RouterTopk.apply(logits, top_k, norm_topk)
-    return router_topk_cuda(logits, top_k, norm_topk)
+    return router_topk_cuda(logits, top_k, norm_topk, sigmoid, bias, scale)
 
 
 def routed_layout_cuda(x: torch.Tensor, topk_idx: torch.Tensor, e: int, tile_m: int,

@@ -104,6 +104,12 @@ def span(name: str):
     return Span(name)
 
 
+def tracing_on() -> bool:
+    """Whether the tracer records: a counter whose value needs a device
+    read (and so a sync) is computed only then."""
+    return _ON
+
+
 def count(name: str, n: int) -> None:
     """Adds the host integer ``n`` to the counter ``name`` when the tracer
     is on.  Refuses a tensor, on or off: reading one would sync the device."""

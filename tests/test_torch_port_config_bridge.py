@@ -53,9 +53,13 @@ def _is_forbidden(module: str) -> bool:
 
 def _jax_fields(t) -> dict:
     """The port config's fields that the JAX package's config has; the
-    port-only ``block_length`` must be 0 there."""
+    port-only ``block_length`` must be 0 there, and the other port-only
+    fields (latent attention, the sigmoid router) at their defaults."""
     d = dataclasses.asdict(t)
     assert d.pop("block_length") == 0
+    defaults = {f.name: f.default for f in dataclasses.fields(tcfg.ModelConfig)}
+    for name in tcfg.PORT_ONLY_FIELDS:
+        assert d.pop(name) == defaults[name], name
     return d
 
 

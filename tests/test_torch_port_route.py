@@ -252,12 +252,13 @@ def _metric_module(name):
 
 
 def test_route_kernel_names_read_as_neither_product_nor_expert_ffn():
-    """G4's and G5's kernels hold none of the GEMM metric's patterns and none
+    """G4's (both modes) and G5's kernels hold none of the GEMM metric's patterns and none
     of the roofline readers' kernel names, so a profile counts them in
     none of those metrics."""
     src = (REPO / "ct_diffusionmodelbench_tpu_torch" / "csrc" / "moe_route.cu").read_text()
     names = set(re.findall(r"__global__ void __launch_bounds__\(\w+\)\s+(\w+)\(", src))
-    assert names == {"ctdb_moe_topk_kernel", "ctdb_moe_layout_count_kernel",
+    assert names == {"ctdb_moe_topk_kernel", "ctdb_moe_topk_sigmoid_kernel",
+                     "ctdb_moe_layout_count_kernel",
                      "ctdb_moe_layout_scan_kernel", "ctdb_moe_layout_gather_kernel"}
     gemm = _metric_module("dense_gemm_roofline.decode")
     kernels = [kname for metric in ("grouped_ffn_roofline.decode", "flash_fwd_roofline.decode",
